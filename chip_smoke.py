@@ -6,23 +6,44 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``idunno_tpu_torch/csrc/`` with
-``nvcc``, holds each against its plain PyTorch version, times it, and then
-drives the port's main path: ResNet-18 and AlexNet at full width (224²
-crops of 256² images, engine batch 256, seeded random weights) served by
-an in-process cluster of three hosts (membership, fair scheduler,
-inference service) around one engine on the card. Phases:
+``nvcc`` (all sources at once), holds each against its plain PyTorch
+version, times it, and then drives the port's two main paths:
+
+- CNN serving: ResNet-18 and AlexNet at full width (224² crops of 256²
+  images, engine batch 256, seeded random weights) served by an
+  in-process cluster of three hosts (membership, fair scheduler,
+  inference service) around one engine on the card — kernel K1;
+- LM serving: the 0.2 B-parameter ``TransformerLM`` (dim 1024, depth 12,
+  16 heads, vocab 32768, bf16, seeded random weights) — its full forward
+  prefill through the flash kernel K2, and a continuous-batching
+  ``DecodeServer`` with the paged KV block pool and radix prefix cache,
+  driven by ``LMServingLoop`` from two request threads, attending cached
+  prefixes through the paged kernel K3.
+
+Phases:
 
 1. card and build: the card's name and power limit, ``-Xptxas -v``;
-2. every kernel against its plain version, at the main path's shapes;
-3. kernel timing with CUDA events, beside its bound and the plain time;
-4. serving: concurrent ``resnet`` and ``alexnet`` queries of 1024 images
-   each; every record must come back, no engine error may be reported,
-   and the launch count of every kernel, zeroed just before, must rise;
-5. preprocess paths on the same weights: ``kernel`` logits against
+2. every kernel against its plain version, at the main paths' shapes;
+3. kernel timing with CUDA events, beside its bound, the plain time and,
+   where one exists, one PyTorch library call computing the same function;
+4. CNN serving: concurrent ``resnet`` and ``alexnet`` queries of 1024
+   images each; every record must come back, no engine error may be
+   reported, and the K1 launch count, zeroed just before, must rise;
+5. CNN preprocess paths on the same weights: ``kernel`` logits against
    ``plain`` and ``fold``, the card's logits against an f32 CPU reference
    on 8 images, and each path's images/s;
-6. one JSON line ``{"kernels": [...]}``;
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. LM prefill: the full-width forward on [4, 1024] tokens through
+   ``make_attn_fn("auto")``; K2 launches must equal depth × forwards, and
+   the logits must agree with the ``full`` attention forward; one forward
+   under ``torch.profiler`` gives K2's share of the device time;
+7. LM serving: 48 shared-prefix prompts from two threads; every request
+   completes with prompt + max_new in-vocab tokens, radix hits > 0, K3
+   launches (zeroed just before) > 0, no loop errors; tokens/s and TTFT;
+8. LM token exactness: the same workload at full width, depth 2, f32, on
+   a ``paged_kernel="kernel"`` and a ``"plain"`` pool: equal greedy
+   streams;
+9. one JSON line ``{"kernels": [...]}``;
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -41,6 +62,11 @@ CROP, SIDE, BATCH = 224, 256, 256
 N_QUERY = 1024                   # images per model query in phase 4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+KERNELS = ("preprocess", "flash_attention", "paged_attention")
+LM_BLOCK = 16                    # KV block size of the served pool
+LM_DECODE_STEPS = 16             # decode steps per DecodeServer.step()
+LM_FORWARDS = 5                  # timed prefill forwards in phase 6
 
 
 def say(phase: str, **fields) -> None:
@@ -62,6 +88,35 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds of ``fn`` with the host out of the way:
+    ``iters`` calls captured into one CUDA graph, replayed ``replays``
+    times between CUDA events. For calls whose device time is shorter
+    than the host's enqueue time (a small kernel behind a Python
+    wrapper), where `cuda_ms` would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bf16_ulp(x):
@@ -97,10 +152,48 @@ def phase_build() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    cuda_build.build(["preprocess"])
-    say("build", seconds=round(time.time() - t0, 3))
-    print(cuda_build.ptxas_report("preprocess"), flush=True)
+    cuda_build.build(list(KERNELS))
+    say("build", seconds=round(time.time() - t0, 3), sources=list(KERNELS))
+    for name in KERNELS:
+        print(f"ptxas {name}.cu:", flush=True)
+        print(ptxas_summary(cuda_build.ptxas_report(name)), flush=True)
     return smi
+
+
+def ptxas_summary(report: str) -> str:
+    """One line per compiled kernel of an ``-Xptxas -v`` report: its name,
+    then registers, shared memory and spills."""
+    lines, spill = [], ""
+    fn = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            lines.append(f"  {fn}: {line.split(':', 1)[1].strip()}; {spill}")
+            fn, spill = None, ""
+    return "\n".join(lines)
+
+
+def zero_launches() -> None:
+    from idunno_tpu_torch.ops.flash_attention import flash_attention_kernel
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
+
+    for fn in (preprocess_batch_kernel, flash_attention_kernel,
+               paged_attention_kernel):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from idunno_tpu_torch.ops.flash_attention import flash_attention_kernel
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
+
+    return {"preprocess": preprocess_batch_kernel.launches,
+            "flash_attention": flash_attention_kernel.launches,
+            "paged_attention": paged_attention_kernel.launches}
 
 
 def phase_kernel_vs_plain() -> float:
@@ -140,8 +233,9 @@ def phase_timing() -> dict:
     x = torch.randint(0, 256, (BATCH, SIDE, SIDE, 3), dtype=torch.uint8,
                       generator=torch.Generator().manual_seed(1)).cuda()
     # 50 MB in + 77 MB out per launch: more than the 50 MB L2, so
-    # back-to-back launches read and write device memory
-    kernel_ms = cuda_ms(lambda: preprocess_batch_kernel(x, CROP), 200)
+    # back-to-back launches read and write device memory. Graph replay: on
+    # a slow host the wrapper's enqueue time approaches the kernel's 46 µs
+    kernel_ms = graph_ms(lambda: preprocess_batch_kernel(x, CROP), 100)
     plain_ms = cuda_ms(lambda: preprocess_batch_plain(x, CROP), 20)
     elems = BATCH * CROP * CROP * 3
     bytes_ms = (elems * 1 + elems * 2) / HBM_BYTES_PER_S * 1e3
@@ -151,7 +245,8 @@ def phase_timing() -> dict:
          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
          "library_ms": None}
     say("timing", kernel="preprocess", batch=BATCH, **t,
-        achieved_gb_per_s=(elems * 3) / (kernel_ms * 1e-3) / 1e9)
+        achieved_gb_per_s=(elems * 3) / (kernel_ms * 1e-3) / 1e9,
+        timed_by="cuda graph replay")
     return t
 
 
@@ -161,7 +256,6 @@ def phase_serving(engine) -> int:
     from idunno_tpu_torch.comm.inproc import InProcNetwork
     from idunno_tpu_torch.config import ClusterConfig
     from idunno_tpu_torch.membership.service import MembershipService
-    from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
     from idunno_tpu_torch.scheduler.fair import FairScheduler
     from idunno_tpu_torch.serve.inference_service import InferenceService
     from idunno_tpu_torch.serve.metrics import MetricsTracker
@@ -187,7 +281,7 @@ def phase_serving(engine) -> int:
             m.ping_once()
         clock.advance(0.3)
 
-    preprocess_batch_kernel.launches = 0
+    zero_launches()
     t0 = time.time()
     qr = services["n2"].submit_query("resnet", 0, N_QUERY - 1)
     qa = services["n1"].submit_query("alexnet", 0, N_QUERY - 1)
@@ -207,7 +301,7 @@ def phase_serving(engine) -> int:
         for s in services.values():
             s.process_jobs_once()
     wall = time.time() - t0
-    launches = preprocess_batch_kernel.launches
+    launches = read_launches()["preprocess"]
     errors = {m: n for s in services.values()
               for m, n in s._task_errors.items()}
     if errors:
@@ -292,6 +386,472 @@ def phase_paths(engines: dict, card: str) -> None:
                 staged_images_per_s_min=r[0], staged_images_per_s_max=r[-1])
 
 
+# -- LM kernels and paths (K2, K3) ----------------------------------------
+
+FLASH_CHECKS = (((4, 1024, 16, 64), True), ((4, 1024, 16, 64), False),
+                ((4, 1000, 16, 64), True))
+
+
+def flash_inputs(shape, seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda")
+                 .to(torch.bfloat16) for _ in range(3))
+
+
+def phase_flash_vs_plain() -> float:
+    """K2 against its plain version at the prefill shape (bf16 [4, 1024,
+    16, 64]) causal and not, and at a ragged T = 1000: each out element
+    within 2 bf16 ulps of its own magnitude, max(|out|, |ref|), plus an
+    f32 floor of 1e-5; lse within 1e-3. Returns the largest |out
+    difference|."""
+    import torch
+
+    from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
+                                                      flash_attention_plain)
+
+    worst = 0.0
+    for i, (shape, causal) in enumerate(FLASH_CHECKS):
+        q, k, v = flash_inputs(shape, 10 + i)
+        out, lse = flash_attention_kernel(q, k, v, causal=causal)
+        ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        o, r = out.float(), ref.float()
+        diff = (o - r).abs()
+        # both round an f32 result that differs only by summation order
+        # (online vs one-pass softmax) to bf16
+        tol = 2 * bf16_ulp(torch.maximum(o.abs(), r.abs())) + 1e-5
+        ratio = float((diff.double() / tol).max())
+        lse_err = float((lse - ref_lse).abs().max())
+        say("kernel_vs_plain", kernel="flash_attention", shape=list(shape),
+            causal=causal, max_abs_err=float(diff.max()),
+            max_err_over_tolerance=ratio,
+            tolerance="2 bf16 ulps of max(|out|, |ref|) + 1e-5, per element",
+            lse_max_abs_err=lse_err, lse_tolerance=1e-3)
+        if not (ratio <= 1.0 and lse_err <= 1e-3 and out.dtype == q.dtype
+                and lse.shape == (shape[0], shape[2], shape[1])):
+            raise AssertionError(f"flash kernel off: out at {ratio} of its "
+                                 f"tolerance or lse {lse_err} > 1e-3 at "
+                                 f"{shape}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def paged_inputs(*, b, t, kvh, g, d, n, bs, chains, int8, seed, layers=None):
+    """Decode-pool inputs: f32 queries, pages (bf16, or int8 with f32
+    per-token scales; ``layers`` stacks that many layers' stores), tables
+    whose live entries are distinct pages and dead entries 0, and
+    block-aligned lengths ``chains[b] * bs``."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if layers is None else (layers,)
+    shape = lead + (n, bs, kvh, d)
+    q5 = torch.randn((b, t, kvh, g, d), generator=gen, device="cuda")
+    ks = vs = None
+    if int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02
+                  + 0.001 for _ in range(2))
+    else:
+        kp, vp = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+    c = max(1, max(chains))
+    tables = torch.zeros((b, c), dtype=torch.int32)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    used = 0
+    for r, nb in enumerate(chains):
+        tables[r, :nb] = perm[used:used + nb]
+        used += nb
+    lengths = torch.tensor([nb * bs for nb in chains], dtype=torch.int32)
+    return q5, kp, vp, tables.cuda(), lengths.cuda(), ks, vs
+
+
+def paged_shapes():
+    """(label, inputs kwargs) of the K3 checks: the served decode shape
+    (16 slots, 16 kv-heads, bs 16, chains of 0-3 blocks, row 0 empty) and
+    a radix-hit prefill (one row, 64 query positions, a 3-block chain)."""
+    rng = random.Random(3)
+    chains = [0] + [rng.randint(0, 3) for _ in range(15)]
+    return (("decode", dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=LM_BLOCK,
+                            chains=chains)),
+            ("hit_prefill", dict(b=1, t=64, kvh=16, g=1, d=64, n=68,
+                                 bs=LM_BLOCK, chains=[3])))
+
+
+def phase_paged_vs_plain() -> float:
+    """K3 against its plain version at the decode and hit-prefill shapes,
+    bf16 and int8 pages: out and lse within 1e-5 relative; empty chains
+    exactly (0, -1e30). Returns the largest |out difference|."""
+    import torch
+
+    from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
+                                                      paged_attention_kernel)
+
+    worst = 0.0
+    for label, dims in paged_shapes():
+        for int8 in (False, True):
+            q5, kp, vp, tables, lengths, ks, vs = paged_inputs(
+                int8=int8, seed=20 + int8, **dims)
+            out, lse = paged_attention_kernel(
+                q5, kp, vp, tables, lengths, k_scale_pages=ks,
+                v_scale_pages=vs)
+            ref, ref_lse = _paged_plain(q5, kp, vp, tables, lengths,
+                                        k_scale_pages=ks, v_scale_pages=vs,
+                                        scale=1.0 / dims["d"] ** 0.5)
+            torch.cuda.synchronize()
+            diff = float((out - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            lse_err = float(((lse - ref_lse).abs()
+                             / ref_lse.abs().clamp_min(1.0)).max())
+            empty = lengths == 0
+            exact_empty = bool((out[empty] == 0).all()
+                               and (lse[empty] == -1e30).all())
+            say("kernel_vs_plain", kernel="paged_attention", shape=label,
+                pages="int8" if int8 else "bf16", max_abs_err=diff,
+                tolerance=tol, lse_max_rel_err=lse_err, lse_tolerance=1e-5,
+                empty_rows=int(empty.sum()), empty_rows_exact=exact_empty)
+            if not (diff <= tol and lse_err <= 1e-5 and exact_empty):
+                raise AssertionError(f"paged kernel off at {label} "
+                                     f"int8={int8}: out {diff}, lse {lse_err}")
+            worst = max(worst, diff)
+    return worst
+
+
+def phase_flash_timing() -> dict:
+    """K2 at the prefill shape (bf16 [4, 1024, 16, 64], causal) against its
+    bound, its plain version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
+                                                      flash_attention_plain)
+
+    b, t, h, d = shape = (4, 1024, 16, 64)
+    q, k, v = flash_inputs(shape, 30)
+    kernel_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True),
+                        50)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True),
+                       10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 50)
+    # q, k, v read once and out written once; the causal work is the
+    # T(T+1)/2 live (query, key) pairs, two D-long products each
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 2 * 2 * b * h * d * t * (t + 1) // 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    out = {"ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms}
+    say("timing", kernel="flash_attention", shape=list(shape), causal=True,
+        **out, bytes=nbytes, flops=flops, library_timed_by="cuda graph replay",
+        achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12)
+    return out
+
+
+def phase_paged_timing() -> dict:
+    """K3 at the served decode shape (16 rows, 15 with a 3-block chain as a
+    radix hit of 48 tokens gives, one empty), bf16 pages. The pages of 12
+    layers rotate as in a decode step (54 MB, above the 50 MB L2), so each
+    launch reads its pages from device memory."""
+    import torch
+
+    from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
+                                                      paged_attention_kernel)
+
+    layers, bs, d = 12, LM_BLOCK, 64
+    chains = [0] + [3] * 15
+    q5, kp, vp, tables, lengths, _, _ = paged_inputs(
+        b=16, t=1, kvh=16, g=1, d=d, n=68, bs=bs, chains=chains, int8=False,
+        seed=40, layers=layers)
+    it = iter(range(10 ** 9))
+
+    def kernel():
+        i = next(it) % layers
+        return paged_attention_kernel(q5, kp[i], vp[i], tables, lengths)
+
+    # graph replay: one launch takes less device time than its wrapper
+    # takes to enqueue it, so a plain loop of launches would time the host
+    kernel_ms = graph_ms(kernel, 240)
+    host_loop_ms = cuda_ms(kernel, 240)
+    plain_ms = graph_ms(lambda: _paged_plain(
+        q5, kp[0], vp[0], tables, lengths, scale=1.0 / d ** 0.5), 24)
+    live = sum(chains) * bs                     # live tokens over the rows
+    kvh = q5.shape[2]
+    nbytes = (2 * live * kvh * d * kp.element_size()       # K and V pages
+              + 2 * q5.numel() * 4 + q5.numel() // d * 4   # q, out, lse
+              + tables.numel() * 4 + lengths.numel() * 4)
+    flops = 2 * 2 * live * kvh * d             # q.k and p.v per live key
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    out = {"ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None}
+    say("timing", kernel="paged_attention", shape="decode", **out,
+        bytes=nbytes, flops=flops, live_tokens=live,
+        host_loop_ms=host_loop_ms, timed_by="cuda graph replay")
+    return out
+
+
+def build_lm(cfg: dict, dtype, depth: int, seed: int):
+    """The full-width TransformerLM on the card, seeded with flax's
+    initialisers."""
+    import torch
+
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.transformer import TransformerLM
+
+    with torch.device("cuda"):
+        model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
+                              num_heads=cfg["heads"], dtype=torch.float32)
+    init_like_flax(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model.to(torch.bfloat16 if dtype == "bf16" else torch.float32
+                    ).eval().requires_grad_(False)
+
+
+def phase_lm_prefill(model, cfg: dict, card: str) -> int:
+    """The full forward at [4, 1024] through ``make_attn_fn("auto")`` (K2
+    on the card); returns K2's launches in the timed forwards."""
+    import torch
+
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+
+    b, t = cfg["prefill_batch"], cfg["prefill_seq"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(1, cfg["vocab"], (b, t), generator=g, device="cuda")
+    rates = {}
+    with torch.no_grad():
+        logits = {}
+        for kind in ("full", "auto"):
+            model.set_attn_fn(make_attn_fn(kind))
+            model(toks)                                   # warm
+            torch.cuda.synchronize()
+            if kind == "auto":
+                zero_launches()
+            t0 = time.perf_counter()
+            for _ in range(LM_FORWARDS):
+                out = model(toks)
+            torch.cuda.synchronize()
+            rates[kind] = LM_FORWARDS * b * t / (time.perf_counter() - t0)
+            if kind == "auto":
+                launches = read_launches()["flash_attention"]
+            logits[kind] = out
+    model.set_attn_fn(make_attn_fn("full"))
+    ref, got = logits["full"], logits["auto"]
+    if got.shape != (b, t, cfg["vocab"]) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits bad: {tuple(got.shape)}")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    say("lm_prefill", card=card, batch=b, seq=t, depth=model.depth,
+        forwards=LM_FORWARDS, flash_tokens_per_s=rates["auto"],
+        full_tokens_per_s=rates["full"], flash_launches=launches,
+        flash_vs_full_max_rel_err=rel, tolerance=2e-2)
+    if launches != model.depth * LM_FORWARDS:
+        raise AssertionError(f"K2 launched {launches} times in "
+                             f"{LM_FORWARDS} forwards of depth {model.depth}")
+    if not rel <= 2e-2:
+        raise AssertionError(f"flash forward off the full forward by {rel}")
+    model.set_attn_fn(make_attn_fn("auto"))
+    with torch.no_grad():
+        wall_ms, by_name, n = device_profile(lambda: model(toks))
+    model.set_attn_fn(make_attn_fn("full"))
+    busy_ms = sum(by_name.values())
+    flash_ms = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    say("lm_prefill_profile", card=card, wall_ms=wall_ms, kernel_launches=n,
+        device_busy_ms=busy_ms if n else "not measured",
+        device_busy_share=busy_ms / wall_ms if n else "not measured",
+        flash_device_ms=flash_ms if n else "not measured",
+        flash_share_of_device=flash_ms / busy_ms if n else "not measured",
+        top_kernels_ms=dict(by_name.most_common(8)))
+    return launches
+
+
+def lm_pool_kw(cfg: dict, buckets) -> dict:
+    return dict(slots=cfg["slots"], prompt_len=cfg["prompt_len"],
+                max_len=cfg["max_len"], decode_steps=LM_DECODE_STEPS,
+                prompt_buckets=buckets, kv_block_size=LM_BLOCK,
+                kv_cache_blocks=(cfg["slots"] + 1) * 4)
+
+
+def phase_lm_serving(model, cfg: dict, card: str) -> int:
+    """48 shared-prefix prompts from two threads through an LMServingLoop
+    around the full-width paged DecodeServer; returns K3's launches."""
+    import threading
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.serve.lm_pool import LMServingLoop
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+    from idunno_tpu_torch.utils.spans import SpanStore
+
+    prompts, shared, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    srv = DecodeServer(model, paged_kernel="auto", device="cuda",
+                       **lm_pool_kw(cfg, buckets))
+    warm_s = srv.warmup()
+    spans = SpanStore("chip")
+    loop = LMServingLoop(srv, name="lm", spans=spans)
+    traces: dict[int, str] = {}
+    errors: list[str] = []
+    lock = threading.Lock()
+
+    def client(ps):
+        try:
+            for p in ps:
+                tid = spans.new_trace()
+                rid = loop.submit(p, max_new=max_new, trace=(tid, None))
+                with lock:
+                    traces[rid] = tid
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    done = {}
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(prompts[i::2],))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        deadline = time.monotonic() + 600
+        while len(done) < len(prompts) and time.monotonic() < deadline:
+            for c in loop.poll():
+                done[c.id] = c
+            errors.extend(loop.errors())
+            if errors:
+                break
+            time.sleep(0.005)
+        wall = time.perf_counter() - t0
+        launches = read_launches()["paged_attention"]
+        stats = loop.stats()
+    finally:
+        loop.stop()
+    errors.extend(loop.errors())
+    if errors:
+        raise AssertionError(f"serving loop reported errors: {errors[:5]}")
+    if sorted(done) != sorted(traces) or len(done) != len(prompts):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests done")
+    want_len = cfg["prompt_len"] + max_new
+    for c in done.values():
+        if (len(c.tokens) != want_len or c.cancelled
+                or not all(0 <= x < cfg["vocab"] for x in c.tokens)):
+            raise AssertionError(f"request {c.id}: {len(c.tokens)} tokens, "
+                                 f"want {want_len} in the vocab")
+    hits = stats["prefix_cache"]["hits"]
+    if hits <= 0 or launches <= 0:
+        raise AssertionError(f"radix hits {hits}, K3 launches {launches}")
+    ttft = []
+    wire = spans.dump()
+    for tid in traces.values():
+        mine = {s["name"]: s for s in wire if s["trace_id"] == tid}
+        ttft.append(mine["lm.prefill"]["t_end"] - mine["lm.admit"]["t_start"])
+    ttft.sort()
+    gen = sum(len(c.tokens) - c.prompt_len for c in done.values())
+    steps = stats["dispatches"] * LM_DECODE_STEPS
+    # every radix-hit prefill attends its hit through K3 once per layer
+    prefill_launches = hits * model.depth
+    say("lm_serving", card=card, requests=len(done), max_new=max_new,
+        decode_steps_per_dispatch=LM_DECODE_STEPS, warmup_s=warm_s,
+        wall_s=wall, tokens_generated=gen, tokens_per_s=gen / wall,
+        ttft_p50_s=ttft[len(ttft) // 2],
+        ttft_p95_s=ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+        dispatches=stats["dispatches"], decode_model_steps=steps,
+        radix_hits=hits, radix_lookups=stats["prefix_cache"]["lookups"],
+        paged_launches=launches,
+        paged_launches_in_hit_prefills=prefill_launches,
+        paged_launches_per_decode_step=(launches - prefill_launches) / steps,
+        prefill_tokens=stats["prefill_tokens"],
+        kv_gather_bytes_saved=stats["kv_gather_bytes_saved"])
+    profile_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
+    return launches
+
+
+def device_profile(fn):
+    """``fn`` once under ``torch.profiler``, after a synchronize: (its wall
+    ms, a Counter of device ms by kernel name, the number of kernels the
+    profiler recorded). The counter is empty where it records none."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    return wall_ms, by_name, len(kernels)
+
+
+def profile_dispatch(srv, prompts, max_new: int, card: str) -> None:
+    """One decode dispatch (``decode_steps`` model steps, every slot live)
+    under ``torch.profiler``: its wall time, the device's kernel time and
+    busy share, and the kernels that take the most of it. Prints "not
+    measured" for the device numbers where the profiler records no
+    kernel."""
+    for p in prompts:
+        srv.submit(p, max_new=max_new)
+    srv.step()                             # admissions + one dispatch
+    wall_ms, by_name, n = device_profile(srv.step)
+    srv.run_until_drained()
+    busy_ms = sum(by_name.values())
+    steps = srv.decode_steps
+    say("lm_decode_profile", card=card, live_rows=len(prompts),
+        model_steps=steps, wall_ms=wall_ms,
+        wall_ms_per_model_step=wall_ms / steps,
+        kernel_launches_per_model_step=n / steps,
+        device_busy_ms=busy_ms if n else "not measured",
+        device_busy_share=busy_ms / wall_ms if n else "not measured",
+        top_kernels_ms=dict(by_name.most_common(8)))
+
+
+def phase_lm_exactness(cfg: dict) -> None:
+    """Full width, depth 2, f32: a ``kernel`` and a ``plain`` paged pool
+    serve the shared-prefix workload; their greedy streams must be
+    equal token for token."""
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_lm(cfg, "f32", depth=2, seed=1)
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    streams, hits = {}, {}
+    for kernel in ("kernel", "plain"):
+        srv = DecodeServer(model, paged_kernel=kernel, device="cuda",
+                           **lm_pool_kw(cfg, buckets))
+        ids = [srv.submit(p, max_new=max_new) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        streams[kernel] = [done[i] for i in ids]
+        hits[kernel] = srv.prefix_cache_stats()["hits"]
+    differ = sum(a != b for sa, sb in zip(streams["kernel"], streams["plain"])
+                 for a, b in zip(sa, sb))
+    say("lm_exactness", depth=2, dtype="float32", requests=len(prompts),
+        tokens_per_stream=len(streams["kernel"][0]), radix_hits=hits,
+        tokens_differing=differ)
+    if streams["kernel"] != streams["plain"] or hits["kernel"] <= 0:
+        raise AssertionError(f"kernel and plain pools differ in {differ} "
+                             f"tokens (hits {hits})")
+    del model
+
+
 def main() -> int:
     try:
         import torch
@@ -304,6 +864,7 @@ def main() -> int:
     try:
         from idunno_tpu_torch.config import EngineConfig
         from idunno_tpu_torch.engine.inference import InferenceEngine
+        from idunno_tpu_torch.utils.lm_bench import lm_bench_config
     except ImportError as e:
         print(f"chip_smoke: the idunno_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -312,8 +873,12 @@ def main() -> int:
         cuda=torch.version.cuda)
     smi = phase_build()
     kind = torch.cuda.get_device_name(0)
-    max_abs_err = phase_kernel_vs_plain()
-    timing = phase_timing()
+    err = {"preprocess": phase_kernel_vs_plain(),
+           "flash_attention": phase_flash_vs_plain(),
+           "paged_attention": phase_paged_vs_plain()}
+    timing = {"preprocess": phase_timing(),
+              "flash_attention": phase_flash_timing(),
+              "paged_attention": phase_paged_timing()}
 
     cfg = dict(batch_size=BATCH, image_size=CROP, resize_size=SIDE)
     engines = {mode: InferenceEngine(EngineConfig(preprocess=mode, **cfg),
@@ -321,17 +886,30 @@ def main() -> int:
                for mode in ("kernel", "plain", "fold")}
     for name in ("resnet", "alexnet"):
         engines["kernel"].warmup(name)
-    launches = phase_serving(engines["kernel"])
+    launches = {"preprocess": phase_serving(engines["kernel"])}
     phase_paths(engines, smi)
+    del engines
+    torch.cuda.empty_cache()
 
+    lm_cfg = lm_bench_config()
+    lm = build_lm(lm_cfg, "bf16", depth=lm_cfg["depth"], seed=0)
+    launches["flash_attention"] = phase_lm_prefill(lm, lm_cfg, smi)
+    launches["paged_attention"] = phase_lm_serving(lm, lm_cfg, smi)
+    del lm
+    torch.cuda.empty_cache()
+    phase_lm_exactness(lm_cfg)
+
+    replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",
+                "flash_attention": "idunno_tpu/ops/flash_attention.py:71",
+                "paged_attention": "idunno_tpu/ops/paged_attention.py:118"}
     print(json.dumps({"kernels": [{
-        "name": "preprocess",
+        "name": name,
         "route": "cuda",
-        "source": "idunno_tpu_torch/csrc/preprocess.cu",
-        "replaces": "idunno_tpu/ops/pallas_preprocess.py:27",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        **timing}]}), flush=True)
+        "source": f"idunno_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": err[name],
+        **timing[name]} for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,955 @@
+"""Continuous batching for LM serving (JetStream/vLLM-style).
+
+A port of ``idunno_tpu/engine/serve_lm.py:DecodeServer``: a fixed pool of
+decode slots where finished sequences retire immediately and queued
+prompts are admitted into the freed rows while the other rows keep
+decoding. Three steps, each eager PyTorch on one device:
+
+  prefill  — the whole prompt bucket in ONE chunked decode step
+             (`models/transformer.py:decode_apply`, scalar cursor, t>1):
+             prompt K/V written into a batch-1 row cache, first generated
+             token picked at the row's true length. A radix-cache hit
+             prefills only the suffix; on a paged pool the suffix attends
+             the hit region through the block table (the CUDA kernel K3).
+  insert   — the row cache + prompt tokens copied into slot r of the live
+             [S, max_len] decode state.
+  decode   — ONE token for ALL S slots per model step through the per-row
+             cursors (each row attends its own depth; retired rows idle
+             harmlessly); ``decode_steps`` steps run per `step()` call. On
+             a paged pool every step attends each row's radix-hit region
+             through K3. The KV cache is updated in place.
+
+What waits for later slices raises a ValueError naming ROADMAP.md:
+speculative decoding (``draft``), tensor parallelism (``mesh``,
+``n_model > 1``), int8 weight residency (``quantize="int8"``), and the
+cluster-prefix and KV-handoff verbs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from idunno_tpu_torch.engine.generate import init_cache
+from idunno_tpu_torch.engine.inference import resolve_device
+from idunno_tpu_torch.engine.kv_blocks import concat_kv_prefix
+from idunno_tpu_torch.models.transformer import (KV_LEAF_KEYS, TransformerLM,
+                                                 decode_apply)
+from idunno_tpu_torch.ops.paged_attention import (PagedContext,
+                                                  resolve_paged_kernel)
+from idunno_tpu_torch.ops.sampling import (categorical, fused_decode_tail,
+                                           masked_sample_logits)
+
+def _later(what: str, where: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet: it comes with {where} "
+                      "(ROADMAP.md)")
+
+
+@dataclass
+class Request:
+    """One generation request: ``tokens`` is the raw prompt (host ints);
+    ``temperature`` 0 = greedy, > 0 = per-row softmax sampling seeded by
+    ``seed`` (defaults to the request id, so every request draws an
+    independent, reproducible stream)."""
+
+    id: int
+    tokens: list[int]
+    max_new: int
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # token-level stop sequences over the GENERATED region; a matched stop
+    # sequence is KEPT in the output and the row retires at its final token
+    stop: list[list[int]] | None = None
+    seed: int | None = None
+    t_admit: float = 0.0       # monotonic stamp set at slot admission
+    # admitted before the server's FIRST decode dispatch
+    cold: bool = False
+    # (trace_id, parent_span_id) from the submitting hop (utils/spans.py)
+    trace: tuple | None = None
+
+
+@dataclass
+class Completion:
+    id: int
+    tokens: list[int]          # prompt + generated, true ragged length
+    prompt_len: int
+    # SERVICE time: slot admission (prefill start) → retirement
+    service_s: float = 0.0
+    # client-cancelled mid-stream
+    cancelled: bool = False
+    # per-GENERATED-token logprobs under the raw model distribution; None
+    # unless the pool was built with track_logprobs=True
+    logprobs: list[float] | None = None
+    # gateway rejection that completed the request without decoding
+    rejected: str | None = None
+    # admitted before the pool's first-ever decode dispatch
+    cold_start: bool = False
+
+
+def _splice_prefix(cache: dict, prefix_cache: dict) -> dict:
+    """Write a cached prefix's K/V leaves into the head of a (longer)
+    fresh batch-1 cache, in place."""
+    for name in KV_LEAF_KEYS:
+        if name in cache:
+            src = prefix_cache[name]
+            cache[name][:, :, :src.shape[2]] = src
+    return cache
+
+
+def _make_paged_ctx(pages: dict, tables: torch.Tensor,
+                    lengths: torch.Tensor, start: int,
+                    kernel: str) -> PagedContext:
+    return PagedContext(pages["cached_k"], pages["cached_v"], tables, lengths,
+                        k_scale_pages=pages.get("k_scale"),
+                        v_scale_pages=pages.get("v_scale"),
+                        start=start, kernel=kernel)
+
+
+def _prefill(model: TransformerLM, prompt: torch.Tensor, true_len: int,
+             prompt_len: int) -> tuple[dict, torch.Tensor]:
+    """[1, P] prompt → (length-P row cache, logits [vocab] at the row's
+    true length). Pad positions ≥ true_len leave garbage K/V in the cache
+    tail; the slot cursor masks them until real tokens overwrite them."""
+    cache = init_cache(model, 1, prompt_len)
+    logits = decode_apply(model, cache, prompt, 0)
+    return cache, logits[0, true_len - 1]
+
+
+def _prefill_suffix(model: TransformerLM, prefix_cache: dict,
+                    suffix: torch.Tensor, true_len: int, prefix_len: int,
+                    prompt_len: int) -> tuple[dict, torch.Tensor]:
+    """[1, P] suffix after a length-``prefix_len`` cached prefix (spliced
+    into the head of a fresh cache) → (length-(prefix_len+P) row cache,
+    first generated token's logits)."""
+    cache = _splice_prefix(init_cache(model, 1, prefix_len + prompt_len),
+                           prefix_cache)
+    logits = decode_apply(model, cache, suffix, prefix_len)
+    return cache, logits[0, true_len - 1]
+
+
+def _prefill_suffix_paged(model: TransformerLM, prefix_cache: dict | None,
+                          suffix: torch.Tensor, true_len: int,
+                          prefix_len: int, prompt_len: int,
+                          tables: torch.Tensor, plen: torch.Tensor,
+                          pages: dict, *, start: int,
+                          kernel: str) -> tuple[dict, torch.Tensor]:
+    """The gather-free twin of `_prefill_suffix`: the radix-hit region
+    [start, prefix_len) is NOT spliced — it stays zero and masked while
+    the suffix attends it through the block table. Only the pool-level
+    static prefix [0, start), if any, is spliced contiguously."""
+    cache = init_cache(model, 1, prefix_len + prompt_len)
+    if prefix_cache is not None:
+        _splice_prefix(cache, prefix_cache)
+    ctx = _make_paged_ctx(pages, tables, plen, start, kernel)
+    logits = decode_apply(model, cache, suffix, prefix_len, paged=ctx)
+    return cache, logits[0, true_len - 1]
+
+
+def _chunk_init(model: TransformerLM, prefix_cache: dict | None,
+                total: int) -> dict:
+    """Fresh batch-1 length-``total`` cache with an optional contiguous
+    prefix spliced in — the starting state of a chunked prefill."""
+    cache = init_cache(model, 1, total)
+    if prefix_cache is not None:
+        _splice_prefix(cache, prefix_cache)
+    return cache
+
+
+def _prefill_chunk(model: TransformerLM, cache: dict, tok: torch.Tensor,
+                   cursor: int, tables, plen, pages, *, start: int = 0,
+                   kernel: str = "plain") -> torch.Tensor:
+    """ONE chunk of a chunked prefill: ``tok`` [1, n] applies from
+    ``cursor`` into ``cache`` (in place); returns the chunk's logits. N
+    chunks build the identical cache and logits as one apply."""
+    ctx = None
+    if tables is not None:
+        ctx = _make_paged_ctx(pages, tables, plen, start, kernel)
+    return decode_apply(model, cache, tok, cursor, paged=ctx)
+
+
+def _next_token(logits: torch.Tensor, temp: float,
+                gen: torch.Generator | None, top_p: float,
+                top_k: int) -> int:
+    """Greedy (temp == 0) or temperature + top-k/nucleus-sampled token
+    from one row's logits [vocab], in the masked-scaled form the decode
+    tail uses."""
+    if temp <= 0.0:
+        return int(torch.argmax(logits))
+    scaled = (logits / max(temp, 1e-6))[None]
+    dev = logits.device
+    if top_p < 1.0 or top_k > 0:
+        scaled = masked_sample_logits(
+            scaled, torch.tensor([top_p], dtype=torch.float32, device=dev),
+            torch.tensor([top_k], dtype=torch.int64, device=dev))
+    return int(categorical(scaled[0], gen))
+
+
+class DecodeServer:
+    """Continuous-batching decode pool over a dense `TransformerLM`.
+
+    ``slots`` concurrent sequences, each ≤ ``max_len`` total tokens;
+    prompts are padded to the smallest ``prompt_buckets`` entry covering
+    them (true lengths tracked exactly). Greedy requests match
+    `engine.generate.generate(temperature=0)` token for token; sampled
+    requests draw per-request seeded streams. The model is moved to
+    ``device`` (the card unless ``device="cpu"``; no card raises).
+
+    Usage::
+
+        srv = DecodeServer(model, slots=4, prompt_len=16, max_len=64)
+        srv.submit([1, 2, 3], max_new=10)
+        while srv.step():          # admit + decode_steps steps per call
+            for done in srv.poll():
+                ...
+    """
+
+    def __init__(self, model: TransformerLM, *, slots: int, prompt_len: int,
+                 max_len: int, decode_steps: int = 1, quantize: str = "none",
+                 eos_id: int | None = None, mesh=None, n_model: int = 1,
+                 draft: tuple | None = None,
+                 prompt_buckets: tuple[int, ...] | None = None,
+                 track_logprobs: bool = False, penalties: bool = False,
+                 prefix: list[int] | None = None, kv_block_size: int = 0,
+                 kv_cache_blocks: int = 0, paged_kernel: str | None = None,
+                 prefill_chunk: int = 0,
+                 device: torch.device | str | None = None) -> None:
+        if draft is not None:
+            raise _later("speculative decoding (draft=, greedy_commit, "
+                         "spec_commit)", "the LM serving queue, modules "
+                         "item 8")
+        if mesh is not None or int(n_model) > 1:
+            raise _later("tensor parallelism (mesh=, n_model > 1)",
+                         "the parallelism slice, modules item 10")
+        if quantize == "int8":
+            raise _later("int8 weight residency (quantize='int8', "
+                         "ops/quantize.py)", "modules item 4")
+        if quantize != "none":
+            raise ValueError(f"quantize={quantize!r}: want none|int8")
+        if not model.causal:
+            raise ValueError("continuous batching needs a causal LM")
+        if prompt_len > max_len:
+            raise ValueError(f"prompt_len {prompt_len} > max_len {max_len}")
+        self.prompt_buckets = tuple(sorted(set(prompt_buckets or ())))
+        if self.prompt_buckets:
+            if self.prompt_buckets[-1] != prompt_len:
+                raise ValueError(
+                    f"largest prompt bucket {self.prompt_buckets[-1]} must "
+                    f"equal prompt_len {prompt_len}")
+            if self.prompt_buckets[0] < 1:
+                raise ValueError("prompt buckets must be >= 1")
+        else:
+            self.prompt_buckets = (prompt_len,)
+        if decode_steps < 1:
+            raise ValueError(f"decode_steps {decode_steps} must be >= 1")
+        self.kv_block_size = int(kv_block_size)
+        if self.kv_block_size < 0:
+            raise ValueError(
+                f"kv_block_size {kv_block_size} must be >= 0 (0 = off)")
+        if kv_cache_blocks and not self.kv_block_size:
+            raise ValueError("kv_cache_blocks needs kv_block_size > 0")
+        if paged_kernel is not None and not self.kv_block_size:
+            raise ValueError("paged_kernel needs kv_block_size > 0")
+        self.device = resolve_device(device)
+        self.paged_kernel = (None if paged_kernel is None else
+                             resolve_paged_kernel(paged_kernel, self.device))
+        self._paged = paged_kernel is not None
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be >= 0 (0 = off)")
+        self._pending: dict | None = None   # in-flight chunked admission
+        self._block_pool = self._radix = None
+        self._held: dict[int, list] = {}   # live request id → pinned chain
+        # optional per-node span recorder (utils/spans.py), set by the
+        # serving layer after construction; None = tracing off, zero cost
+        self.spans = None
+        # the cluster prefix cache is not ported; kept for the serving
+        # loop, which reads it
+        self.cluster_prefix = None
+        self.prefix = list(prefix) if prefix else None
+        self._prefix_cache = None
+        if self.prefix:
+            for t in self.prefix:
+                if not 0 <= t < model.vocab:
+                    raise ValueError(f"prefix token {t} outside vocab "
+                                     f"[0, {model.vocab})")
+            if len(self.prefix) + max(self.prompt_buckets) > max_len:
+                raise ValueError(
+                    f"prefix of {len(self.prefix)} + prompt bucket "
+                    f"{max(self.prompt_buckets)} exceeds max_len {max_len}")
+        self.quantize = quantize
+        self.track_logprobs = bool(track_logprobs)
+        self.penalties = bool(penalties)
+        self._pl_static = len(self.prefix) if self.prefix else 0
+        self.model = model.to(self.device).eval()
+        self.slots = slots
+        self.prompt_len = prompt_len
+        self.max_len = max_len
+        self.decode_steps = decode_steps
+        self.eos_id = eos_id
+
+        dev = self.device
+        i64 = torch.int64
+        self._tokens = torch.zeros((slots, max_len), dtype=i64, device=dev)
+        self._cache = init_cache(self.model, slots, max_len)
+        self._cursors = torch.zeros((slots,), dtype=i64, device=dev)
+        self._remaining = torch.zeros((slots,), dtype=i64, device=dev)
+        # paged decode state: per-slot block table + paged-region length
+        # (always a block multiple). Width = the longest possible radix
+        # hit (one block short of the largest bucket). Retired rows leave
+        # stale entries behind, gated by remaining == 0.
+        self._tables = self._plens = None
+        if self._paged:
+            self._max_chain = max(1, (prompt_len - 1) // self.kv_block_size)
+            self._tables = torch.zeros((slots, self._max_chain),
+                                       dtype=torch.int32, device=dev)
+            self._plens = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        # host copy of (remaining, cursors), fetched in one transfer and
+        # reused until a device-side mutation invalidates it
+        self._rc_cache: np.ndarray | None = None
+        self._temps = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._top_ps = torch.ones((slots,), dtype=torch.float32, device=dev)
+        self._top_ks = torch.zeros((slots,), dtype=i64, device=dev)
+        self._gens: list[torch.Generator | None] = [None] * slots
+        self._logprobs = torch.zeros(
+            (slots, max_len if self.track_logprobs else 0),
+            dtype=torch.float32, device=dev)
+        self._pres = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._freq = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._counts = torch.zeros(
+            (slots, model.vocab if self.penalties else 0), dtype=i64,
+            device=dev)
+
+        # host state
+        self._queue: deque[Request] = deque()
+        self._live: dict[int, Request] = {}       # slot → request
+        self._done: list[Completion] = []
+        self._next_id = 0
+        self._cancelled: set[int] = set()     # ids cancelled while live
+        self._stats = {"dispatches": 0, "admitted": 0, "completed": 0,
+                       "tokens_generated": 0, "cancelled": 0,
+                       # padded suffix tokens computed by admission
+                       # prefills — the work the prefix cache shrinks
+                       "prefill_tokens": 0,
+                       "prefill_chunks": 0, "kv_gather_bytes_saved": 0}
+        self._pc_lookups = self._pc_hits = self._pc_tokens_saved = 0
+        self._dispatched_ever = False
+
+        # shared-prefix cache (system prompt): prefilled ONCE here; every
+        # admission then prefills only its suffix from a spliced copy.
+        if self.prefix:
+            pf = torch.tensor([self.prefix], dtype=i64, device=dev)
+            pl = len(self.prefix)
+            with torch.no_grad():
+                self._prefix_cache, _ = _prefill(self.model, pf, pl, pl)
+
+        if self.kv_block_size:
+            from idunno_tpu_torch.engine.kv_blocks import KVBlockPool
+            from idunno_tpu_torch.serve.prefix_cache import RadixPrefixCache
+            nblocks = int(kv_cache_blocks) or slots * (
+                (prompt_len + self.kv_block_size - 1) // self.kv_block_size)
+            self._block_pool = KVBlockPool(self.model, nblocks,
+                                           self.kv_block_size, device=dev)
+            self._radix = RadixPrefixCache(self._block_pool)
+
+    # -- client surface ---------------------------------------------------
+
+    def validate(self, tokens: list[int], max_new: int,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, presence_penalty: float = 0.0,
+                 frequency_penalty: float = 0.0,
+                 stop: list[list[int]] | None = None) -> None:
+        """Raise ValueError if the request can't fit this server's static
+        buckets; shared by every submission front-end."""
+        if not tokens:
+            raise ValueError("empty prompt")
+        for t in tokens:
+            if not 0 <= t < self.model.vocab:
+                raise ValueError(f"prompt token {t} outside vocab "
+                                 f"[0, {self.model.vocab})")
+        if len(tokens) > self.prompt_len:
+            raise ValueError(f"prompt of {len(tokens)} tokens exceeds the "
+                             f"prompt_len bucket {self.prompt_len}")
+        pl = len(self.prefix) if self.prefix else 0
+        if pl + len(tokens) + max_new > self.max_len:
+            raise ValueError(
+                (f"{pl} prefix + " if pl else "")
+                + f"{len(tokens)} prompt + {max_new} new"
+                + f" > max_len {self.max_len}")
+        if max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        if temperature < 0.0:
+            raise ValueError(f"temperature {temperature} must be >= 0")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p {top_p} must be in (0, 1]")
+        if top_k < 0 or top_k != int(top_k):
+            raise ValueError(f"top_k {top_k} must be a non-negative int")
+        if (presence_penalty or frequency_penalty) and not self.penalties:
+            raise ValueError(
+                "this pool was built without penalties=True; "
+                "presence/frequency penalties need the count buffer")
+        for seq in stop or ():
+            if not seq:
+                raise ValueError("empty stop sequence")
+            for t in seq:
+                if not 0 <= t < self.model.vocab:
+                    raise ValueError(f"stop token {t} outside vocab "
+                                     f"[0, {self.model.vocab})")
+
+    def submit(self, tokens: list[int], max_new: int, *,
+               temperature: float = 0.0, top_p: float = 1.0,
+               top_k: int = 0, presence_penalty: float = 0.0,
+               frequency_penalty: float = 0.0,
+               stop: list[list[int]] | None = None,
+               seed: int | None = None,
+               trace: tuple | None = None) -> int:
+        """Queue a prompt; returns the request id. ``temperature`` 0 =
+        greedy; > 0 samples with a per-request stream seeded by ``seed``
+        (default: the request id); ``top_k`` > 0 then ``top_p`` < 1
+        restrict it, exactly as in `engine.generate`."""
+        self.validate(tokens, max_new, temperature, top_p, top_k,
+                      presence_penalty, frequency_penalty, stop)
+        rid = self._next_id
+        self._next_id += 1
+        self._queue.append(Request(id=rid, tokens=list(tokens),
+                                   max_new=max_new,
+                                   temperature=temperature, top_p=top_p,
+                                   top_k=int(top_k),
+                                   presence_penalty=float(presence_penalty),
+                                   frequency_penalty=float(frequency_penalty),
+                                   stop=([list(q) for q in stop]
+                                         if stop else None),
+                                   seed=seed,
+                                   trace=(tuple(trace) if trace else None)))
+        return rid
+
+    def poll(self) -> list[Completion]:
+        """Completions finished since the last poll (ownership transfers)."""
+        out, self._done = self._done, []
+        return out
+
+    def cancel(self, rid: int) -> str:
+        """Best-effort cancel: "queued" (dropped before admission), "live"
+        (the row stops at the next retirement pass and completes with
+        ``cancelled=True``), or "unknown"."""
+        if self._pending is not None and self._pending["req"].id == rid:
+            p, self._pending = self._pending, None
+            if p["hit_chain"]:          # the temporary hit pins
+                self._radix.release(p["hit_chain"])
+            if p["span"] is not None:
+                self.spans.finish(p["span"], cancelled=True,
+                                  chunks=p["chunks"])
+            full = (self.prefix or []) + list(p["per_req"])
+            self._done.append(Completion(
+                id=rid, tokens=full, prompt_len=len(full), cancelled=True,
+                logprobs=[] if self.track_logprobs else None))
+            self._stats["cancelled"] += 1
+            return "queued"
+        for i, req in enumerate(self._queue):
+            if req.id == rid:
+                del self._queue[i]
+                full = (self.prefix or []) + list(req.tokens)
+                self._done.append(Completion(
+                    id=rid, tokens=full, prompt_len=len(full),
+                    cancelled=True,
+                    logprobs=[] if self.track_logprobs else None))
+                self._stats["cancelled"] += 1
+                return "queued"
+        for slot, req in self._live.items():
+            if req.id == rid:
+                # a row whose budget is already exhausted is COMPLETE
+                if int(self._remaining_cursors()[0][slot]) == 0:
+                    return "unknown"
+                self._remaining[slot] = 0
+                self._rc_invalidate()
+                self._cancelled.add(rid)
+                self._stats["cancelled"] += 1
+                return "live"
+        return "unknown"
+
+    def snapshot(self) -> list[dict]:
+        """Progress of every LIVE row — id, tokens so far (prompt +
+        generated), prompt length."""
+        if not self._live:
+            return []
+        cursors = self._remaining_cursors()[1]
+        tokens = self._tokens.cpu().numpy()
+        return [{"id": req.id,
+                 "tokens": [int(t) for t in tokens[slot][:cursors[slot] + 1]],
+                 "prompt_len": len(req.tokens)}
+                for slot, req in sorted(self._live.items())]
+
+    def pending(self) -> int:
+        return (len(self._queue) + len(self._live)
+                + (1 if self._pending is not None else 0))
+
+    def stats(self) -> dict:
+        """Serving counters (decode dispatches, requests admitted/
+        completed, generated tokens, occupancy) and the pool's serving
+        configuration."""
+        m = self.model
+        config = {
+            "vocab": m.vocab, "dim": m.dim, "depth": m.depth,
+            "heads": m.num_heads, "kv_heads": m.kv_heads,
+            "kv_cache_dtype": m.kv_cache_dtype,
+            "quantize": self.quantize,
+            "track_logprobs": self.track_logprobs,
+            "penalties": self.penalties,
+            "prefix_len": len(self.prefix) if self.prefix else 0,
+            "decode_steps": self.decode_steps,
+            "prompt_len": self.prompt_len, "max_len": self.max_len,
+            "kv_block_size": self.kv_block_size,
+            "paged_kernel": self.paged_kernel,
+            "prefill_chunk": self.prefill_chunk,
+            "kv_cache_blocks": (self._block_pool.num_blocks
+                                if self._block_pool is not None else 0),
+            "device": str(self.device),
+        }
+        out = dict(self._stats, live=len(self._live),
+                   queued=len(self._queue), slots=self.slots,
+                   config=config)
+        if self._radix is not None:
+            out["prefix_cache"] = self.prefix_cache_stats()
+        return out
+
+    def prefix_cache_stats(self) -> dict:
+        """Radix prefix-cache gauges (kv_block_size pools): hit rate over
+        admissions, prompt tokens whose prefill was skipped, block-pool
+        occupancy, tree churn counters."""
+        return {
+            "prefix_hit_rate": (self._pc_hits / self._pc_lookups
+                                if self._pc_lookups else 0.0),
+            "lookups": self._pc_lookups,
+            "hits": self._pc_hits,
+            "cached_tokens_saved": self._pc_tokens_saved,
+            "kv_blocks_free": self._block_pool.num_free,
+            "kv_blocks_used": self._block_pool.num_used,
+            "evictions": self._radix.evictions,
+            "insert_skips": self._radix.insert_skips,
+            "inserted_blocks": self._radix.inserted_blocks,
+            "nodes": self._radix.num_nodes(),
+        }
+
+    # -- cluster prefix cache and KV handoff: not ported yet ---------------
+
+    def _cluster_not_ported(self, *args, **kwargs):
+        raise _later("the cluster prefix cache and the KV handoff",
+                     "the LM serving queue, modules item 8")
+
+    prefix_probe = prefix_warm = prefix_publish = _cluster_not_ported
+    handoff_probe = handoff_export = handoff_adopt = _cluster_not_ported
+    handoff_fallback = _cluster_not_ported
+
+    # -- serving loop -----------------------------------------------------
+
+    def _remaining_cursors(self) -> tuple[np.ndarray, np.ndarray]:
+        """Host view of (remaining, cursors) — one transfer, cached until
+        `_rc_invalidate` (every device-side mutation site)."""
+        if self._rc_cache is None:
+            self._rc_cache = torch.stack(
+                [self._remaining, self._cursors]).cpu().numpy()
+        return self._rc_cache[0], self._rc_cache[1]
+
+    def _rc_invalidate(self) -> None:
+        self._rc_cache = None
+
+    def _retire_finished(self) -> None:
+        if not self._live:
+            return
+        remaining, cursors = self._remaining_cursors()
+        for slot in [s for s, r in enumerate(remaining)
+                     if r == 0 and s in self._live]:
+            req = self._live.pop(slot)
+            total = int(cursors[slot]) + 1
+            row = self._tokens[slot, :total].tolist()
+            was_cancelled = req.id in self._cancelled
+            self._cancelled.discard(req.id)
+            lps = None
+            if self.track_logprobs:
+                lps = self._logprobs[slot, len(req.tokens):total].tolist()
+            self._done.append(Completion(
+                id=req.id, tokens=[int(t) for t in row],
+                prompt_len=len(req.tokens),
+                service_s=time.monotonic() - req.t_admit,
+                cancelled=was_cancelled, logprobs=lps,
+                cold_start=req.cold))
+            if not was_cancelled:
+                self._stats["completed"] += 1
+            self._stats["tokens_generated"] += total - len(req.tokens)
+            self._gens[slot] = None
+            if self._radix is not None:       # unpin the request's chain
+                chain = self._held.pop(req.id, None)
+                if chain:
+                    self._radix.release(chain)
+
+    def _admit(self) -> None:
+        if self._pending is not None:
+            # a chunked prefill is in flight: admissions stay FIFO behind it
+            return
+        free = [s for s in range(self.slots) if s not in self._live]
+        dev = self.device
+        while free and self._queue:
+            slot = free.pop(0)
+            req = self._queue.popleft()
+            req.t_admit = time.monotonic()
+            req.cold = not self._dispatched_ever
+            t_prefill0 = (self.spans.clock()
+                          if self.spans is not None and req.trace else None)
+            per_req = list(req.tokens)      # pre-prefix request tokens
+            suffix_true = len(per_req)
+            pl = len(self.prefix) if self.prefix else 0
+            # radix prefix cache: longest block-aligned cached chain,
+            # capped one block short of the prompt so the suffix apply
+            # always has ≥ 1 real token, and shrunk block by block until
+            # prefix+hit+bucket fits max_len
+            hit, hit_chain = 0, []
+            if self._radix is not None:
+                self._pc_lookups += 1
+                hit_chain = self._radix.lookup(per_req)
+                bs = self.kv_block_size
+                hit = min(len(hit_chain) * bs,
+                          ((suffix_true - 1) // bs) * bs)
+            while True:
+                rest = suffix_true - hit
+                suffix_bucket = next(
+                    (b for b in self.prompt_buckets
+                     if b >= rest and pl + hit + b <= self.max_len), None)
+                if suffix_bucket is not None:
+                    break
+                if hit <= 0:   # unreachable: validate()/__init__ checks
+                    raise RuntimeError(
+                        f"no prompt bucket fits {suffix_true} tokens")
+                hit -= self.kv_block_size
+            if hit:
+                hit_chain = hit_chain[:hit // self.kv_block_size]
+                # pin before use: a later insert's eviction must not
+                # free these
+                self._radix.acquire(hit_chain)
+                self._pc_hits += 1
+                self._pc_tokens_saved += hit
+            elif hit_chain:
+                hit_chain = []
+            suffix = np.zeros((1, suffix_bucket), np.int64)
+            suffix[0, :suffix_true - hit] = per_req[hit:]
+            self._stats["prefill_tokens"] += suffix_bucket
+            # paged pools never gather the hit back: the batch-1 table
+            # lets the suffix attend the hit region through the blocks
+            tab = plen = None
+            if self._paged and hit:
+                nb = hit // self.kv_block_size
+                tab = torch.tensor([[nd.block for nd in hit_chain[:nb]]],
+                                   dtype=torch.int32, device=dev)
+                plen = torch.tensor([hit], dtype=torch.int32, device=dev)
+            suffix_t = torch.from_numpy(suffix).to(dev)
+            if self.prefill_chunk and suffix_bucket > self.prefill_chunk:
+                # chunked prefill: park the admission as `_pending` and
+                # apply `prefill_chunk` tokens per step() call, decode
+                # steps of resident rows landing between chunks
+                total = pl + hit + suffix_bucket
+                if hit and tab is None:
+                    gathered = self._block_pool.gather(
+                        [nd.block for nd in hit_chain])
+                    pre = (concat_kv_prefix(self._prefix_cache, gathered)
+                           if self.prefix else gathered)
+                else:   # paged hit (hit region stays zero) or no hit
+                    pre = self._prefix_cache if self.prefix else None
+                sp = None
+                if t_prefill0 is not None:
+                    sp = self.spans.start(
+                        "lm.prefill", trace=req.trace[0],
+                        parent=req.trace[1],
+                        attrs={"id": req.id, "prompt_len": suffix_true,
+                               "prefix_hit": hit,
+                               "bucket": suffix_bucket, "chunked": True})
+                    sp.t_start = t_prefill0
+                self._pending = {
+                    "req": req, "slot": slot,
+                    "cache": _chunk_init(self.model, pre, total),
+                    "suffix": suffix_t, "true": suffix_true - hit,
+                    "suffix_true": suffix_true, "cursor0": pl + hit,
+                    "bucket": suffix_bucket, "off": 0, "hit": hit,
+                    "hit_chain": hit_chain, "per_req": per_req, "pl": pl,
+                    "last": None, "total": total, "tables": tab,
+                    "plen": plen, "span": sp, "chunks": 0}
+                self._advance_prefill()   # first chunk lands this step
+                return
+            if hit and tab is not None:
+                row_cache, last_logits = _prefill_suffix_paged(
+                    self.model, self._prefix_cache, suffix_t,
+                    suffix_true - hit, pl + hit, suffix_bucket, tab, plen,
+                    self._block_pool.kv_pages(), start=pl,
+                    kernel=self.paged_kernel)
+            elif hit:
+                gathered = self._block_pool.gather(
+                    [nd.block for nd in hit_chain])
+                pre = (concat_kv_prefix(self._prefix_cache, gathered)
+                       if self.prefix else gathered)
+                row_cache, last_logits = _prefill_suffix(
+                    self.model, pre, suffix_t, suffix_true - hit, pl + hit,
+                    suffix_bucket)
+            elif self.prefix:
+                row_cache, last_logits = _prefill_suffix(
+                    self.model, self._prefix_cache, suffix_t, suffix_true,
+                    pl, suffix_bucket)
+            else:
+                row_cache, last_logits = _prefill(
+                    self.model, suffix_t, suffix_true, suffix_bucket)
+            self._finish_admission(
+                req, slot, row_cache, last_logits, hit=hit,
+                hit_chain=hit_chain, per_req=per_req, pl=pl,
+                suffix_true=suffix_true, suffix_bucket=suffix_bucket,
+                suffix=suffix, t_prefill0=t_prefill0)
+
+    def _advance_prefill(self) -> None:
+        """Apply ONE chunk of the pending chunked admission (once per
+        `step`, before `_admit`), so every chunk of a long prompt has a
+        decode dispatch of the resident rows between it and the next."""
+        p = self._pending
+        n = min(self.prefill_chunk, p["bucket"] - p["off"])
+        tok = p["suffix"][:, p["off"]:p["off"] + n]
+        cursor = p["cursor0"] + p["off"]
+        logits = _prefill_chunk(
+            self.model, p["cache"], tok, cursor, p["tables"], p["plen"],
+            self._block_pool.kv_pages() if p["tables"] is not None else None,
+            start=p["pl"], kernel=self.paged_kernel or "plain")
+        # the first-token logits live at true-1 (suffix coordinates)
+        t = p["true"]
+        if p["off"] <= t - 1 < p["off"] + n:
+            p["last"] = logits[0, t - 1 - p["off"]]
+        p["chunks"] += 1
+        self._stats["prefill_chunks"] += 1
+        if p["span"] is not None:
+            self.spans.record(
+                "lm.prefill_chunk", trace=p["span"].trace_id,
+                parent=p["span"].span_id,
+                attrs={"id": p["req"].id, "chunk": p["chunks"] - 1,
+                       "tokens": int(n)})
+        p["off"] += n
+        if p["off"] >= p["bucket"]:
+            self._pending = None
+            self._finish_admission(
+                p["req"], p["slot"], p["cache"], p["last"], hit=p["hit"],
+                hit_chain=p["hit_chain"], per_req=p["per_req"],
+                pl=p["pl"], suffix_true=p["suffix_true"],
+                suffix_bucket=p["bucket"], suffix=p["suffix"],
+                open_span=p["span"], chunks=p["chunks"])
+
+    def _finish_admission(self, req, slot: int, row_cache: dict,
+                          last_logits: torch.Tensor, *, hit: int,
+                          hit_chain: list, per_req: list, pl: int,
+                          suffix_true: int, suffix_bucket: int, suffix,
+                          t_prefill0=None, open_span=None,
+                          chunks: int = 0) -> None:
+        """Everything after the row cache exists: radix insert + pinning,
+        paged table install, slot copy, per-slot sampler state, spans.
+        Shared by the one-shot and chunked prefill paths."""
+        dev = self.device
+        if self._radix is not None:
+            # seed/extend the tree from this prefill's row cache and pin
+            # the request's full chain for its lifetime; the temporary hit
+            # pins drop. On the paged path the hit region of the row cache
+            # is zero — insert walks the existing (hit) nodes without
+            # writing them.
+            chain = self._radix.insert(per_req, row_cache, pl)
+            if hit_chain:
+                self._radix.release(hit_chain)
+            if chain:
+                self._held[req.id] = chain
+        if self._paged:
+            nb = hit // self.kv_block_size
+            tab = torch.zeros((self._max_chain,), dtype=torch.int32)
+            if nb:
+                tab[:nb] = torch.tensor([nd.block for nd in hit_chain[:nb]],
+                                        dtype=torch.int32)
+                self._stats["kv_gather_bytes_saved"] += (
+                    nb * self._block_pool.bytes_per_block)
+            self._tables[slot] = tab.to(dev)
+            self._plens[slot] = hit
+        if hit or self.prefix:
+            # downstream state sees the FULL prompt
+            prompt = np.zeros((pl + hit + suffix_bucket,), np.int64)
+            if self.prefix:
+                prompt[:pl] = self.prefix
+                req = dataclasses.replace(req, tokens=self.prefix + per_req)
+            prompt[pl:pl + suffix_true] = per_req
+            true_len = pl + suffix_true
+        else:
+            prompt = np.zeros((suffix_bucket,), np.int64)
+            prompt[:suffix_true] = per_req
+            true_len = suffix_true
+        bucket = len(prompt)
+        gen = None
+        if req.temperature > 0.0:
+            seed = req.id if req.seed is None else req.seed
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+        first = _next_token(last_logits, req.temperature, gen, req.top_p,
+                            req.top_k)
+        # insert: prompt tokens, the first generated token, the row cache
+        self._tokens[slot, :bucket] = torch.from_numpy(prompt).to(dev)
+        self._tokens[slot, true_len] = first
+        for name, leaf in self._cache.items():
+            leaf[:, slot, :bucket] = row_cache[name][:, 0]
+        self._cursors[slot] = true_len
+        self._temps[slot] = req.temperature
+        self._top_ps[slot] = req.top_p
+        self._top_ks[slot] = req.top_k
+        self._gens[slot] = gen
+        if self.track_logprobs:   # the prefill-picked token's logprob
+            self._logprobs[slot, true_len] = torch.log_softmax(
+                last_logits.float(), dim=-1)[first]
+        if self.penalties:   # fresh row; the first token counts
+            self._pres[slot] = req.presence_penalty
+            self._freq[slot] = req.frequency_penalty
+            self._counts[slot] = 0
+            self._counts[slot, first] = 1
+        rem = req.max_new - 1
+        if self.eos_id is not None and first == self.eos_id:
+            rem = 0                   # the prompt's very next token
+        self._remaining[slot] = rem
+        self._rc_invalidate()
+        if open_span is not None:
+            # chunked path: close the span opened at admission
+            sp = self.spans.finish(open_span, chunks=chunks)
+            req = dataclasses.replace(req, trace=(req.trace[0], sp.span_id))
+        elif t_prefill0 is not None:
+            sp = self.spans.record(
+                "lm.prefill", trace=req.trace[0], parent=req.trace[1],
+                t_start=t_prefill0,
+                attrs={"id": req.id, "prompt_len": suffix_true,
+                       "prefix_hit": hit, "bucket": suffix_bucket})
+            # decode-step spans chain under the prefill
+            req = dataclasses.replace(req, trace=(req.trace[0], sp.span_id))
+        self._live[slot] = req
+        self._stats["admitted"] += 1
+
+    def _apply_stops(self) -> None:
+        """Host-side stop-sequence pass (after a dispatch, before
+        retirement): truncate each live row at the earliest-ending match
+        in its GENERATED tokens (the stop sequence is kept), moving its
+        cursor back and zeroing its budget. Each pass scans only what one
+        dispatch can have added, plus a max-seq-1 overlap."""
+        stops = {slot: req.stop for slot, req in self._live.items()
+                 if req.stop}
+        if not stops:
+            return
+        bound = self.decode_steps
+        cursors = self._remaining_cursors()[1]
+        for slot, seqs in stops.items():
+            gen_start = len(self._live[slot].tokens)
+            end = int(cursors[slot]) + 1
+            overlap = max(len(q) for q in seqs) - 1
+            # bound + 1: the first post-admission dispatch has bound+1
+            # unscanned tokens (the admission-picked token plus `bound`)
+            lo = max(gen_start, end - bound - 1 - overlap)
+            row = self._tokens[slot, :end].tolist()
+            best = None                      # earliest END of any match
+            for seq in seqs:
+                n = len(seq)
+                for at in range(lo, end - n + 1):
+                    if row[at:at + n] == list(seq):
+                        best = at + n if best is None else min(best, at + n)
+                        break
+            if best is None:
+                continue
+            self._cursors[slot] = best - 1
+            self._remaining[slot] = 0
+            self._rc_invalidate()
+
+    def _decode(self) -> None:
+        """``decode_steps`` model steps for all slots, state updated in
+        place. The sampling machinery runs only for live rows that sample
+        (known on the host), each from its own generator."""
+        ctx = None
+        if self._paged:
+            ctx = _make_paged_ctx(self._block_pool.kv_pages(), self._tables,
+                                  self._plens, self._pl_static,
+                                  self.paged_kernel)
+        sampled = sorted(s for s, r in self._live.items()
+                         if r.temperature > 0.0)
+        filtered = any(self._live[s].top_p < 1.0 or self._live[s].top_k > 0
+                       for s in sampled)
+        for _ in range(self.decode_steps):
+            tok = self._tokens.gather(1, self._cursors[:, None])
+            logits = decode_apply(self.model, self._cache, tok,
+                                  self._cursors, paged=ctx)
+            (self._tokens, self._cursors, self._remaining, self._logprobs,
+             self._counts) = fused_decode_tail(
+                logits[:, 0], self._tokens, self._cursors, self._remaining,
+                self._temps, self._top_ps, self._top_ks, self._gens,
+                self._logprobs, self._pres, self._freq, self._counts,
+                max_len=self.max_len, eos_id=self.eos_id,
+                track=self.track_logprobs, pen=self.penalties,
+                sampled=sampled, filtered=filtered)
+
+    @torch.no_grad()
+    def step(self) -> int:
+        """Retire finished rows, admit queued prompts into free slots, run
+        one decode dispatch (``decode_steps`` tokens for every live row).
+        Returns live rows + still-queued requests — 0 means drained."""
+        self._retire_finished()
+        if self._pending is not None:
+            # one chunk of the in-flight long admission, THEN the decode
+            # dispatch below — resident rows advance between chunks
+            self._advance_prefill()
+        self._admit()
+        self._retire_finished()           # max_new == 1 admissions
+        if self._live:
+            t_step0 = (self.spans.clock() if self.spans is not None
+                       and any(r.trace for r in self._live.values())
+                       else None)
+            self._decode()
+            self._stats["dispatches"] += 1
+            self._dispatched_ever = True
+            if t_step0 is not None:
+                batch = len(self._live)
+                for req in self._live.values():
+                    if req.trace:
+                        self.spans.record(
+                            "lm.decode_step", trace=req.trace[0],
+                            parent=req.trace[1], t_start=t_step0,
+                            attrs={"id": req.id, "batch": batch})
+            self._rc_invalidate()         # the dispatch advanced the rows
+            self._apply_stops()
+            self._retire_finished()
+        return (len(self._live) + len(self._queue)
+                + (1 if self._pending is not None else 0))
+
+    def run_until_drained(self, max_steps: int = 10_000) -> list[Completion]:
+        """Drive `step` until queue and slots are empty; returns every
+        completion (including earlier un-polled ones)."""
+        for _ in range(max_steps):
+            if self.step() == 0:
+                break
+        else:
+            raise RuntimeError(f"not drained after {max_steps} steps")
+        self._retire_finished()
+        return self.poll()
+
+    def warmup(self) -> float:
+        """Run one throwaway request through prefill, insert and a decode
+        dispatch BEFORE serving traffic (the first launches build the CUDA
+        kernels); returns the wall seconds spent. Afterwards request ids
+        restart at 0 and the stats and prefix-cache counters re-zero.
+        Call only on an idle pool."""
+        if self._queue or self._live:
+            raise RuntimeError("warmup() needs an idle pool")
+        toks = [t % self.model.vocab for t in (1, 2, 3)][:self.prompt_len]
+        pl = len(self.prefix) if self.prefix else 0
+        max_new = max(1, min(self.decode_steps + 1,
+                             self.max_len - pl - len(toks)))
+        t0 = time.perf_counter()
+        self.submit(toks, max_new=max_new)
+        self.run_until_drained()
+        warm_s = time.perf_counter() - t0
+        self._next_id = 0
+        for k in self._stats:
+            self._stats[k] = 0
+        self._pc_lookups = self._pc_hits = self._pc_tokens_saved = 0
+        return warm_s

@@ -106,3 +106,45 @@ def state_dict_from_flax(name: str, variables: dict) -> dict[str, torch.Tensor]:
         return resnet_state_dict(variables, stages, convs)
     raise ValueError(f"no weight carry for model {name!r}; "
                      f"have alexnet, {', '.join(sorted(_RESNETS))}")
+
+
+def lm_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``TransformerLM`` state_dict from the JAX package's
+    per-block flax params (``embed``, ``block0..block{L-1}``, ``ln_f``,
+    ``head``). DenseGeneral q/k/v kernels are [dim, H, hd] and the output
+    kernel [H, hd, dim]; they flatten to the port's Linear over H·hd.
+    Dense kernels are (in, out) and transpose; LayerNorm ``scale`` is the
+    torch ``weight``. Tensors come out f32; ``load_state_dict`` casts them
+    to the model's dtype."""
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {
+        "embed.weight": _t(p["embed"]["embedding"]),
+        "ln_f.weight": _t(p["ln_f"]["scale"]),
+        "ln_f.bias": _t(p["ln_f"]["bias"]),
+        "head.weight": _dense(p["head"]["kernel"]),
+        "head.bias": _t(p["head"]["bias"]),
+    }
+    depth = 0
+    while f"block{depth}" in p:
+        depth += 1
+    if depth == 0:
+        raise ValueError("lm_state_dict_from_flax takes per-block params "
+                         "(block0, block1, ...)")
+    for i in range(depth):
+        bp, tp = p[f"block{i}"], f"blocks.{i}"
+        for ln in ("ln1", "ln2"):
+            sd[f"{tp}.{ln}.weight"] = _t(bp[ln]["scale"])
+            sd[f"{tp}.{ln}.bias"] = _t(bp[ln]["bias"])
+        for name in ("q", "k", "v"):
+            kern = np.asarray(bp["attn"][name]["kernel"])      # [dim, H, hd]
+            sd[f"{tp}.attn.{name}.weight"] = _t(
+                kern.reshape(kern.shape[0], -1).T)
+            sd[f"{tp}.attn.{name}.bias"] = _t(
+                np.asarray(bp["attn"][name]["bias"]).reshape(-1))
+        kern = np.asarray(bp["attn"]["out"]["kernel"])         # [H, hd, dim]
+        sd[f"{tp}.attn.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+        sd[f"{tp}.attn.out.bias"] = _t(bp["attn"]["out"]["bias"])
+        for name in ("mlp_up", "mlp_down"):
+            sd[f"{tp}.{name}.weight"] = _dense(bp[name]["kernel"])
+            sd[f"{tp}.{name}.bias"] = _t(bp[name]["bias"])
+    return sd

@@ -3,7 +3,8 @@
 Flax's defaults, which the JAX models use: conv and dense kernels are
 ``lecun_normal`` (a normal truncated at two standard deviations, scaled to
 variance 1/fan_in), biases zero, BatchNorm scale one and bias zero with
-running mean 0 and variance 1. The draws come from an explicit
+running mean 0 and variance 1, LayerNorm scale one and bias zero, and
+embeddings a normal of variance 1/dim. The draws come from an explicit
 ``torch.Generator``; they are not the JAX package's numbers (``jax.random``
 and torch differ), only the same distributions.
 """
@@ -39,3 +40,11 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
             m.reset_running_stats()
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            # flax Embed: variance_scaling(1, fan_in, normal) over the
+            # feature axis, a plain normal of std 1/sqrt(dim)
+            nn.init.normal_(m.weight, std=1.0 / math.sqrt(m.embedding_dim),
+                            generator=generator)

@@ -64,3 +64,116 @@ def test_kernel_mode_matches_plain_mode_on_card(cuda_device, name):
     # a few elements by one ulp, so the bf16 logits agree closely
     scale = float(ref.abs().max())
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * scale)
+
+
+# -- K2: flash attention forward --------------------------------------------
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers (8 significant bits) at |x|, elementwise."""
+    _, e = torch.frexp(x.abs().double())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+# (batch, seq, heads, head_dim, dtype, causal): the LM prefill shape of the
+# full-width model, and a ragged f32 shape whose last tile is partly past T
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((4, 1024, 16, 64), torch.bfloat16, True),
+    ((2, 1000, 3, 32), torch.float32, False),
+    ((2, 1000, 3, 32), torch.float32, True)])
+def test_flash_kernel_matches_plain_version(cuda_device, shape, dtype,
+                                            causal):
+    from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
+                                                      flash_attention_plain)
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    before = flash_attention_kernel.launches
+    out, lse = flash_attention_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and lse.shape == (shape[0], shape[2], shape[1])
+    o, r = out.float(), ref.float()
+    # bf16: the kernel and the plain version round an f32 result that
+    # differs only by f32 rounding (online vs one-pass softmax): each
+    # element within 2 bf16 ulps of max(|out|, |ref|) plus a 1e-5 f32
+    # floor; f32: 1e-5 of the largest output
+    if dtype == torch.bfloat16:
+        tol = 2 * _bf16_ulp(torch.maximum(o.abs(), r.abs())) + 1e-5
+        ratio = float(((o - r).abs().double() / tol).max())
+        assert ratio <= 1.0, ratio
+    else:
+        torch.testing.assert_close(o, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=0,
+                               atol=1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+# -- K3: paged decode attention ---------------------------------------------
+
+def _paged_inputs(device, *, b, t, kvh, g, d, n, bs, c, page_dtype, seed):
+    """Pages, tables and block-aligned lengths as the decode pool builds
+    them: chains of 0..c blocks (row 0 always empty), table entries of
+    dead blocks 0, live entries distinct pages."""
+    rng = np.random.default_rng(seed)
+    q5 = torch.from_numpy(rng.standard_normal((b, t, kvh, g, d),
+                                              dtype=np.float32)).to(device)
+    shape = (n, bs, kvh, d)
+    ks = vs = None
+    if page_dtype == torch.int8:
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, shape)
+                                   .astype(np.int8)).to(device)
+                  for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.001, 0.02, shape[:3])
+                                   .astype(np.float32)).to(device)
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                  .to(device, page_dtype) for _ in range(2))
+    nblocks = rng.integers(0, c + 1, size=b)
+    nblocks[0] = 0
+    tables = np.zeros((b, c), np.int32)
+    perm = rng.permutation(n)
+    used = 0
+    for r in range(b):
+        tables[r, :nblocks[r]] = perm[used:used + nblocks[r]] % n
+        used += nblocks[r]
+    lengths = (nblocks * bs).astype(np.int32)
+    return (q5, kp, vp, torch.from_numpy(tables).to(device),
+            torch.from_numpy(lengths).to(device), ks, vs)
+
+
+# the served decode shape (16 slots, 16 kv-heads, one row each, bs 16,
+# chains of up to 3 blocks) and a radix-hit prefill (one row, 64 query
+# positions, GQA group 2), each with bf16 and int8 pages
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [
+    dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=16, c=3),
+    dict(b=1, t=64, kvh=8, g=2, d=64, n=20, bs=16, c=3)])
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8])
+def test_paged_kernel_matches_plain_version(cuda_device, dims, page_dtype):
+    from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
+                                                      paged_attention_kernel)
+    q5, kp, vp, tables, lengths, ks, vs = _paged_inputs(
+        cuda_device, page_dtype=page_dtype, seed=dims["b"], **dims)
+    if dims["b"] == 1:
+        lengths.fill_(dims["c"] * dims["bs"])      # the hit covers the chain
+        tables[0] = torch.arange(dims["c"], device=cuda_device)
+    before = paged_attention_kernel.launches
+    out, lse = paged_attention_kernel(q5, kp, vp, tables, lengths,
+                                      k_scale_pages=ks, v_scale_pages=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 1
+    ref, ref_lse = _paged_plain(q5, kp, vp, tables, lengths,
+                                k_scale_pages=ks, v_scale_pages=vs,
+                                scale=1.0 / dims["d"] ** 0.5)
+    # both compute in f32 and differ only in summation order: 1e-5
+    # relative; empty chains are exactly (0, -1e30) in both
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    empty = lengths == 0
+    if bool(empty.any()):
+        assert bool((out[empty] == 0).all())
+        assert bool((lse[empty] == -1e30).all())
