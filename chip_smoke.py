@@ -7,7 +7,7 @@ Run from the root of the repository, with no arguments:
 
 It builds the port's CUDA kernels from ``idunno_tpu_torch/csrc/`` with
 ``nvcc`` (all sources at once), holds each against its plain PyTorch
-version, times it, and then drives the port's two main paths:
+version, times it, and then drives the port's three main paths:
 
 - CNN serving: ResNet-18 and AlexNet at full width (224² crops of 256²
   images, engine batch 256, seeded random weights) served by an
@@ -18,7 +18,14 @@ version, times it, and then drives the port's two main paths:
   prefill through the flash kernel K2, and a continuous-batching
   ``DecodeServer`` with the paged KV block pool and radix prefix cache,
   driven by ``LMServingLoop`` from two request threads, attending cached
-  prefixes through the paged kernel K3.
+  prefixes through the paged kernel K3;
+- LM training: the same 0.2 B-parameter model with f32 master parameters
+  and bf16 compute, trained on seq 1024 × batch 8 by the port's LM train
+  step (next-token cross-entropy, fused AdamW), attending through the
+  flash forward K2 and the flash backward kernels K4 (dQ) and K5 (dK, dV)
+  joined in one ``torch.autograd.Function``; then the train bench
+  (``utils/train_bench.py``: the LM, gradient-accumulation and ResNet-18
+  points).
 
 Phases:
 
@@ -42,8 +49,15 @@ Phases:
 8. LM token exactness: the same workload at full width, depth 2, f32, on
    a ``paged_kernel="kernel"`` and a ``"plain"`` pool: equal greedy
    streams;
-9. one JSON line ``{"kernels": [...]}``;
-10. the last line, ``{"ok": true, "device": {...}}``.
+9. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+   seeded corpus; the gradients of every parameter through flash and
+   through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
+   ten steps on that batch with finite, falling loss, K2, K4 and K5
+   launches (zeroed just before) each equal to depth × 10, and f32 master
+   parameters after; one step under ``torch.profiler``; then the train
+   bench's record, with no point in error;
+10. one JSON line ``{"kernels": [...]}``;
+11. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -63,10 +77,16 @@ N_QUERY = 1024                   # images per model query in phase 4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-KERNELS = ("preprocess", "flash_attention", "paged_attention")
+# kernel name → the CUDA source (``idunno_tpu_torch/csrc/<source>.cu``)
+KERNELS = {"preprocess": "preprocess", "flash_attention": "flash_attention",
+           "paged_attention": "paged_attention",
+           "flash_attention_bwd_dq": "flash_attention_bwd",
+           "flash_attention_bwd_dkv": "flash_attention_bwd"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 LM_BLOCK = 16                    # KV block size of the served pool
 LM_DECODE_STEPS = 16             # decode steps per DecodeServer.step()
 LM_FORWARDS = 5                  # timed prefill forwards in phase 6
+LM_TRAIN_STEPS = 10              # train steps on one batch in phase 9
 
 
 def say(phase: str, **fields) -> None:
@@ -152,9 +172,9 @@ def phase_build() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    cuda_build.build(list(KERNELS))
-    say("build", seconds=round(time.time() - t0, 3), sources=list(KERNELS))
-    for name in KERNELS:
+    cuda_build.build(list(SOURCES))
+    say("build", seconds=round(time.time() - t0, 3), sources=list(SOURCES))
+    for name in SOURCES:
         print(f"ptxas {name}.cu:", flush=True)
         print(ptxas_summary(cuda_build.ptxas_report(name)), flush=True)
     return smi
@@ -176,24 +196,26 @@ def ptxas_summary(report: str) -> str:
     return "\n".join(lines)
 
 
-def zero_launches() -> None:
-    from idunno_tpu_torch.ops.flash_attention import flash_attention_kernel
+def kernel_wrappers() -> dict:
+    """Kernel name → its wrapper, which carries the ``launches`` count."""
+    from idunno_tpu_torch.ops import flash_attention as fa
     from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
     from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
 
-    for fn in (preprocess_batch_kernel, flash_attention_kernel,
-               paged_attention_kernel):
+    return {"preprocess": preprocess_batch_kernel,
+            "flash_attention": fa.flash_attention_kernel,
+            "paged_attention": paged_attention_kernel,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_kernel,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_kernel}
+
+
+def zero_launches() -> None:
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from idunno_tpu_torch.ops.flash_attention import flash_attention_kernel
-    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
-    from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
-
-    return {"preprocess": preprocess_batch_kernel.launches,
-            "flash_attention": flash_attention_kernel.launches,
-            "paged_attention": paged_attention_kernel.launches}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def phase_kernel_vs_plain() -> float:
@@ -776,7 +798,10 @@ def phase_lm_serving(model, cfg: dict, card: str) -> int:
 def device_profile(fn):
     """``fn`` once under ``torch.profiler``, after a synchronize: (its wall
     ms, a Counter of device ms by kernel name, the number of kernels the
-    profiler recorded). The counter is empty where it records none."""
+    profiler recorded). The counter is empty where it records none. User
+    annotations on the device timeline (the optimizer's
+    ``Optimizer.step#...`` range) span kernels already counted and are
+    left out."""
     import collections
 
     import torch
@@ -790,7 +815,8 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
@@ -852,6 +878,276 @@ def phase_lm_exactness(cfg: dict) -> None:
     del model
 
 
+# -- LM training kernels and path (K4, K5) --------------------------------
+
+# (shape, dtype, causal): the training shape of the full-width LM, a
+# smaller f32 causal and non-causal case, and a ragged T = 1000
+FLASH_BWD_CHECKS = (((8, 1024, 16, 64), "bf16", True),
+                    ((2, 512, 8, 64), "f32", True),
+                    ((2, 512, 8, 64), "f32", False),
+                    ((2, 1000, 4, 64), "bf16", True))
+BWD_F32_TOL = 1e-5     # of the reference's largest magnitude
+BWD_BF16_FLOOR = 1e-5  # of the reference's largest magnitude
+
+
+def flash_bwd_inputs(shape, dtype: str, causal: bool, seed: int):
+    """q, k, v, dO on the card, and K2's out and lse for them: what the
+    backward kernels read in training."""
+    import torch
+
+    from idunno_tpu_torch.ops.flash_attention import flash_attention_kernel
+
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    out, lse = flash_attention_kernel(q, k, v, causal=causal)
+    return q, k, v, do, out, lse
+
+
+def phase_flash_bwd_vs_plain() -> dict:
+    """K4 and K5 against the plain backward on the same inputs (K2's out
+    and lse). f32: within 1e-5 of the reference's largest magnitude (both
+    sum in f32, in another order). bf16: each element within 2 bf16 ulps of
+    max(|got|, |ref|) plus a floor of 1e-5 of the reference's largest
+    magnitude (both round f32 sums that differ only by f32 rounding; the
+    floor holds gradients that cancel to near zero, and ``floor_needed``
+    reports how large it had to be). Returns the largest |difference| of
+    each kernel's outputs."""
+    import torch
+
+    from idunno_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention_bwd_dkv_kernel,
+        flash_attention_bwd_dq_kernel, flash_attention_bwd_plain)
+
+    kernel_of = {"dq": "flash_attention_bwd_dq",
+                 "dk": "flash_attention_bwd_dkv",
+                 "dv": "flash_attention_bwd_dkv"}
+    worst = dict.fromkeys(kernel_of.values(), 0.0)
+    for i, (shape, dtype, causal) in enumerate(FLASH_BWD_CHECKS):
+        q, k, v, do, out, lse = flash_bwd_inputs(shape, dtype, causal, 50 + i)
+        delta = attention_delta(out, do)
+        dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                           causal=causal)
+        dk, dv = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                causal=causal)
+        refs = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)
+        torch.cuda.synchronize()
+        for name, got, ref in (("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                               ("dv", dv, refs[2])):
+            g, r = got.float(), ref.float()
+            diff = (g - r).abs()
+            scale = float(r.abs().max())
+            if dtype == "bf16":
+                ulps = 2 * bf16_ulp(torch.maximum(g.abs(), r.abs()))
+                ratio = float((diff.double() / (ulps + BWD_BF16_FLOOR * scale)
+                               ).max())
+                need = float((diff.double() - ulps).clamp_min(0).max()) / scale
+                tol = ("2 bf16 ulps of max(|got|, |ref|) + "
+                       f"{BWD_BF16_FLOOR} x max|ref|, per element")
+            else:
+                ratio = float(diff.max()) / (BWD_F32_TOL * scale)
+                need = None
+                tol = f"{BWD_F32_TOL} x max|ref|"
+            say("kernel_vs_plain", kernel=kernel_of[name], output=name,
+                shape=list(shape), dtype=dtype, causal=causal,
+                max_abs_err=float(diff.max()), max_abs_ref=scale,
+                max_err_over_tolerance=ratio, tolerance=tol,
+                floor_needed=need)
+            if not (ratio <= 1.0 and got.dtype == q.dtype
+                    and got.shape == q.shape):
+                raise AssertionError(f"flash backward {name} off: {ratio} of "
+                                     f"its tolerance at {shape} {dtype} "
+                                     f"causal={causal}")
+            worst[kernel_of[name]] = max(worst[kernel_of[name]],
+                                         float(diff.max()))
+    return worst
+
+
+def phase_flash_bwd_timing() -> dict:
+    """K4 and K5 at the training shape (bf16 [8, 1024, 16, 64], causal) by
+    CUDA events over a loop of launches (each takes milliseconds), beside
+    their bounds, their plain parts and, as ``library_ms`` of both, one
+    call of PyTorch's flash-attention backward
+    (``aten::_scaled_dot_product_flash_attention_backward``) on the same
+    inputs, timed by graph replay."""
+    import torch
+
+    from idunno_tpu_torch.ops.flash_attention import (
+        _dkv_plain, _dq_plain, attention_delta,
+        flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel)
+
+    b, t, h, d = shape = (8, 1024, 16, 64)
+    q, k, v, do, out, lse = flash_bwd_inputs(shape, "bf16", True, 60)
+    delta = attention_delta(out, do)
+    ms = {"flash_attention_bwd_dq": cuda_ms(
+              lambda: flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                    causal=True), 20),
+          "flash_attention_bwd_dkv": cuda_ms(
+              lambda: flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                     causal=True), 20)}
+    plain = {"flash_attention_bwd_dq": cuda_ms(
+                 lambda: _dq_plain(q, k, v, do, lse, delta, causal=True), 3),
+             "flash_attention_bwd_dkv": cuda_ms(
+                 lambda: _dkv_plain(q, k, v, do, lse, delta, causal=True), 3)}
+    aten = torch.ops.aten
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    (o_t, lse_t, cq, ck, mq, mk, seed, offset,
+     _) = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+    library_ms = graph_ms(
+        lambda: aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, o_t, lse_t, cq, ck, mq, mk, 0.0, True, seed,
+            offset), 20)
+    # each input read once, each output written once; the work is the
+    # T(T+1)/2 live (query, key) pairs of each head, 2·D operations per
+    # pair and product: K4 has three products (s, dO·Vᵀ, ds·K), K5 four
+    # (s, dO·Vᵀ, pᵀ·dO, dsᵀ·Q)
+    elems = q.numel()
+    pairs = b * h * t * (t + 1) // 2
+    rows = 2 * b * h * t * 4                    # lse and delta, f32
+    work = {"flash_attention_bwd_dq": (4 * elems * 2 + rows + elems * 2,
+                                       3 * 2 * d * pairs),
+            "flash_attention_bwd_dkv": (4 * elems * 2 + rows + 2 * elems * 2,
+                                        4 * 2 * d * pairs)}
+    timing = {}
+    for name, (nbytes, flops) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        timing[name] = {"ms": ms[name], "plain_ms": plain[name],
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations",
+                        "library_ms": library_ms}
+        say("timing", kernel=name, shape=list(shape), causal=True,
+            **timing[name], bytes=nbytes, flops=flops,
+            achieved_tflops=flops / (ms[name] * 1e-3) / 1e12,
+            timed_by="cuda events over 20 launches",
+            library="aten::_scaled_dot_product_flash_attention_backward "
+                    "(dq, dk, dv in one call), cuda graph replay")
+    return timing
+
+
+def grad_agreement(model, tokens) -> dict:
+    """Every parameter's gradient of one batch's loss through flash
+    (K2, K4, K5) and through ``full`` attention, before any update:
+    the smallest cosine and the largest relative difference in norm."""
+    import torch
+
+    from idunno_tpu_torch.engine.train_lm import next_token_loss
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+
+    grads = {}
+    for kind in ("flash", "full"):
+        model.set_attn_fn(make_attn_fn(kind))
+        model.zero_grad(set_to_none=True)
+        ce, _ = next_token_loss(model(tokens), tokens)
+        ce.backward()
+        grads[kind] = {n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.set_attn_fn(make_attn_fn("flash"))
+    worst_cos, worst_norm, where = 1.0, 0.0, {}
+    for name, gf in grads["flash"].items():
+        gr = grads["full"][name]
+        cos = float(torch.nn.functional.cosine_similarity(
+            gf.flatten().double(), gr.flatten().double(), dim=0))
+        norm = abs(float(gf.norm() / gr.norm()) - 1.0)
+        if cos < worst_cos:
+            worst_cos, where["cosine"] = cos, name
+        if norm > worst_norm:
+            worst_norm, where["norm"] = norm, name
+    return {"tensors": len(grads["flash"]), "min_cosine": worst_cos,
+            "max_norm_rel_diff": worst_norm, "worst_at": where}
+
+
+def phase_lm_train(card: str) -> dict:
+    """The full-width LM trained on the card through K2, K4 and K5; returns
+    the launches of the ten counted steps."""
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.engine.data_lm import TokenDataset
+    from idunno_tpu_torch.engine.train import adamw, flat_tx
+    from idunno_tpu_torch.engine.train_lm import (create_lm_train_state,
+                                                  make_lm_train_step)
+    from idunno_tpu_torch.models.transformer import (TransformerLM,
+                                                     make_attn_fn)
+    from idunno_tpu_torch.utils.train_bench import (H100_BF16_FLOPS,
+                                                    lm_flops_per_token,
+                                                    run_train_bench,
+                                                    train_bench_config)
+
+    cfg = train_bench_config("cuda")
+    b, t, depth = cfg["batch"], cfg["seq"], cfg["depth"]
+    corpus = np.random.default_rng(0).integers(0, cfg["vocab"],
+                                               4 * b * (t + 1))
+    block = next(TokenDataset(corpus, t, seed=0).batches(b))
+    tokens = torch.from_numpy(block[:, :t]).to("cuda", torch.int64)
+    model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
+                          num_heads=cfg["heads"], attn_fn=make_attn_fn("flash"),
+                          dtype=torch.float32, compute_dtype=torch.bfloat16)
+    state = create_lm_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0),
+        flat_tx(adamw(3e-4)))
+    agree = grad_agreement(model, tokens)
+    say("lm_train_grads", card=card, compare="flash_vs_full", **agree,
+        tolerance={"min_cosine": 0.999, "max_norm_rel_diff": 0.02})
+    if not (agree["min_cosine"] >= 0.999
+            and agree["max_norm_rel_diff"] <= 0.02):
+        raise AssertionError(f"flash and full gradients disagree: {agree}")
+
+    step = make_lm_train_step(model, state.optimizer)
+    torch.cuda.synchronize()
+    zero_launches()
+    losses, times = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, tokens)["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    n_params = sum(p.numel() for p in model.parameters())
+    tok_s = b * t / step_s
+    mfu = tok_s * lm_flops_per_token(n_params, cfg) / H100_BF16_FLOPS
+    master = sorted({str(p.dtype) for p in model.parameters()})
+    say("lm_train", card=card, batch=b, seq=t, depth=depth,
+        n_params=n_params, steps=LM_TRAIN_STEPS, losses=losses,
+        step_ms_median=step_s * 1e3, first_step_ms=times[0] * 1e3,
+        tokens_per_s=tok_s, mfu=mfu, launches=launches,
+        master_param_dtypes=master)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and falling: {losses}")
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if launches[name] != depth * LM_TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{LM_TRAIN_STEPS} steps of depth {depth}")
+    if master != ["torch.float32"]:
+        raise AssertionError(f"master parameters are {master}, not f32")
+
+    wall_ms, by_name, n = device_profile(lambda: step(state, tokens))
+    busy_ms = sum(by_name.values())
+    flash_ms = sum(v for k, v in by_name.items()
+                   if "flash_fwd" in k or "flash_bwd" in k)
+    say("lm_train_profile", card=card, wall_ms=wall_ms, kernel_launches=n,
+        device_busy_ms=busy_ms if n else "not measured",
+        device_busy_share=busy_ms / wall_ms if n else "not measured",
+        flash_device_ms=flash_ms if n else "not measured",
+        flash_share_of_device=flash_ms / busy_ms if n else "not measured",
+        top_kernels_ms=dict(by_name.most_common(10)))
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    rec = run_train_bench()
+    say("lm_train_bench", card=card, **rec)
+    failed = {k: v for k, v in rec.items()
+              if isinstance(v, dict) and "error" in v}
+    if failed or "cnn" not in rec or "accum" not in rec:
+        raise AssertionError(f"train bench points failed or missing: {failed}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -875,10 +1171,13 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     err = {"preprocess": phase_kernel_vs_plain(),
            "flash_attention": phase_flash_vs_plain(),
-           "paged_attention": phase_paged_vs_plain()}
+           "paged_attention": phase_paged_vs_plain(),
+           **phase_flash_bwd_vs_plain()}
     timing = {"preprocess": phase_timing(),
               "flash_attention": phase_flash_timing(),
-              "paged_attention": phase_paged_timing()}
+              "paged_attention": phase_paged_timing(),
+              **phase_flash_bwd_timing()}
+    torch.cuda.empty_cache()
 
     cfg = dict(batch_size=BATCH, image_size=CROP, resize_size=SIDE)
     engines = {mode: InferenceEngine(EngineConfig(preprocess=mode, **cfg),
@@ -898,18 +1197,25 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
     phase_lm_exactness(lm_cfg)
+    torch.cuda.empty_cache()
+    train = phase_lm_train(smi)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        launches[name] = train[name]
 
     replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",
                 "flash_attention": "idunno_tpu/ops/flash_attention.py:71",
-                "paged_attention": "idunno_tpu/ops/paged_attention.py:118"}
+                "paged_attention": "idunno_tpu/ops/paged_attention.py:118",
+                "flash_attention_bwd_dq": "idunno_tpu/ops/flash_attention.py:113",
+                "flash_attention_bwd_dkv":
+                    "idunno_tpu/ops/flash_attention.py:147"}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"idunno_tpu_torch/csrc/{name}.cu",
+        "source": f"idunno_tpu_torch/csrc/{source}.cu",
         "replaces": replaces[name],
         "launches": launches[name],
         "max_abs_err": err[name],
-        **timing[name]} for name in KERNELS]}), flush=True)
+        **timing[name]} for name, source in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

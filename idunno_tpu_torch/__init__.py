@@ -14,14 +14,19 @@ imports nothing of it and nothing of JAX. What is here so far:
   prefix cache, the continuous-batching ``DecodeServer`` and its serving
   loop and admission gateway, with flash attention (``csrc/
   flash_attention.cu``) on the full forward and paged decode attention
-  (``csrc/paged_attention.cu``) through the block table.
+  (``csrc/paged_attention.cu``) through the block table;
+- slice 3, training: the LM train step (next-token cross-entropy, fused
+  AdamW over f32 master parameters, bf16 compute) with the flash
+  backward kernels (``csrc/flash_attention_bwd.cu``: dQ, and dK/dV)
+  joined to the forward in one ``torch.autograd.Function``, the
+  ResNet-18 train step, ``TokenDataset`` and the train bench.
 
 Every kernel runs on a CUDA tensor and falls to its plain PyTorch version
 only for a CPU tensor. ROADMAP.md lists what is still to port.
 
 Package layout:
     config      — cluster/runtime configuration
-    utils       — enums, hash ring, trace spans, the LM bench config
+    utils       — enums, hash ring, trace spans, the LM and train bench
     comm        — transports + typed control-plane messages
     membership  — join/heartbeat/failure detector
     models      — ResNet / AlexNet, the folded stem, TransformerLM, the
@@ -29,14 +34,15 @@ Package layout:
     ops         — preprocessing, classification, attention (plain, flash,
                   paged), sampling
     engine      — batched CNN inference, LM generation, the KV block
-                  pool, the continuous-batching decode server
+                  pool, the continuous-batching decode server, the CNN
+                  and LM train steps and the LM token dataset
     scheduler   — fair-time multi-job scheduling, task bookkeeping
     serve       — inference service, metrics, LM serving loop, admission
                   gateway, radix prefix cache
     csrc        — CUDA sources, built with nvcc at first use
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 # Lazy top-level API (PEP 562): importing the package stays light.
 _LAZY_API = {
@@ -48,6 +54,17 @@ _LAZY_API = {
     "DecodeServer": ("idunno_tpu_torch.engine.serve_lm", "DecodeServer"),
     "LMServingLoop": ("idunno_tpu_torch.serve.lm_pool", "LMServingLoop"),
     "generate": ("idunno_tpu_torch.engine.generate", "generate"),
+    "TrainState": ("idunno_tpu_torch.engine.train", "TrainState"),
+    "create_train_state": ("idunno_tpu_torch.engine.train",
+                           "create_train_state"),
+    "make_train_step": ("idunno_tpu_torch.engine.train", "make_train_step"),
+    "create_lm_train_state": ("idunno_tpu_torch.engine.train_lm",
+                              "create_lm_train_state"),
+    "make_lm_train_step": ("idunno_tpu_torch.engine.train_lm",
+                           "make_lm_train_step"),
+    "TokenDataset": ("idunno_tpu_torch.engine.data_lm", "TokenDataset"),
+    "run_train_bench": ("idunno_tpu_torch.utils.train_bench",
+                        "run_train_bench"),
 }
 
 

@@ -34,13 +34,13 @@ def init_cache(model: TransformerLM, batch: int, max_len: int,
                device: torch.device | str | None = None) -> dict:
     """Zeroed depth-stacked KV cache for a [batch] decode of ≤ max_len
     tokens: ``cached_k``/``cached_v`` [L, batch, max_len, KVH, D] in the
-    model's dtype (int8 for an int8 cache, which adds f32 ``k_scale``/
+    model's compute dtype (int8 for an int8 cache, which adds f32 ``k_scale``/
     ``v_scale`` [L, batch, max_len, KVH])."""
     dev = _device_of(model) if device is None else torch.device(device)
     hd = model.dim // model.num_heads
     shape = (model.depth, batch, max_len, model.kv_heads, hd)
     quant = model.kv_cache_dtype == "int8"
-    dt = torch.int8 if quant else model.dtype
+    dt = torch.int8 if quant else model.compute_dtype
     cache = {"cached_k": torch.zeros(shape, dtype=dt, device=dev),
              "cached_v": torch.zeros(shape, dtype=dt, device=dev)}
     if quant:

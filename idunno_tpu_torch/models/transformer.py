@@ -10,8 +10,9 @@ package's weights across).
 Two ways through the model:
 
 - the full forward, ``model(tokens)``: attention through ``attn_fn`` —
-  the hand-written CUDA flash kernel (K2) on a card, the plain reference
-  attention on the CPU (``make_attn_fn("auto")``);
+  the hand-written CUDA flash kernels on a card (K2 forward, K4/K5
+  backward when training), the plain reference attention on the CPU
+  (``make_attn_fn("auto")``);
 - the cached decode step, ``decode_apply(model, cache, tokens, cursors,
   paged)``: single tokens or chunks against a depth-stacked KV cache
   ``{"cached_k": [L, S, T, KVH, D], ...}`` (the JAX package's scanned
@@ -19,6 +20,20 @@ Two ways through the model:
   every row at the same depth, chunked prefill) or an int64 [S] tensor
   (per-row cursors: continuous batching). Cursors are owned by the caller
   and never advanced here.
+
+Mixed precision follows flax's ``dtype``/``param_dtype``: the parameters
+keep their dtype (f32 master weights in training) while the activations
+run in ``compute_dtype`` (bf16 on the card). ``Dense`` casts its weight
+and bias to the activations' dtype before the product; the embedding is
+gathered from the table and then cast (the same values as flax's cast of
+the table, and an f32 gradient sum); ``LayerNorm`` keeps its statistics
+in f32 and returns the activations' dtype; the residual stream and the
+block outputs stay in the compute dtype; the logits are cast to f32.
+``torch.autocast`` would differ: it runs LayerNorm and softmax-like ops
+in f32 and returns their f32 outputs, so the residual stream turns f32
+after the first block, and it decides per op rather than per module, so
+it would not reproduce the JAX model's bf16 block outputs. The port does
+not use it.
 """
 from __future__ import annotations
 
@@ -55,7 +70,9 @@ def make_attn_fn(kind: str = "auto", *, mesh=None, axis: str = "data",
     """One knob for the attention family:
 
       full    — the plain reference attention (``ops/attention.py``)
-      flash   — the CUDA flash kernel, forward only (``ops/flash_attention.py``)
+      flash   — the CUDA flash kernels, trainable
+                (``ops/flash_attention.py``: K2 forward, K4/K5 backward
+                through ``FlashAttention``)
       auto    — flash on a CUDA tensor, full on the CPU
       ring, ulysses — sequence parallelism: not ported yet, they raise
 
@@ -120,6 +137,28 @@ def _softmax_parts(scores: torch.Tensor):
     return m, p, p.sum(dim=-1, keepdim=True)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` that casts its weight and bias to the input's dtype
+    before the product (flax ``Dense`` with ``dtype`` = the compute dtype;
+    a no-op when the dtypes agree)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that normalizes in its parameters' dtype and
+    returns the input's (flax ``LayerNorm``: f32 statistics, output in the
+    compute dtype). f32 parameters under bf16 compute normalize in f32;
+    bf16 parameters take PyTorch's bf16 kernel, which keeps its statistics
+    and scale in f32 and rounds once, as flax does, with no cast launches
+    (casting every input to f32 cost a bf16 forward 100 launches and 6%
+    of its device time, PERF.md §6)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
+
+
 class MultiHeadAttention(nn.Module):
     """Pluggable-kernel attention; ``decode_step`` is the KV-cached
     serving path. ``num_kv_heads`` < num_heads is grouped-query attention:
@@ -145,10 +184,10 @@ class MultiHeadAttention(nn.Module):
         self.causal, self.attn_fn, self.use_rope = causal, attn_fn, use_rope
         self.kv_cache_dtype = kv_cache_dtype
         hd = self.head_dim
-        self.q = nn.Linear(dim, num_heads * hd)
-        self.k = nn.Linear(dim, kv * hd)
-        self.v = nn.Linear(dim, kv * hd)
-        self.out = nn.Linear(num_heads * hd, dim)
+        self.q = Dense(dim, num_heads * hd)
+        self.k = Dense(dim, kv * hd)
+        self.v = Dense(dim, kv * hd)
+        self.out = Dense(num_heads * hd, dim)
 
     def _qkv(self, x):
         b, t, _ = x.shape
@@ -303,15 +342,15 @@ class Block(nn.Module):
                  causal: bool = True, attn_fn: AttnFn = full_attention,
                  use_rope: bool = True, kv_cache_dtype: str = "native") -> None:
         super().__init__()
-        self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.ln1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = MultiHeadAttention(dim, num_heads,
                                        num_kv_heads=num_kv_heads,
                                        causal=causal, attn_fn=attn_fn,
                                        use_rope=use_rope,
                                        kv_cache_dtype=kv_cache_dtype)
-        self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp_up = nn.Linear(dim, dim * mlp_ratio)
-        self.mlp_down = nn.Linear(dim * mlp_ratio, dim)
+        self.ln2 = LayerNorm(dim, eps=LN_EPS)
+        self.mlp_up = Dense(dim, dim * mlp_ratio)
+        self.mlp_down = Dense(dim * mlp_ratio, dim)
 
     def _mlp(self, x):
         return self.mlp_down(F.gelu(self.mlp_up(x), approximate="tanh"))
@@ -328,15 +367,18 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """Minimal causal LM (the JAX package's ``TransformerLM`` with dense
-    blocks). ``dtype`` is the parameter and compute dtype; the logits come
-    out in f32."""
+    blocks). ``dtype`` is the parameters' dtype; ``compute_dtype`` the
+    activations' (flax's ``dtype``), by default ``None``: the parameters'
+    dtype. The logits come out in f32."""
 
     def __init__(self, vocab: int = 1024, dim: int = 128, depth: int = 2,
                  num_heads: int = 4, num_kv_heads: int | None = None,
                  causal: bool = True, attn_fn: AttnFn = full_attention,
                  kv_cache_dtype: str = "native",
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype | None = None) -> None:
         super().__init__()
+        self._compute_dtype = compute_dtype
         self.vocab, self.dim, self.depth = vocab, dim, depth
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.causal, self.kv_cache_dtype = causal, kv_cache_dtype
@@ -345,8 +387,8 @@ class TransformerLM(nn.Module):
             Block(dim, num_heads, num_kv_heads=num_kv_heads, causal=causal,
                   attn_fn=attn_fn, kv_cache_dtype=kv_cache_dtype)
             for _ in range(depth))
-        self.ln_f = nn.LayerNorm(dim, eps=LN_EPS)
-        self.head = nn.Linear(dim, vocab)
+        self.ln_f = LayerNorm(dim, eps=LN_EPS)
+        self.head = Dense(dim, vocab)
         self.to(dtype)
 
     @property
@@ -355,9 +397,13 @@ class TransformerLM(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The parameter (and so compute and KV-cache) dtype; follows
-        ``model.to(...)``."""
+        """The parameters' dtype; follows ``model.to(...)``."""
         return self.embed.weight.dtype
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The activations' (and so the KV cache's) dtype."""
+        return self._compute_dtype or self.dtype
 
     def set_attn_fn(self, attn_fn: AttnFn) -> "TransformerLM":
         """Swap the full forward's attention kernel in place."""
@@ -366,7 +412,7 @@ class TransformerLM(nn.Module):
         return self
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed(tokens)
+        x = self.embed(tokens).to(self.compute_dtype)
         for blk in self.blocks:
             x = blk(x)
         return self.head(self.ln_f(x)).to(torch.float32)
@@ -379,7 +425,7 @@ def decode_apply(model: TransformerLM, cache: dict, tokens: torch.Tensor,
     int64 [B]); ``paged`` carries depth-stacked page stores
     (``[L, N, bs, ...]``, `engine.kv_blocks.KVBlockPool.kv_pages`), read in
     place, never gathered. Returns f32 logits [B, t, vocab]."""
-    x = model.embed(tokens)
+    x = model.embed(tokens).to(model.compute_dtype)
     for i, blk in enumerate(model.blocks):
         layer = {name: leaf[i] for name, leaf in cache.items()}
         x = blk.decode(x, layer, cursors,

@@ -1,21 +1,32 @@
-"""Blockwise online-softmax attention forward: the CUDA kernel (K2) and
-its plain version.
+"""Blockwise online-softmax attention, forward and backward: the CUDA
+kernels K2 (forward), K4 (dQ) and K5 (dK, dV), their plain versions, and
+the ``torch.autograd.Function`` that joins them.
 
-The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
-``idunno_tpu/ops/flash_attention.py:_flash_kernel``. Same contract as
+The kernels replace the TPU kernels of ``idunno_tpu/ops/flash_attention.py``:
+K2 (``csrc/flash_attention.cu``) ``_flash_kernel``, K4 and K5
+(``csrc/flash_attention_bwd.cu``) ``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``; ``FlashAttention`` is the counterpart of the
+JAX package's ``jax.custom_vjp`` around them. Same contract as
 ``ops/attention.py:full_attention``: q/k/v [B, T, H, D] → [B, T, H, D],
 and it plugs into ``models/transformer.py:TransformerLM`` as ``attn_fn``.
 It reads q/k/v through their strides, so the TPU path's transpose to
 [B·H, T_pad, D] and its padding of T are gone; rows and keys past T are
 masked inside the kernel.
 
-``flash_attention_kernel`` launches the kernel for CUDA tensors and raises
-on anything it cannot take; for CPU tensors it runs
-``flash_attention_plain``, which computes the same function in plain
-tensor ops (one softmax over all keys instead of the kernel's per-tile
-online softmax, so the two agree to f32 rounding). There is no backward
-yet: ``flash_attention`` raises when an input requires grad rather than
-return a gradient it cannot compute.
+Each kernel wrapper (``flash_attention_kernel``,
+``flash_attention_bwd_dq_kernel``, ``flash_attention_bwd_dkv_kernel``)
+launches its kernel for CUDA tensors and raises on anything it cannot
+take; for CPU tensors it runs the matching part of the plain version
+(``flash_attention_plain``, ``flash_attention_bwd_plain``), which computes
+the same function in plain tensor ops: one softmax over all keys instead
+of the kernel's per-tile online softmax, and the whole [T, T]
+probability matrix instead of tiles, so the two agree to f32 rounding.
+
+The backward recomputes the probabilities from the forward's
+log-sum-exp: ``delta = rowsum(dO * O)`` in plain torch (the JAX package
+leaves it to XLA), then K4 and K5. ``flash_attention`` is differentiable
+through ``FlashAttention``; under ``torch.no_grad()`` (serving) it calls
+the forward kernel directly.
 """
 from __future__ import annotations
 
@@ -24,8 +35,8 @@ import ctypes
 import torch
 
 NEG_INF = -1e30          # safe -inf for masking (avoids inf - inf NaN)
-# the variants the kernel compiles: the LM runs D = 64 in bf16 (served)
-# and f32; D = 32 is the card tests' second shape
+# the variants the kernels (K2, K4, K5) compile: the LM runs D = 64 in
+# bf16 (served and trained) and f32; D = 32 is the card tests' second shape
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 
@@ -47,6 +58,18 @@ def resolve_blocks(t: int, block_q: int = 256,
     return block_q, block_k, t_pad
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool) -> torch.Tensor:
+    """f32 [B, H, Tq, Tk] scores ``q·k * (1/sqrt(D))``, masked keys at
+    -1e30: the arithmetic of the TPU kernels' ``_masked_scores``."""
+    t, d = q.shape[1], q.shape[3]
+    scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        pos = torch.arange(t, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    return s
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False
                           ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,12 +77,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's arithmetic: f32 operands, scores ``q·k * (1/sqrt(D))``,
     masked keys at -1e30, a row whose sum is 0 divided by 1, and
     ``lse = m + log(l)``."""
-    t, d = q.shape[1], q.shape[3]
-    scale = 1.0 / (d ** 0.5)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        pos = torch.arange(t, device=q.device)
-        s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    s = _scores(q, k, causal=causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -139,14 +157,185 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_kernel.launches = 0
 
 
+def _probs_and_ds(q, k, v, do, lse, delta, *, causal):
+    """(p, ds) f32 [B, H, T, T]: ``p = exp(s - lse)`` and
+    ``ds = p∘(dO·Vᵀ − delta)·scale``, as the TPU backward kernels build
+    them."""
+    scale = 1.0 / (q.shape[3] ** 0.5)
+    p = torch.exp(_scores(q, k, causal=causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def _dq_plain(q, k, v, do, lse, delta, *, causal):
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, lse, delta, *, causal):
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO ∘ O)``: f32 [B, H, T] from [B, T, H, D]."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = False
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) [B, T, H, D] in the inputs' dtype from the forward's
+    q/k/v, out and lse (f32 [B, H, T]) and the output gradient ``do``, in
+    the TPU kernels' arithmetic: f32 operands, ``p = exp(s − lse)``,
+    ``delta = rowsum(dO∘O)``, ``ds = p∘(dO·Vᵀ − delta)·scale``,
+    ``dq = ds·K``, ``dk = dsᵀ·Q``, ``dv = pᵀ·dO``."""
+    delta = attention_delta(out, do)
+    dq = _dq_plain(q, k, v, do, lse, delta, causal=causal)
+    return (dq, *_dkv_plain(q, k, v, do, lse, delta, causal=causal))
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    from idunno_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("flash_attention_bwd")
+    strides = [ctypes.c_int64] * 12
+    tail = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for name, n_out in (("idunno_flash_attention_bwd_dq", 1),
+                        ("idunno_flash_attention_bwd_dkv", 2)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
+                           + [ctypes.c_int] * 5 + strides + tail)
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check(q, k, v)
+    b, t, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"the output gradient must match q: got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.shape != (b, h, t) or x.dtype != torch.float32
+                or x.device != q.device):
+            raise ValueError(f"{name} must be f32 [B, H, T] = {(b, h, t)} "
+                             f"on {q.device}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+
+
+def _bwd_launch(name: str, outs, q, k, v, do, lse, delta, causal) -> None:
+    """One launch of K4 or K5 on the current stream; raises on an input
+    the kernel does not take or a refused launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    b, t, h, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, got {d}")
+    if any(x.stride(3) != 1 for x in (q, k, v, do)):
+        raise ValueError("flash kernel needs the head_dim axis contiguous")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    fn = getattr(_bwd_lib(), name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    strides = [s for x in (q, k, v, do) for s in x.stride()[:3]]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            b, t, h, d, _DTYPES[q.dtype], *strides, 1.0 / (d ** 0.5),
+            int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def flash_attention_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, do: torch.Tensor,
+                                  lse: torch.Tensor, delta: torch.Tensor, *,
+                                  causal: bool = False) -> torch.Tensor:
+    """K4: dq [B, T, H, D] in q's dtype from q/k/v and ``do`` [B, T, H, D],
+    lse and delta f32 [B, H, T]. One launch on a CUDA tensor (no
+    synchronize); the plain version's dq on a CPU tensor.
+    ``flash_attention_bwd_dq_kernel.launches`` counts the launches."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return _dq_plain(q, k, v, do, lse, delta, causal=causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _bwd_launch("idunno_flash_attention_bwd_dq", (dq,), q, k, v, do, lse,
+                delta, causal)
+    flash_attention_bwd_dq_kernel.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_kernel.launches = 0
+
+
+def flash_attention_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, do: torch.Tensor,
+                                   lse: torch.Tensor, delta: torch.Tensor, *,
+                                   causal: bool = False
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5: (dk, dv) [B, T, H, D] in the inputs' dtype, from the same
+    inputs as K4. One launch on a CUDA tensor; the plain version's dk and
+    dv on a CPU tensor. ``flash_attention_bwd_dkv_kernel.launches`` counts
+    the launches."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return _dkv_plain(q, k, v, do, lse, delta, causal=causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _bwd_launch("idunno_flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse,
+                delta, causal)
+    flash_attention_bwd_dkv_kernel.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv_kernel.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 forward, K4 then K5 backward: the counterpart of the JAX
+    package's ``_flash.defvjp(_flash_fwd, _flash_bwd)``. The forward saves
+    q, k, v, out and lse (f32 [B, H, T]); the backward never holds the
+    [T, T] probabilities. On CPU tensors every step is the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_kernel(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = attention_delta(out, do)
+        dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                           causal=ctx.causal)
+        dk, dv = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
-    """q/k/v [B, T, H, D] → [B, T, H, D]: the kernel on a CUDA tensor, the
-    plain version on a CPU tensor. Forward only: raises when an input
-    requires grad (the backward kernels come with the training slice)."""
+    """q/k/v [B, T, H, D] → [B, T, H, D]: the kernels on a CUDA tensor, the
+    plain versions on a CPU tensor. Differentiable: when an input requires
+    grad, through ``FlashAttention`` (K2, then K4 and K5 in the backward);
+    otherwise one call of the forward kernel."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise RuntimeError("the port's flash attention has no backward yet "
-                           "(training slice, ROADMAP.md); run it under "
-                           "torch.no_grad() or use attn kind 'full'")
+        return FlashAttention.apply(q, k, v, causal)
     return flash_attention_kernel(q, k, v, causal=causal)[0]

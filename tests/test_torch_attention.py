@@ -101,12 +101,19 @@ def test_flash_bf16_keeps_dtype_and_f32_lse():
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
 
 
-def test_flash_refuses_to_differentiate():
+def test_flash_returns_gradients():
+    """flash_attention is differentiable (the plain backward on the CPU),
+    and under no_grad it returns the forward kernel's output unchanged."""
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in qkv(5))
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert all(x.grad is not None and x.grad.shape == x.shape
+               and bool(torch.isfinite(x.grad).all()) and x.grad.abs().sum() > 0
+               for x in (q, k, v))
     with torch.no_grad():
-        flash_attention(q, k, v, causal=True)
+        plain = flash_attention(q, k, v, causal=True)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
 
 
 def test_flash_rejects_bad_inputs():

@@ -177,3 +177,93 @@ def test_paged_kernel_matches_plain_version(cuda_device, dims, page_dtype):
     if bool(empty.any()):
         assert bool((out[empty] == 0).all())
         assert bool((lse[empty] == -1e30).all())
+
+
+# -- K4, K5: flash attention backward ----------------------------------------
+
+def _bwd_inputs(device, shape, dtype, causal, seed):
+    """q, k, v, dO from a seed, and the forward's out and lse from the
+    plain version (both kernels and the plain backward read the same)."""
+    from idunno_tpu_torch.ops.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                   .to(device, dtype) for _ in range(4))
+    out, lse = flash_attention_plain(q, k, v, causal=causal)
+    return q, k, v, do, out, lse
+
+
+def _assert_grad_close(got, want, dtype):
+    """f32: 1e-5 of the reference's largest magnitude (the kernel and the
+    plain version differ only in f32 summation order). bf16: each element
+    within 2 bf16 ulps of max(|got|, |want|) plus a floor of 1e-5 of the
+    reference's largest magnitude: both round an f32 sum that differs only
+    by f32 rounding, and gradients that cancel to near zero have no bf16
+    digits of their own to hold them to."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    if dtype == torch.bfloat16:
+        tol = 2 * _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-5 * scale
+        ratio = float(((g - w).abs().double() / tol).max())
+        assert ratio <= 1.0, ratio
+    else:
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * scale)
+
+
+# the training shape of the full-width LM (bf16 [8, 1024, 16, 64]), f32
+# causal and non-causal, and a ragged T whose last tile is partly past T
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((8, 1024, 16, 64), torch.bfloat16, True),
+    ((2, 256, 4, 64), torch.float32, True),
+    ((2, 256, 4, 32), torch.float32, False),
+    ((2, 1000, 3, 32), torch.float32, True),
+    ((2, 1000, 3, 64), torch.bfloat16, False)])
+def test_flash_bwd_kernels_match_plain_version(cuda_device, shape, dtype,
+                                               causal):
+    from idunno_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention_bwd_dkv_kernel,
+        flash_attention_bwd_dq_kernel, flash_attention_bwd_plain)
+    q, k, v, do, out, lse = _bwd_inputs(cuda_device, shape, dtype, causal,
+                                        sum(shape) + causal)
+    delta = attention_delta(out, do)
+    n4 = flash_attention_bwd_dq_kernel.launches
+    n5 = flash_attention_bwd_dkv_kernel.launches
+    dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                            causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq_kernel.launches == n4 + 1
+    assert flash_attention_bwd_dkv_kernel.launches == n5 + 1
+    ref = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == shape
+        _assert_grad_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_on_card_matches_plain_backward(cuda_device, causal):
+    """The autograd Function on the card (K2 forward, K4 and K5 backward)
+    against the plain backward on the same forward outputs."""
+    from idunno_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv_kernel,
+        flash_attention_bwd_dq_kernel, flash_attention_bwd_plain,
+        flash_attention_kernel)
+    shape = (2, 300, 4, 64)
+    rng = np.random.default_rng(7 + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                   .to(cuda_device) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    n = (flash_attention_kernel.launches, flash_attention_bwd_dq_kernel.launches,
+         flash_attention_bwd_dkv_kernel.launches)
+    out = flash_attention(*leaves, causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention_kernel.launches, flash_attention_bwd_dq_kernel.launches,
+            flash_attention_bwd_dkv_kernel.launches) == tuple(x + 1 for x in n)
+    with torch.no_grad():
+        _, lse = flash_attention_kernel(q, k, v, causal=causal)
+    ref = flash_attention_bwd_plain(q, k, v, out.detach(), do, lse,
+                                    causal=causal)
+    for leaf, want in zip(leaves, ref):
+        _assert_grad_close(leaf.grad, want, torch.float32)
