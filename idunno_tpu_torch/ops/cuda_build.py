@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>_<hash>.so``, where the hash
-covers the source and the flags, then loaded with ``ctypes``. Nothing is
+covers the source, the headers it may include (``csrc/*.cuh``) and the
+flags, then loaded with ``ctypes``. Nothing is
 built when a module is imported: the wrapper of a kernel asks for its
 library on its first launch, and ``build`` compiles several sources at
 once, one ``nvcc`` each, all started together. ``nvcc -Xptxas -v`` reports
@@ -39,10 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is built for the current source and flags."""
+    """Where ``csrc/<name>.cu`` is built for the current source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, path), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 

@@ -22,6 +22,16 @@ the same function in plain tensor ops: one softmax over all keys instead
 of the kernel's per-tile online softmax, and the whole [T, T]
 probability matrix instead of tiles, so the two agree to f32 rounding.
 
+In bf16 (the serving and training path) K2 and K5 run on the tensor
+cores: bf16 products with f32 sums, and the probabilities P (and in K5
+dS) rounded to bf16 before their second product. That rounding, at most
+2⁻⁹ of each value, is their only difference from the plain version's
+f32 arithmetic; ``tensor_core_bound`` turns it into a per-element bound
+on out, dK and dV. Those two kernels copy 16-byte chunks, so their bf16
+inputs need 16-byte aligned rows (``check_tensor_core_alignment``). The
+f32 variants and K4 keep the TPU kernels' f32 arithmetic on the CUDA
+cores.
+
 The backward recomputes the probabilities from the forward's
 log-sum-exp: ``delta = rowsum(dO * O)`` in plain torch (the JAX package
 leaves it to XLA), then K4 and K5. ``flash_attention`` is differentiable
@@ -87,6 +97,74 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 2, 1, 3).to(q.dtype), lse
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers (8 significant bits) at |x|, elementwise,
+    in f64."""
+    _, e = torch.frexp(x.abs().double())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+_P_ROUNDING = 2.0 ** -8   # twice bf16's largest relative rounding error
+
+
+def tensor_core_bound(name: str, got: torch.Tensor, ref: torch.Tensor,
+                      q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, do: torch.Tensor | None = None,
+                      lse: torch.Tensor | None = None,
+                      delta: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-element bound on ``|got − ref|`` (f64, ``got``'s shape) for an
+    output of the bf16 tensor-core kernels against the f32 arithmetic of
+    the plain versions, ``name`` one of ``"out"`` (K2), ``"dk"``,
+    ``"dv"`` (K5; these need ``do``, ``lse`` and ``delta``).
+
+    The kernels' bf16 products are exact in f32 and their sums f32; what
+    they round is each probability p (K2, K5) and each dS (K5) to bf16
+    before the next product, a relative error of at most 2⁻⁹. Summed
+    through that product, with P, dS and l computed the plain way:
+
+    - out: ``2⁻⁸·(P·|V|)/l + 1 bf16 ulp of max(|got|, |ref|) + 1e-5``
+    - dV: ``2⁻⁸·(Pᵀ·|dO|) + 1 ulp + 1e-5·max|ref|``
+    - dK: ``2⁻⁸·(|dS|ᵀ·|Q|) + 1 ulp + 1e-5·max|ref|``
+
+    2⁻⁸ leaves a factor of two over the rounding for f32 differences in
+    p; the ulp covers both sides' rounding of the result to bf16."""
+    ulp = bf16_ulp(torch.maximum(got.float().abs(), ref.float().abs()))
+    if name == "out":
+        p = torch.softmax(_scores(q, k, causal=causal), dim=-1)
+        term = torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+        return _P_ROUNDING * term.double() + ulp + 1e-5
+    if name not in ("dk", "dv"):
+        raise ValueError(f"no tensor-core bound for {name!r}")
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal)
+    if name == "dv":
+        term = torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())
+    else:
+        term = torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.float().abs())
+    return (_P_ROUNDING * term.double() + ulp
+            + 1e-5 * float(ref.float().abs().max()))
+
+
+def _tensor_core_aligned(x: torch.Tensor) -> bool:
+    return x.dtype != torch.bfloat16 or (
+        x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3]))
+
+
+def check_tensor_core_alignment(*xs: torch.Tensor) -> None:
+    """Raise unless every bf16 tensor of ``xs`` can be copied in 16-byte
+    chunks, as the tensor-core kernels (K2, K5 in bf16) copy it: its data
+    pointer 16-byte aligned and its batch, token and head strides
+    multiples of 8 elements. f32 tensors pass unchecked. Reads only
+    pointers and strides, so it runs on any device."""
+    for x in xs:
+        if not _tensor_core_aligned(x):
+            raise ValueError(
+                "the bf16 flash kernels copy 16-byte rows: they need a "
+                "16-byte aligned data pointer and batch, token and head "
+                "strides that are multiples of 8 elements, got pointer "
+                f"{x.data_ptr():#x} (mod 16 = {x.data_ptr() % 16}) and "
+                f"strides {tuple(x.stride())}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash attention takes q/k/v of one shape "
@@ -120,9 +198,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, T]).
 
     On CUDA tensors: one launch of the CUDA kernel on the current stream
-    (no synchronize); raises on a bad input or a refused launch. On CPU
-    tensors: the plain version. ``flash_attention_kernel.launches`` counts
-    the kernel's launches."""
+    (no synchronize), the tensor-core kernel for bf16 (whose inputs must
+    pass ``check_tensor_core_alignment``); raises on a bad input or a
+    refused launch. On CPU tensors: the plain version.
+    ``flash_attention_kernel.launches`` counts the kernel's launches."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -134,6 +213,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, got {d}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel needs the head_dim axis contiguous")
+    check_tensor_core_alignment(q, k, v)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -283,9 +363,10 @@ def flash_attention_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor,
                                    causal: bool = False
                                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5: (dk, dv) [B, T, H, D] in the inputs' dtype, from the same
-    inputs as K4. One launch on a CUDA tensor; the plain version's dk and
-    dv on a CPU tensor. ``flash_attention_bwd_dkv_kernel.launches`` counts
-    the launches."""
+    inputs as K4. One launch on a CUDA tensor, the tensor-core kernel for
+    bf16 (whose inputs must pass ``check_tensor_core_alignment``); the
+    plain version's dk and dv on a CPU tensor.
+    ``flash_attention_bwd_dkv_kernel.launches`` counts the launches."""
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return _dkv_plain(q, k, v, do, lse, delta, causal=causal)
@@ -293,6 +374,7 @@ def flash_attention_bwd_dkv_kernel(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
+    check_tensor_core_alignment(q, k, v, do)
     _bwd_launch("idunno_flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse,
                 delta, causal)
     flash_attention_bwd_dkv_kernel.launches += 1
@@ -319,8 +401,8 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or not _tensor_core_aligned(do):
+            do = do.clone(memory_format=torch.contiguous_format)
         delta = attention_delta(out, do)
         dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta,
                                            causal=ctx.causal)

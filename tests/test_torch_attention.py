@@ -17,10 +17,10 @@ from idunno_tpu.ops import paged_attention as jax_paged
 from idunno_tpu.parallel.ring_attention import full_attention as jax_full
 from idunno_tpu_torch.models.transformer import auto_attention, make_attn_fn
 from idunno_tpu_torch.ops.attention import full_attention
-from idunno_tpu_torch.ops.flash_attention import (flash_attention,
-                                                  flash_attention_kernel,
-                                                  flash_attention_plain,
-                                                  resolve_blocks)
+from idunno_tpu_torch.ops.flash_attention import (
+    NEG_INF, check_tensor_core_alignment, flash_attention,
+    flash_attention_kernel, flash_attention_plain, resolve_blocks,
+    tensor_core_bound)
 from idunno_tpu_torch.ops.paged_attention import (PagedContext,
                                                   merge_attention,
                                                   paged_attention,
@@ -122,6 +122,79 @@ def test_flash_rejects_bad_inputs():
         flash_attention_kernel(q, k[:, :4], v)
     with pytest.raises(TypeError):
         flash_attention_kernel(q, k.double(), v)
+
+
+def tensor_core_forward(q, k, v, causal, tile=64):
+    """Emulation of K2's bf16 tensor-core arithmetic
+    (``csrc/flash_attention.cu:flash_fwd_tc``) in torch: bf16 inputs whose
+    products are exact in f32, 64-key tiles, an online softmax, p rounded
+    to bf16 before P·V while l sums the unrounded f32 p, out rounded to
+    bf16. Tiles wholly above the causal diagonal, which the kernel skips,
+    add exact zeros here."""
+    b, t, h, d = q.shape
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    scale = 1.0 / d ** 0.5
+    rows = torch.arange(t)[:, None]
+    m = torch.full((b, h, t, 1), NEG_INF)
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(cols > rows, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / l).transpose(1, 2).bfloat16(), (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("t", [64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_forward_within_bound_of_jax(causal, t, d):
+    """The bf16 tensor-core forward's arithmetic (emulated) against the JAX
+    package's Pallas flash forward in f32 (interpret mode) on the same
+    bf16-representable inputs: each out element within
+    ``tensor_core_bound``, the bound the card checks hold K2 to; lse
+    within 1e-3, as on the card."""
+    rng = np.random.default_rng(100 + t + d + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, t, 2, d),
+                                                    dtype=np.float32))
+               .bfloat16() for _ in range(3))
+    want = jax_flash.flash_attention(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)), causal=causal,
+        block_q=32, block_k=32, interpret=True)
+    want = torch.from_numpy(np.array(want))
+    out, lse = tensor_core_forward(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    bound = tensor_core_bound("out", out, want, q, k, v, causal=causal)
+    ratio = float(((out.float() - want).abs().double() / bound).max())
+    assert ratio <= 1.0, ratio
+    _, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                       causal=causal)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+def test_tensor_core_alignment_check():
+    """The bf16 tensor-core kernels copy 16-byte rows; the check reads
+    only pointers and strides, so it runs on CPU tensors."""
+    # a [B, T, H·D] Dense output viewed as [B, T, H, D], as the model does
+    check_tensor_core_alignment(torch.zeros((2, 8, 128),
+                                            dtype=torch.bfloat16)
+                                .view(2, 8, 2, 64))
+    wide = torch.zeros((2, 8, 2, 65), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_tensor_core_alignment(wide[..., 1:])       # strides of 65
+    flat = torch.zeros(2 * 8 * 2 * 64 + 8, dtype=torch.bfloat16)
+    check_tensor_core_alignment(flat[8:].view(2, 8, 2, 64))   # 16 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        check_tensor_core_alignment(flat[4:4 + 2048].view(2, 8, 2, 64))
+    check_tensor_core_alignment(wide[..., 1:].float())  # f32: CUDA cores
 
 
 @pytest.mark.parametrize("t", [1, 37, 256, 1100])

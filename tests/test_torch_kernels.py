@@ -13,6 +13,7 @@ import torch
 from idunno_tpu_torch.config import EngineConfig
 from idunno_tpu_torch.engine import data as data_lib
 from idunno_tpu_torch.engine.inference import InferenceEngine
+from idunno_tpu_torch.ops.flash_attention import bf16_ulp
 from idunno_tpu_torch.ops.preprocess_kernel import (preprocess_batch_kernel,
                                                     preprocess_batch_plain)
 
@@ -68,19 +69,25 @@ def test_kernel_mode_matches_plain_mode_on_card(cuda_device, name):
 
 # -- K2: flash attention forward --------------------------------------------
 
-def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """Spacing of bf16 numbers (8 significant bits) at |x|, elementwise."""
-    _, e = torch.frexp(x.abs().double())
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+def _assert_within_bound(name, got, ref, q, k, v, causal, **bwd):
+    """bf16 tensor-core output within its per-element bound
+    (``ops/flash_attention.py:tensor_core_bound``)."""
+    from idunno_tpu_torch.ops.flash_attention import tensor_core_bound
+    bound = tensor_core_bound(name, got, ref, q, k, v, causal=causal, **bwd)
+    ratio = float(((got.float() - ref.float()).abs().double() / bound).max())
+    assert ratio <= 1.0, (name, ratio)
 
 
 # (batch, seq, heads, head_dim, dtype, causal): the LM prefill shape of the
-# full-width model, and a ragged f32 shape whose last tile is partly past T
+# full-width model, a ragged f32 shape whose last tile is partly past T, and
+# the tensor-core kernel's second head_dim and a ragged T in bf16
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,causal", [
     ((4, 1024, 16, 64), torch.bfloat16, True),
     ((2, 1000, 3, 32), torch.float32, False),
-    ((2, 1000, 3, 32), torch.float32, True)])
+    ((2, 1000, 3, 32), torch.float32, True),
+    ((2, 256, 4, 32), torch.bfloat16, False),
+    ((2, 1000, 3, 64), torch.bfloat16, True)])
 def test_flash_kernel_matches_plain_version(cuda_device, shape, dtype,
                                             causal):
     from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
@@ -95,14 +102,11 @@ def test_flash_kernel_matches_plain_version(cuda_device, shape, dtype,
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
     assert out.dtype == dtype and lse.shape == (shape[0], shape[2], shape[1])
     o, r = out.float(), ref.float()
-    # bf16: the kernel and the plain version round an f32 result that
-    # differs only by f32 rounding (online vs one-pass softmax): each
-    # element within 2 bf16 ulps of max(|out|, |ref|) plus a 1e-5 f32
-    # floor; f32: 1e-5 of the largest output
+    # bf16: the tensor-core kernel rounds p to bf16 before P.V, so each
+    # element lies within the bound derived from that rounding; f32 (the
+    # TPU kernel's arithmetic on the CUDA cores): 1e-5 of the largest output
     if dtype == torch.bfloat16:
-        tol = 2 * _bf16_ulp(torch.maximum(o.abs(), r.abs())) + 1e-5
-        ratio = float(((o - r).abs().double() / tol).max())
-        assert ratio <= 1.0, ratio
+        _assert_within_bound("out", out, ref, q, k, v, causal)
     else:
         torch.testing.assert_close(o, r, rtol=0,
                                    atol=1e-5 * float(r.abs().max()))
@@ -194,15 +198,15 @@ def _bwd_inputs(device, shape, dtype, causal, seed):
 
 def _assert_grad_close(got, want, dtype):
     """f32: 1e-5 of the reference's largest magnitude (the kernel and the
-    plain version differ only in f32 summation order). bf16: each element
-    within 2 bf16 ulps of max(|got|, |want|) plus a floor of 1e-5 of the
-    reference's largest magnitude: both round an f32 sum that differs only
-    by f32 rounding, and gradients that cancel to near zero have no bf16
-    digits of their own to hold them to."""
+    plain version differ only in f32 summation order). bf16 (K4, on the
+    CUDA cores): each element within 2 bf16 ulps of max(|got|, |want|)
+    plus a floor of 1e-5 of the reference's largest magnitude: both round
+    an f32 sum that differs only by f32 rounding, and gradients that
+    cancel to near zero have no bf16 digits of their own to hold them to."""
     g, w = got.float(), want.float()
     scale = float(w.abs().max())
     if dtype == torch.bfloat16:
-        tol = 2 * _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-5 * scale
+        tol = 2 * bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-5 * scale
         ratio = float(((g - w).abs().double() / tol).max())
         assert ratio <= 1.0, ratio
     else:
@@ -210,14 +214,16 @@ def _assert_grad_close(got, want, dtype):
 
 
 # the training shape of the full-width LM (bf16 [8, 1024, 16, 64]), f32
-# causal and non-causal, and a ragged T whose last tile is partly past T
+# causal and non-causal, a ragged T whose last tile is partly past T, and
+# the tensor-core K5's second head_dim
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,causal", [
     ((8, 1024, 16, 64), torch.bfloat16, True),
     ((2, 256, 4, 64), torch.float32, True),
     ((2, 256, 4, 32), torch.float32, False),
     ((2, 1000, 3, 32), torch.float32, True),
-    ((2, 1000, 3, 64), torch.bfloat16, False)])
+    ((2, 1000, 3, 64), torch.bfloat16, False),
+    ((2, 256, 4, 32), torch.bfloat16, True)])
 def test_flash_bwd_kernels_match_plain_version(cuda_device, shape, dtype,
                                                causal):
     from idunno_tpu_torch.ops.flash_attention import (
@@ -235,9 +241,45 @@ def test_flash_bwd_kernels_match_plain_version(cuda_device, shape, dtype,
     assert flash_attention_bwd_dq_kernel.launches == n4 + 1
     assert flash_attention_bwd_dkv_kernel.launches == n5 + 1
     ref = flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)
-    for got, want in zip((dq, dk, dv), ref):
+    for got in (dq, dk, dv):
         assert got.dtype == dtype and got.shape == shape
-        _assert_grad_close(got, want, dtype)
+    _assert_grad_close(dq, ref[0], dtype)
+    if dtype == torch.bfloat16:
+        # K5 on the tensor cores rounds P^T and dS^T to bf16 before its
+        # products: dK and dV within the bound derived from that rounding
+        for name, got, want in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            _assert_within_bound(name, got, want, q, k, v, causal, do=do,
+                                 lse=lse, delta=delta)
+    else:
+        _assert_grad_close(dk, ref[1], dtype)
+        _assert_grad_close(dv, ref[2], dtype)
+
+
+@pytest.mark.gpu
+def test_bf16_flash_kernels_refuse_misaligned_rows(cuda_device):
+    """The tensor-core kernels copy 16-byte rows: a bf16 view whose rows
+    start 2 bytes in and whose strides are 65 elements is refused by the
+    K2 and K5 wrappers, before any launch."""
+    from idunno_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention_bwd_dkv_kernel,
+        flash_attention_kernel)
+    rng = np.random.default_rng(11)
+    wide = [torch.from_numpy(rng.standard_normal((2, 64, 2, 65),
+                                                 dtype=np.float32))
+            .to(cuda_device, torch.bfloat16) for _ in range(4)]
+    q, k, v, do = (x[..., 1:] for x in wide)
+    before = (flash_attention_kernel.launches,
+              flash_attention_bwd_dkv_kernel.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(q, k, v, causal=True)
+    out, lse = flash_attention_kernel(*(x.contiguous() for x in (q, k, v)),
+                                      causal=True)
+    delta = attention_delta(out, do)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=True)
+    assert (flash_attention_kernel.launches,
+            flash_attention_bwd_dkv_kernel.launches) == (before[0] + 1,
+                                                         before[1])
 
 
 @pytest.mark.gpu

@@ -36,9 +36,9 @@ from idunno_tpu_torch.models.convert import (lm_state_dict_from_flax,
 from idunno_tpu_torch.models.transformer import TransformerLM, make_attn_fn
 from idunno_tpu_torch.ops.attention import full_attention
 from idunno_tpu_torch.ops.flash_attention import (
-    attention_delta, flash_attention, flash_attention_bwd_dkv_kernel,
+    NEG_INF, attention_delta, flash_attention, flash_attention_bwd_dkv_kernel,
     flash_attention_bwd_dq_kernel, flash_attention_bwd_plain,
-    flash_attention_kernel)
+    flash_attention_kernel, flash_attention_plain, tensor_core_bound)
 from idunno_tpu_torch.utils.train_bench import run_train_bench
 
 VOCAB, DIM, DEPTH, HEADS, T, B = 64, 64, 2, 4, 32, 4
@@ -80,6 +80,65 @@ def test_flash_grads_match_jax_pallas_backward(causal, d, t):
     out.backward(torch.from_numpy(do))
     for leaf, w in zip(leaves, want):
         assert_close(leaf.grad, w, 1e-5)
+
+
+def tensor_core_dkv(q, k, v, do, lse, delta, causal, tile=64):
+    """Emulation of K5's bf16 tensor-core arithmetic
+    (``csrc/flash_attention_bwd.cu:flash_bwd_dkv_tc``) in torch: bf16
+    inputs whose products are exact in f32, 64-query tiles in order,
+    Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ∘(dPᵀ − delta)·scale in f32, both
+    rounded to bf16 before dV += Pᵀ·dO and dK += dSᵀ·Q, dK and dV rounded
+    to bf16 at the end."""
+    _, t, _, d = q.shape
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, of = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    keys = torch.arange(t)[:, None]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, t, tile):
+        qt, ot = qf[:, :, q0:q0 + tile], of[:, :, q0:q0 + tile]
+        st = (kf @ qt.transpose(-1, -2)) * scale
+        if causal:
+            rows = torch.arange(q0, q0 + qt.shape[2])[None, :]
+            st = st.masked_fill(keys > rows, NEG_INF)
+        pt = torch.exp(st - lse[:, :, None, q0:q0 + tile])
+        dst = pt * (vf @ ot.transpose(-1, -2)
+                    - delta[:, :, None, q0:q0 + tile]) * scale
+        dv += pt.bfloat16().float() @ ot
+        dk += dst.bfloat16().float() @ qt
+    return dk.transpose(1, 2).bfloat16(), dv.transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("t", [64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_dkv_within_bound_of_jax_vjp(causal, t, d):
+    """K5's bf16 tensor-core arithmetic (emulated, on lse and delta of the
+    f32 forward) against ``jax.vjp`` through the JAX package's Pallas
+    flash in f32 (interpret mode) on the same bf16-representable inputs:
+    each dK and dV element within ``tensor_core_bound``, the bound the
+    card checks hold K5 to."""
+    rng = np.random.default_rng(200 + t + d + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, t, 2, d),
+                                                        dtype=np.float32))
+                   .bfloat16() for _ in range(4))
+    qf, kf, vf, of = (x.float() for x in (q, k, v, do))
+
+    def jax_fwd(q, k, v):
+        return jax_flash.flash_attention(q, k, v, causal=causal, block_q=32,
+                                         block_k=32, interpret=True)
+
+    _, vjp = jax.vjp(jax_fwd, *(jnp.asarray(x.numpy()) for x in (qf, kf, vf)))
+    _, want_dk, want_dv = (torch.from_numpy(np.array(g))
+                           for g in vjp(jnp.asarray(of.numpy())))
+    out, lse = flash_attention_plain(qf, kf, vf, causal=causal)
+    delta = attention_delta(out, of)
+    dk, dv = tensor_core_dkv(q, k, v, do, lse, delta, causal)
+    for name, got, want in (("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        bound = tensor_core_bound(name, got, want, q, k, v, causal=causal,
+                                  do=do, lse=lse, delta=delta)
+        ratio = float(((got.float() - want).abs().double() / bound).max())
+        assert ratio <= 1.0, (name, ratio)
 
 
 @pytest.mark.parametrize("causal", [True, False])
