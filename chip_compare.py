@@ -14,15 +14,20 @@ measures the same things:
 - K2 (bf16, causal) at [4, 1024, 16, 64] and [8, 1024, 16, 64] by CUDA
   graph replay (a launch takes about as long as its wrapper takes to
   enqueue it), K4 and K5 at [8, 1024, 16, 64] by CUDA events over a loop
-  of launches;
+  of launches and by graph replay, K3 at the served decode shape (bf16
+  pages of 12 layers in turn, as ``chip_smoke.phase_paged_timing``) by
+  graph replay;
 - one LM prefill forward ([4, 1024] tokens, the full-width bf16 model,
   ``make_attn_fn("auto")``) under ``torch.profiler``: device time,
-  kernel launches, K2's part; and the untraced forward's tokens/s;
+  kernel launches, K2's part; and the untraced forwards' tokens/s, over
+  all five and from the fastest;
 - one decode dispatch of the paged ``DecodeServer`` (16 live rows, 16
-  model steps) under ``torch.profiler``: device time and launches;
+  model steps) under ``torch.profiler``: device time, launches and K3's
+  part;
 - the LM train step (seq 1024 × batch 8, f32 master weights, bf16
-  compute): the median of 5 untraced steps, tokens/s and MFU, and one
-  traced step's device time, busy share and K2 + K4 + K5 part.
+  compute): the median and the least of 11 untraced steps, tokens/s and
+  MFU from the median, and one traced step's device time, busy share
+  and K2 + K4 + K5 part.
 
 Each turn prints one JSON line ``{"turn": ..., "tree": ..., ...}``. It
 exits non-zero when a turn fails or no card is present.
@@ -36,6 +41,7 @@ import sys
 import time
 
 TURNS = ("parent", "change", "change", "parent")
+TRAIN_STEPS = 11   # untraced steps a turn; the host sets their pace
 
 
 def _device_ms(by_name, *needles) -> float:
@@ -57,6 +63,7 @@ def measure() -> dict:
                                                      make_attn_fn)
     from idunno_tpu_torch.ops import cuda_build
     from idunno_tpu_torch.ops import flash_attention as fa
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
     from idunno_tpu_torch.utils.lm_bench import (lm_bench_config,
                                                  prefix_bench_workload,
                                                  serving_max_new)
@@ -81,11 +88,27 @@ def measure() -> dict:
     q, k, v, do, out, lse = c.flash_bwd_inputs((8, 1024, 16, 64), "bf16",
                                                True, 60)
     delta = fa.attention_delta(out, do)
-    rec["k4_ms"] = c.cuda_ms(lambda: fa.flash_attention_bwd_dq_kernel(
-        q, k, v, do, lse, delta, causal=True), 20)
-    rec["k5_ms"] = c.cuda_ms(lambda: fa.flash_attention_bwd_dkv_kernel(
-        q, k, v, do, lse, delta, causal=True), 20)
-    del q, k, v, do, out, lse, delta
+    bwd = {"k4": lambda: fa.flash_attention_bwd_dq_kernel(
+               q, k, v, do, lse, delta, causal=True),
+           "k5": lambda: fa.flash_attention_bwd_dkv_kernel(
+               q, k, v, do, lse, delta, causal=True)}
+    for name, fn in bwd.items():
+        rec[f"{name}_ms"] = c.cuda_ms(fn, 20)
+        rec[f"{name}_graph_ms"] = c.graph_ms(fn, 20)
+    del q, k, v, do, out, lse, delta, bwd
+
+    layers = 12
+    q5, kp, vp, tables, lengths, _, _ = c.paged_inputs(
+        b=16, t=1, kvh=16, g=1, d=64, n=68, bs=c.LM_BLOCK,
+        chains=[0] + [3] * 15, int8=False, seed=40, layers=layers)
+    turn = iter(range(10 ** 9))
+
+    def k3():
+        i = next(turn) % layers
+        return paged_attention_kernel(q5, kp[i], vp[i], tables, lengths)
+
+    rec["k3_graph_ms"] = c.graph_ms(k3, 240)
+    del q5, kp, vp, tables, lengths
 
     cfg = lm_bench_config()
     lm = c.build_lm(cfg, "bf16", depth=cfg["depth"], seed=0)
@@ -96,13 +119,15 @@ def measure() -> dict:
                          .manual_seed(5))
     with torch.no_grad():
         lm(toks)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        fwd_s = []
         for _ in range(c.LM_FORWARDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             lm(toks)
-        torch.cuda.synchronize()
-        rec["prefill_tokens_per_s"] = (c.LM_FORWARDS * b * t
-                                       / (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+        rec["prefill_tokens_per_s"] = c.LM_FORWARDS * b * t / sum(fwd_s)
+        rec["prefill_tokens_per_s_best"] = b * t / min(fwd_s)
         wall, by_name, n = c.device_profile(lambda: lm(toks))
     rec["prefill"] = {"wall_ms": wall, "launches": n,
                       "device_ms": sum(by_name.values()),
@@ -119,6 +144,7 @@ def measure() -> dict:
     srv.run_until_drained()
     rec["decode_dispatch"] = {"wall_ms": wall, "launches": n,
                               "device_ms": sum(by_name.values()),
+                              "k3_ms": _device_ms(by_name, "paged_fwd"),
                               "model_steps": srv.decode_steps}
     del srv, lm
     torch.cuda.empty_cache()
@@ -139,18 +165,19 @@ def measure() -> dict:
     for _ in range(3):
         step(state, tokens)
     times = []
-    for _ in range(5):
+    for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         float(step(state, tokens)["loss"])
         times.append(time.perf_counter() - t0)
-    step_s = sorted(times)[2]
+    step_s = sorted(times)[TRAIN_STEPS // 2]
     n_params = sum(p.numel() for p in model.parameters())
     wall, by_name, n = c.device_profile(lambda: step(state, tokens))
     busy = sum(by_name.values())
     flash = _device_ms(by_name, "flash_fwd", "flash_bwd")
     rec["train"] = {
-        "step_ms_median": step_s * 1e3, "tokens_per_s": b * t / step_s,
+        "step_ms_median": step_s * 1e3, "step_ms_min": min(times) * 1e3,
+        "tokens_per_s": b * t / step_s,
         "mfu": b * t / step_s * lm_flops_per_token(n_params, tcfg)
         / H100_BF16_FLOPS,
         "traced_wall_ms": wall, "launches": n, "device_ms": busy,

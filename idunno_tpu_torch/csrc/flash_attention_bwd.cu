@@ -28,9 +28,8 @@
 // Design. The TPU kernels carry an accumulator in VMEM scratch across a
 // sequential innermost grid axis; here a CTA loops over that axis itself
 // and keeps its accumulators in registers (f32):
-// - K4: one CTA per (batch*head, 64-row query tile). q and dO rows stay
-//   in shared memory; the CTA walks the key tiles up to the causal
-//   diagonal, staging K and V.
+// - K4: one CTA per (batch*head, 64-row query tile). The CTA walks the key
+//   tiles up to the causal diagonal, staging K and V.
 // - K5: one CTA per (batch*head, 64-key tile). The CTA walks the query
 //   tiles from the first live one (the diagonal) to the last, staging q,
 //   dO, lse and delta.
@@ -40,30 +39,40 @@
 // adds dQ with atomics; that saves recomputing p once, but the sum's
 // order then changes between runs.
 //
-// K4 (both dtypes) and K5 in f32 keep the TPU kernels' f32 arithmetic on
-// the CUDA cores, every operand staged in shared memory as f32: threads
-// form a 16 x 16 grid, as in K2's f32 kernel; thread (ty, tx) owns rows
-// 4ty..4ty+3 of the accumulators and columns tx + 16c, and computes the
-// score tile's entries (4ty + r, tx + 16j). The ds (and p) tile passes
-// through shared memory to the second product. Rows of shared tiles are
-// padded to D + 1 floats, so column reads are free of bank conflicts.
+// In f32 both keep the TPU kernels' f32 arithmetic on the CUDA cores, every
+// operand staged in shared memory as f32: threads form a 16 x 16 grid, as
+// in K2's f32 kernel; thread (ty, tx) owns rows 4ty..4ty+3 of the
+// accumulators and columns tx + 16c, and computes the score tile's entries
+// (4ty + r, tx + 16j). The ds (and p) tile passes through shared memory to
+// the second product. Rows of shared tiles are padded to D + 1 floats, so
+// column reads are free of bank conflicts.
 //
-// K5 in bf16 (`flash_bwd_dkv_tc`, the training path) runs on the tensor
-// cores with `mma.sync` m16n8k16 (tensor_core.cuh), and P and dS never
-// touch shared memory. One CTA of 4 warps owns 64 keys, 16 a warp; its K
-// and V rows are put by `ldmatrix` into A fragments once and stay in
-// registers. Each query tile's q and dO pass through a two-stage
-// `cp.async` ring (rows padded to D + 8 bf16 for conflict-free
-// `ldmatrix`), its lse and delta beside them. Per tile, in f32
-// accumulators: S^T = K.q^T, P^T = exp(S^T.scale - lse) (in base 2, masked
-// at -1e30 as above), dP^T = V.dO^T, dS^T = P^T.(dP^T - delta).scale; then
-// P^T and dS^T are packed to bf16 straight from their C fragments into the
-// A fragments of dV += P^T.dO and dK += dS^T.q, whose B operands q and dO
-// are read by `ldmatrix.trans`. dK and dV stay in registers (64 floats a
-// thread at D = 64) until the end. The rounding of P^T and dS^T to bf16
-// (at most 2^-9 relative) is the only difference from the f32 arithmetic;
-// `ops/flash_attention.py:tensor_core_bound` turns it into a per-element
-// bound. Its inputs need 16-byte aligned rows, as K2's bf16 kernel.
+// In bf16 (the training path) both run on the tensor cores with
+// `mma.sync` m16n8k16 (tensor_core.cuh), and P and dS never touch shared
+// memory. One CTA has 4 warps of 16 rows (K4: query rows, K5: keys); the
+// warp's own rows are put by `ldmatrix` into A fragments once and stay in
+// registers (K4: q and dO, with the rows' lse in base 2 and delta; K5: K
+// and V). The other side's tiles pass through a two-stage `cp.async` ring
+// (rows padded to D + 8 bf16 for conflict-free `ldmatrix`; rows past T
+// zero-filled by a source size of 0), so the next tile's copy overlaps
+// this tile's products. Per tile, in f32 accumulators:
+// - K5 (`flash_bwd_dkv_tc`): S^T = K.q^T, P^T = exp(S^T.scale - lse) (in
+//   base 2, masked at -1e30 as above), dP^T = V.dO^T, dS^T =
+//   P^T.(dP^T - delta).scale; then P^T and dS^T are packed to bf16 straight
+//   from their C fragments into the A fragments of dV += P^T.dO and
+//   dK += dS^T.q, whose B operands q and dO are read by `ldmatrix.trans`.
+//   dK and dV stay in registers (64 floats a thread at D = 64).
+// - K4 (`flash_bwd_dq_tc`): S = q.K^T and dP = dO.V^T with B read from K
+//   and V rows by plain `ldmatrix`, P = exp(S.scale - lse) and
+//   dS = P.(dP - delta).scale as in K5; dS is packed to bf16 straight into
+//   the A fragments of dQ += dS.K, whose B operand K is read by
+//   `ldmatrix.trans`. dQ stays in registers (32 floats a thread at
+//   D = 64) until one bf16 store. Causal query tiles run longest first
+//   (reversed blockIdx.y, as K2), so the light tiles fill the tail.
+// The rounding of dS (and in K5 P) to bf16, at most 2^-9 relative, is the
+// only difference from the f32 arithmetic; `ops/flash_attention.py:
+// tensor_core_bound` turns it into a per-element bound. Their inputs need
+// 16-byte aligned rows, as K2's bf16 kernel.
 //
 // q, k, v and dO are read through their [B, T, H, D] strides; lse and
 // delta are f32 [B, H, T]; dQ, dK and dV are written contiguous
@@ -82,23 +91,9 @@ namespace {
 
 constexpr int kTile = 64;        // query rows and keys per tile
 constexpr int kThreads = 256;    // 16 x 16 (CUDA-core kernels)
-constexpr int kTcThreads = 128;  // 4 warps of 16 keys (K5's bf16 kernel)
+constexpr int kTcThreads = 128;  // 4 warps of 16 rows (bf16 kernels)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Strides {   // element strides of the batch, token and head axes
   int64_t b, t, h;
@@ -116,15 +111,15 @@ struct Inputs {    // q, k, v, dO with their strides; lse and delta
 
 // rows [t0, t0 + 64) of one head of x into a [64][D + 1] f32 tile; rows
 // at or past `seq` are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* x, int64_t st,
-                                          int t0, int seq) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* x,
+                                          int64_t st, int t0, int seq) {
   constexpr int LD = D + 1;
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     const int t = t0 + r;
-    dst[r * LD + c] = t < seq ? to_f32(x[t * st + c]) : 0.f;
+    dst[r * LD + c] = t < seq ? x[t * st + c] : 0.f;
   }
 }
 
@@ -150,10 +145,10 @@ constexpr size_t dkv_smem_bytes() {
                           + 2 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(Inputs in, T* __restrict__ dq, int heads, int seq, float scale,
-             int causal) {
+flash_bwd_dq(Inputs in, float* __restrict__ dq, int heads, int seq,
+             float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int LP = kTile + 1;
   constexpr int kCols = D / 16;
@@ -171,14 +166,14 @@ flash_bwd_dq(Inputs in, T* __restrict__ dq, int heads, int seq, float scale,
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
   const int q0 = iq * kTile;
-  const T* qb = static_cast<const T*>(in.q) + b * in.sq.b + h * in.sq.h;
-  const T* kb = static_cast<const T*>(in.k) + b * in.sk.b + h * in.sk.h;
-  const T* vb = static_cast<const T*>(in.v) + b * in.sv.b + h * in.sv.h;
-  const T* db = static_cast<const T*>(in.dout) + b * in.sd.b + h * in.sd.h;
+  const float* qb = static_cast<const float*>(in.q) + b * in.sq.b + h * in.sq.h;
+  const float* kb = static_cast<const float*>(in.k) + b * in.sk.b + h * in.sk.h;
+  const float* vb = static_cast<const float*>(in.v) + b * in.sv.b + h * in.sv.h;
+  const float* db = static_cast<const float*>(in.dout) + b * in.sd.b + h * in.sd.h;
   const int64_t row_base = (static_cast<int64_t>(b) * heads + h) * seq;
 
-  load_tile<T, D>(qs, qb, in.sq.t, q0, seq);
-  load_tile<T, D>(dos, db, in.sd.t, q0, seq);
+  load_tile<D>(qs, qb, in.sq.t, q0, seq);
+  load_tile<D>(dos, db, in.sd.t, q0, seq);
   float lse[4], delta[4], acc[4][kCols];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -195,8 +190,8 @@ flash_bwd_dq(Inputs in, T* __restrict__ dq, int heads, int seq, float scale,
   for (int jk = 0; jk < nk; ++jk) {
     const int k0 = jk * kTile;
     __syncthreads();   // the previous tile's reads of ks, vs, dss are done
-    load_tile<T, D>(ks, kb, in.sk.t, k0, seq);
-    load_tile<T, D>(vs, vb, in.sv.t, k0, seq);
+    load_tile<D>(ks, kb, in.sk.t, k0, seq);
+    load_tile<D>(vs, vb, in.sv.t, k0, seq);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -257,9 +252,9 @@ flash_bwd_dq(Inputs in, T* __restrict__ dq, int heads, int seq, float scale,
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + ty * 4 + r;
     if (row >= seq) continue;
-    T* o = dq + ((static_cast<int64_t>(b) * seq + row) * heads + h) * D;
+    float* o = dq + ((static_cast<int64_t>(b) * seq + row) * heads + h) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) o[tx + 16 * c] = from_f32<T>(acc[r][c]);
+    for (int c = 0; c < kCols; ++c) o[tx + 16 * c] = acc[r][c];
   }
 }
 
@@ -294,8 +289,8 @@ flash_bwd_dkv(Inputs in, float* __restrict__ dk, float* __restrict__ dv,
   const float* db = static_cast<const float*>(in.dout) + b * in.sd.b + h * in.sd.h;
   const int64_t row_base = (static_cast<int64_t>(b) * heads + h) * seq;
 
-  load_tile<float, D>(ks, kb, in.sk.t, k0, seq);
-  load_tile<float, D>(vs, vb, in.sv.t, k0, seq);
+  load_tile<D>(ks, kb, in.sk.t, k0, seq);
+  load_tile<D>(vs, vb, in.sv.t, k0, seq);
   float dk_acc[4][kCols], dv_acc[4][kCols];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -307,8 +302,8 @@ flash_bwd_dkv(Inputs in, float* __restrict__ dk, float* __restrict__ dv,
   for (int iq = causal ? jk : 0; iq < n_tiles; ++iq) {
     const int q0 = iq * kTile;
     __syncthreads();   // the previous tile's reads of qs, dos, pts are done
-    load_tile<float, D>(qs, qb, in.sq.t, q0, seq);
-    load_tile<float, D>(dos, db, in.sd.t, q0, seq);
+    load_tile<D>(qs, qb, in.sq.t, q0, seq);
+    load_tile<D>(dos, db, in.sd.t, q0, seq);
     if (tid < kTile) {
       const int row = q0 + tid;
       lses[tid] = row < seq ? in.lse[row_base + row] : 0.f;
@@ -586,6 +581,166 @@ flash_bwd_dkv_tc(Inputs in, bf16* __restrict__ dk, bf16* __restrict__ dv,
   }
 }
 
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  // q, dO [64][D + 8] once; K, V [64][D + 8] in two stages each
+  return sizeof(bf16) * 6 * kTile * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc(Inputs in, bf16* __restrict__ dq, int heads, int seq,
+                float scale, int causal) {
+  constexpr int LDS = D + 8;     // padded shared row, in bf16
+  constexpr int KD = D / 16;     // 16-deep steps over the head dimension
+  constexpr int ND = D / 8;      // 8-wide column blocks of dQ
+  constexpr int NK = kTile / 8;  // 8-key column blocks of S
+  constexpr int kTileElems = kTile * LDS;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* dos = qs + kTileElems;
+  bf16* ks = dos + kTileElems;         // [2][kTileElems]
+  bf16* vs = ks + 2 * kTileElems;      // [2][kTileElems]
+
+  const int bh = blockIdx.x;
+  const int n_tiles = gridDim.y;
+  // causal rows do iq + 1 key tiles: launch the longest first
+  const int iq = causal ? n_tiles - 1 - blockIdx.y : blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = iq * kTile;
+  const bf16* qb = static_cast<const bf16*>(in.q) + b * in.sq.b + h * in.sq.h;
+  const bf16* kb = static_cast<const bf16*>(in.k) + b * in.sk.b + h * in.sk.h;
+  const bf16* vb = static_cast<const bf16*>(in.v) + b * in.sv.b + h * in.sv.h;
+  const bf16* db = static_cast<const bf16*>(in.dout) + b * in.sd.b + h * in.sd.h;
+  const int64_t row_base = (static_cast<int64_t>(b) * heads + h) * seq;
+  // the two rows of this thread's C fragments, their lse (base 2) and delta
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const float lse0 = row0 < seq ? in.lse[row_base + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < seq ? in.lse[row_base + row1] * kLog2e : 0.f;
+  const float delta0 = row0 < seq ? in.delta[row_base + row0] : 0.f;
+  const float delta1 = row1 < seq ? in.delta[row_base + row1] : 0.f;
+
+  // causal: key tile jk is live iff jk <= iq (K2's `_live` rule)
+  const int nk = causal ? iq + 1 : n_tiles;
+  tc::copy_rows<D, kTile, kTcThreads>(qs, qb, in.sq.t, q0, seq);
+  tc::copy_rows<D, kTile, kTcThreads>(dos, db, in.sd.t, q0, seq);
+  tc::cp_async_commit();
+  tc::copy_rows<D, kTile, kTcThreads>(ks, kb, in.sk.t, 0, seq);
+  tc::copy_rows<D, kTile, kTcThreads>(vs, vb, in.sv.t, 0, seq);
+  tc::cp_async_commit();
+
+  // this warp's 16 rows of q and dO, as A fragments for the whole loop
+  uint32_t qa[KD][4], oa[KD][4];
+  tc::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    const int off = (warp * 16 + (lane & 15)) * LDS + kd * 16 + (lane >> 4) * 8;
+    tc::ldmatrix_x4(qa[kd], qs + off);
+    tc::ldmatrix_x4(oa[kd], dos + off);
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  for (int jk = 0; jk < nk; ++jk) {
+    const int stage = jk & 1;
+    if (jk + 1 < nk) {   // the next tile's copy overlaps this tile's work
+      const int next = (stage ^ 1) * kTileElems;
+      tc::copy_rows<D, kTile, kTcThreads>(ks + next, kb, in.sk.t,
+                                          (jk + 1) * kTile, seq);
+      tc::copy_rows<D, kTile, kTcThreads>(vs + next, vb, in.sv.t,
+                                          (jk + 1) * kTile, seq);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + stage * kTileElems;
+    const bf16* vt = vs + stage * kTileElems;
+
+    // S = q.K^T and dP = dO.V^T: this warp's 16 rows by the tile's 64 keys
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int p = 0; p < NK / 2; ++p) {
+        const int off = (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS
+                        + kd * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        tc::ldmatrix_x4(bk, kt + off);
+        tc::mma_bf16(s[2 * p], qa[kd], bk[0], bk[1]);
+        tc::mma_bf16(s[2 * p + 1], qa[kd], bk[2], bk[3]);
+        tc::ldmatrix_x4(bv, vt + off);
+        tc::mma_bf16(dp[2 * p], oa[kd], bv[0], bv[1]);
+        tc::mma_bf16(dp[2 * p + 1], oa[kd], bv[2], bv[3]);
+      }
+    }
+
+    // P and dS in f32, dS packed to bf16 as A fragments
+    const int k0 = jk * kTile;
+    const bool diag = causal && jk == iq;
+    const bool ragged = q0 + kTile > seq || k0 + kTile > seq;
+    uint32_t dsa[NK / 2][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        float x = s[n][e] * scale_log2;
+        if ((diag && key > row) || (ragged && key >= seq)) x = kNegInf;
+        float p = exp2f(x - (e < 2 ? lse0 : lse1));
+        if (ragged && row >= seq) p = 0.f;
+        s[n][e] = p * (dp[n][e] - (e < 2 ? delta0 : delta1)) * scale;
+      }
+      dsa[n >> 1][(n & 1) * 2] = tc::pack_bf16(s[n][0], s[n][1]);
+      dsa[n >> 1][(n & 1) * 2 + 1] = tc::pack_bf16(s[n][2], s[n][3]);
+    }
+
+    // dQ += dS.K, K's [key][d] tile read transposed as the B operand
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+#pragma unroll
+      for (int p = 0; p < ND / 2; ++p) {
+        uint32_t bk[4];
+        tc::ldmatrix_x4_trans(
+            bk, kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS
+                    + p * 16 + (lane >> 4) * 8);
+        tc::mma_bf16(acc[2 * p], dsa[kk], bk[0], bk[1]);
+        tc::mma_bf16(acc[2 * p + 1], dsa[kk], bk[2], bk[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before its refill
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    if (row >= seq) continue;
+    bf16* o = dq + ((static_cast<int64_t>(b) * seq + row) * heads + h) * D
+              + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(o + n * 8) =
+          tc::pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem, bool* done) {
   if (*done) return 0;
@@ -600,12 +755,19 @@ int allow_smem(Kernel kernel, size_t smem, bool* done) {
 template <typename T, int D>
 int launch_dq(const Inputs& in, void* dq, int batch, int seq, int heads,
               float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static bool attr_set = false;   // once per instantiation
-  if (int err = allow_smem(flash_bwd_dq<T, D>, smem, &attr_set)) return err;
   const dim3 grid(batch * heads, (seq + kTile - 1) / kTile);
-  flash_bwd_dq<T, D><<<grid, kThreads, smem, stream>>>(
-      in, static_cast<T*>(dq), heads, seq, scale, causal);
+  static bool attr_set = false;   // once per instantiation
+  if constexpr (std::is_same_v<T, bf16>) {
+    constexpr size_t smem = dq_tc_smem_bytes<D>();
+    if (int err = allow_smem(flash_bwd_dq_tc<D>, smem, &attr_set)) return err;
+    flash_bwd_dq_tc<D><<<grid, kTcThreads, smem, stream>>>(
+        in, static_cast<bf16*>(dq), heads, seq, scale, causal);
+  } else {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    if (int err = allow_smem(flash_bwd_dq<D>, smem, &attr_set)) return err;
+    flash_bwd_dq<D><<<grid, kThreads, smem, stream>>>(
+        in, static_cast<float*>(dq), heads, seq, scale, causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -631,7 +793,7 @@ int launch_dkv(const Inputs& in, void* dk, void* dv, int batch, int seq,
 }
 
 // the variants the training path uses, K2's set: f32 and bf16, D 32 or 64
-// (K5 in bf16 on the tensor cores, the rest on the CUDA cores)
+// (bf16 on the tensor cores, f32 on the CUDA cores)
 template <typename T>
 int dispatch(bool want_dq, const Inputs& in, void* out0, void* out1,
              int batch, int seq, int heads, int head_dim, float scale,

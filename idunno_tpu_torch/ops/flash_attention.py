@@ -22,15 +22,15 @@ the same function in plain tensor ops: one softmax over all keys instead
 of the kernel's per-tile online softmax, and the whole [T, T]
 probability matrix instead of tiles, so the two agree to f32 rounding.
 
-In bf16 (the serving and training path) K2 and K5 run on the tensor
-cores: bf16 products with f32 sums, and the probabilities P (and in K5
-dS) rounded to bf16 before their second product. That rounding, at most
-2⁻⁹ of each value, is their only difference from the plain version's
-f32 arithmetic; ``tensor_core_bound`` turns it into a per-element bound
-on out, dK and dV. Those two kernels copy 16-byte chunks, so their bf16
-inputs need 16-byte aligned rows (``check_tensor_core_alignment``). The
-f32 variants and K4 keep the TPU kernels' f32 arithmetic on the CUDA
-cores.
+In bf16 (the serving and training path) K2, K4 and K5 run on the tensor
+cores: bf16 products with f32 sums, and the probabilities P (K2, K5) and
+dS (K4, K5) rounded to bf16 before their second product. That rounding,
+at most 2⁻⁹ of each value, is their only difference from the plain
+version's f32 arithmetic; ``tensor_core_bound`` turns it into a
+per-element bound on out, dQ, dK and dV. The kernels copy 16-byte
+chunks, so their bf16 inputs need 16-byte aligned rows
+(``check_tensor_core_alignment``). The f32 variants keep the TPU
+kernels' f32 arithmetic on the CUDA cores.
 
 The backward recomputes the probabilities from the forward's
 log-sum-exp: ``delta = rowsum(dO * O)`` in plain torch (the JAX package
@@ -114,15 +114,17 @@ def tensor_core_bound(name: str, got: torch.Tensor, ref: torch.Tensor,
                       delta: torch.Tensor | None = None) -> torch.Tensor:
     """Per-element bound on ``|got − ref|`` (f64, ``got``'s shape) for an
     output of the bf16 tensor-core kernels against the f32 arithmetic of
-    the plain versions, ``name`` one of ``"out"`` (K2), ``"dk"``,
-    ``"dv"`` (K5; these need ``do``, ``lse`` and ``delta``).
+    the plain versions, ``name`` one of ``"out"`` (K2), ``"dq"`` (K4),
+    ``"dk"``, ``"dv"`` (K5; the gradients need ``do``, ``lse`` and
+    ``delta``).
 
     The kernels' bf16 products are exact in f32 and their sums f32; what
-    they round is each probability p (K2, K5) and each dS (K5) to bf16
+    they round is each probability p (K2, K5) and each dS (K4, K5) to bf16
     before the next product, a relative error of at most 2⁻⁹. Summed
     through that product, with P, dS and l computed the plain way:
 
     - out: ``2⁻⁸·(P·|V|)/l + 1 bf16 ulp of max(|got|, |ref|) + 1e-5``
+    - dQ: ``2⁻⁸·(|dS|·|K|) + 1 ulp + 1e-5·max|ref|``
     - dV: ``2⁻⁸·(Pᵀ·|dO|) + 1 ulp + 1e-5·max|ref|``
     - dK: ``2⁻⁸·(|dS|ᵀ·|Q|) + 1 ulp + 1e-5·max|ref|``
 
@@ -133,10 +135,12 @@ def tensor_core_bound(name: str, got: torch.Tensor, ref: torch.Tensor,
         p = torch.softmax(_scores(q, k, causal=causal), dim=-1)
         term = torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
         return _P_ROUNDING * term.double() + ulp + 1e-5
-    if name not in ("dk", "dv"):
+    if name not in ("dq", "dk", "dv"):
         raise ValueError(f"no tensor-core bound for {name!r}")
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal)
-    if name == "dv":
+    if name == "dq":
+        term = torch.einsum("bhqk,bkhd->bqhd", ds.abs(), k.float().abs())
+    elif name == "dv":
         term = torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())
     else:
         term = torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.float().abs())
@@ -151,7 +155,7 @@ def _tensor_core_aligned(x: torch.Tensor) -> bool:
 
 def check_tensor_core_alignment(*xs: torch.Tensor) -> None:
     """Raise unless every bf16 tensor of ``xs`` can be copied in 16-byte
-    chunks, as the tensor-core kernels (K2, K5 in bf16) copy it: its data
+    chunks, as the tensor-core kernels (K2, K4, K5 in bf16) copy it: its data
     pointer 16-byte aligned and its batch, token and head strides
     multiples of 8 elements. f32 tensors pass unchecked. Reads only
     pointers and strides, so it runs on any device."""
@@ -340,14 +344,17 @@ def flash_attention_bwd_dq_kernel(q: torch.Tensor, k: torch.Tensor,
                                   causal: bool = False) -> torch.Tensor:
     """K4: dq [B, T, H, D] in q's dtype from q/k/v and ``do`` [B, T, H, D],
     lse and delta f32 [B, H, T]. One launch on a CUDA tensor (no
-    synchronize); the plain version's dq on a CPU tensor.
-    ``flash_attention_bwd_dq_kernel.launches`` counts the launches."""
+    synchronize), the tensor-core kernel for bf16 (whose inputs must pass
+    ``check_tensor_core_alignment``); the plain version's dq on a CPU
+    tensor. ``flash_attention_bwd_dq_kernel.launches`` counts the
+    launches."""
     _check_bwd(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return _dq_plain(q, k, v, do, lse, delta, causal=causal)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
+    check_tensor_core_alignment(q, k, v, do)
     _bwd_launch("idunno_flash_attention_bwd_dq", (dq,), q, k, v, do, lse,
                 delta, causal)
     flash_attention_bwd_dq_kernel.launches += 1

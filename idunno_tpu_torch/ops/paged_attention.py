@@ -7,8 +7,10 @@ interchangeable backends behind one signature:
 
 - ``kernel="kernel"``: the CUDA kernel (``csrc/paged_attention.cu``), which
   replaces the TPU kernel ``idunno_tpu/ops/paged_attention.py:_paged_kernel``.
-  Each CTA walks its row's chain and reads the live pages straight from
-  the store. On a CPU tensor the wrapper runs the plain version.
+  Each CTA reads its row's table once, splits the chain across its warps
+  (each keeps its own online-softmax partial, merged in warp order at the
+  end) and reads the live pages straight from the store in 16-byte
+  vectors. On a CPU tensor the wrapper runs the plain version.
 - ``kernel="plain"``: gather + masked softmax in tensor ops
   (``_paged_xla`` of the JAX package).
 
@@ -182,6 +184,9 @@ def paged_attention_kernel(q5, k_pages, v_pages, tables, lengths, *,
             raise ValueError("paged attention operands lie on different devices")
         if not x.is_contiguous():
             raise ValueError("paged kernel takes contiguous operands")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged kernel reads pages in 16-byte vectors: "
+                         "their data pointers must be 16-byte aligned")
     if q5.dtype != torch.float32:
         raise TypeError(f"paged kernel takes f32 queries, got {q5.dtype}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:

@@ -279,6 +279,92 @@ def test_paged_plain_matches_jax_kernel(kvh, g, int8):
     assert bool((want_lse[2] == np.float32(-1e30)).all())
 
 
+def split_chain_paged(q5, kp, vp, tables, lengths, ks=None, vs=None,
+                      warps=4):
+    """Emulation of K3's split chain (``csrc/paged_attention.cu:
+    paged_fwd``) in torch f32: warp w runs an online softmax over blocks
+    w, w + warps, ... of its row's live chain, keeping its own (m, l, acc)
+    from (-1e30, 0, 0); the partials merge in warp order,
+    M = max m_w, L = Σ l_w·e^(m_w − M), out = Σ acc_w·e^(m_w − M) / L
+    (L = 0 divides by 1), lse = M + log L."""
+    b, t, kvh, g, d = q5.shape
+    bs = kp.shape[1]
+    scale = 1.0 / d ** 0.5
+    q = q5.permute(0, 2, 1, 3, 4).reshape(b, kvh, t * g, d).float()
+    out = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3])
+    for r in range(b):
+        n_live = min(tables.shape[1], -(-int(lengths[r]) // bs))
+        parts = []
+        for w in range(warps):
+            m = torch.full((kvh, t * g, 1), NEG_INF)
+            l = torch.zeros((kvh, t * g, 1))
+            acc = torch.zeros((kvh, t * g, d))
+            for j in range(w, n_live, warps):
+                page = int(tables[r, j])
+                n = min(bs, int(lengths[r]) - j * bs)
+                k = kp[page, :n].float().transpose(0, 1)      # [KVH, n, D]
+                v = vp[page, :n].float().transpose(0, 1)
+                if ks is not None:
+                    k = k * ks[page, :n].float().T[..., None]
+                    v = v * vs[page, :n].float().T[..., None]
+                s = q[r] @ k.transpose(-1, -2) * scale
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + p @ v
+                m = m_new
+            parts.append((m, l, acc))
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        total = torch.zeros_like(mx)
+        o = torch.zeros_like(q[r])
+        for m, l, acc in parts:
+            wgt = torch.exp(m - mx)
+            total = total + l * wgt
+            o = o + acc * wgt
+        safe = torch.where(total == 0, torch.ones_like(total), total)
+        out[r] = o / safe
+        lse[r] = (mx + torch.log(safe))[..., 0]
+    return (out.reshape(b, kvh, t, g, d).permute(0, 2, 1, 3, 4),
+            lse.reshape(b, kvh, t, g).permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("kvh,g", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_chain_paged_matches_jax_kernel(kvh, g, int8):
+    """K3's split-chain arithmetic (emulated) against the Pallas kernel in
+    interpret mode: bf16-valued or int8 pages, GQA groupings, chains of
+    9 blocks (more than the 4 warps), 1 block and 0 blocks; 1e-5, and the
+    empty chain exactly (0, -1e30)."""
+    rng = np.random.default_rng(400 + 10 * kvh + g + int8)
+    b, t, d, n = 3, 2, 8, 16
+    q5 = rng.standard_normal((b, t, kvh, g, d)).astype(np.float32)
+    shape = (n, BS, kvh, d)
+    ks = vs = None
+    if int8:
+        kp, vp = (rng.integers(-127, 128, shape).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = (rng.uniform(0.005, 0.05, shape[:3]).astype(np.float32)
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal(shape)
+                                   .astype(np.float32))
+                  .bfloat16().float().numpy() for _ in range(2))
+    perm = rng.permutation(n).astype(np.int32)
+    tables = np.zeros((b, 9), np.int32)
+    tables[0] = perm[:9]
+    tables[1, 0] = perm[9]
+    lengths = np.array([9 * BS, BS, 0], np.int32)
+    case = (q5, kp, vp, tables, lengths, ks, vs)
+    want_out, want_lse = jax_paged_grouped(*case)
+    out, lse = split_chain_paged(*map(to_t, case))
+    assert_close(out, want_out)
+    np.testing.assert_allclose(lse.numpy()[:2], want_lse[:2], rtol=TOL,
+                               atol=TOL)
+    assert bool((out[2] == 0).all()) and bool((lse[2] == -1e30).all())
+
+
 def test_paged_kernel_wrapper_runs_plain_on_cpu():
     q5, kp, vp, tables, lengths, _, _ = map(to_t, paged_case(1, 2, 2))
     before = paged_attention_kernel.launches

@@ -141,6 +141,64 @@ def test_tensor_core_dkv_within_bound_of_jax_vjp(causal, t, d):
         assert ratio <= 1.0, (name, ratio)
 
 
+def tensor_core_dq(q, k, v, do, lse, delta, causal, tile=64):
+    """Emulation of K4's bf16 tensor-core arithmetic
+    (``csrc/flash_attention_bwd.cu:flash_bwd_dq_tc``) in torch: bf16
+    inputs whose products are exact in f32, 64-key tiles in order,
+    P = exp(S·scale − lse) and dS = P∘(dP − delta)·scale in f32, dS
+    rounded to bf16 before dQ += dS·K, dQ rounded to bf16 at the end."""
+    _, t, _, d = q.shape
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, of = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    rows = torch.arange(t)[:, None]
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, t, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(cols > rows, NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        ds = p * (of @ vt.transpose(-1, -2) - delta[..., None]) * scale
+        dq += ds.bfloat16().float() @ kt
+    return dq.transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("t", [64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_dq_within_bound_of_jax_vjp(causal, t, d):
+    """K4's bf16 tensor-core arithmetic (emulated, on lse and delta of the
+    f32 forward) against ``jax.vjp`` through the JAX package's Pallas
+    flash in f32 (interpret mode) on the same bf16-representable inputs:
+    each dQ element within ``tensor_core_bound("dq")``, the bound the
+    card checks hold K4 to; the emulated dQ scaled by 1 + 2⁻⁷ breaks it."""
+    rng = np.random.default_rng(300 + t + d + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, t, 2, d),
+                                                        dtype=np.float32))
+                   .bfloat16() for _ in range(4))
+    qf, kf, vf, of = (x.float() for x in (q, k, v, do))
+
+    def jax_fwd(q, k, v):
+        return jax_flash.flash_attention(q, k, v, causal=causal, block_q=32,
+                                         block_k=32, interpret=True)
+
+    _, vjp = jax.vjp(jax_fwd, *(jnp.asarray(x.numpy()) for x in (qf, kf, vf)))
+    want = torch.from_numpy(np.array(vjp(jnp.asarray(of.numpy()))[0]))
+    out, lse = flash_attention_plain(qf, kf, vf, causal=causal)
+    delta = attention_delta(out, of)
+    dq = tensor_core_dq(q, k, v, do, lse, delta, causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+
+    def ratio(got):
+        bound = tensor_core_bound("dq", got, want, q, k, v, causal=causal,
+                                  do=do, lse=lse, delta=delta)
+        return float(((got.float() - want).abs().double() / bound).max())
+
+    assert ratio(dq) <= 1.0
+    assert ratio((dq.float() * (1 + 2 ** -7)).bfloat16()) > 1.0
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_autograd_of_full_attention(causal):
     """The plain backward against torch autograd through the reference
