@@ -27,7 +27,11 @@ measures the same things:
 - the LM train step (seq 1024 × batch 8, f32 master weights, bf16
   compute): the median and the least of 11 untraced steps, tokens/s and
   MFU from the median, and one traced step's device time, busy share
-  and K2 + K4 + K5 part.
+  and K2 + K4 + K5 part;
+- the ResNet-18 train step (batch 256, 224², f32, fused SGD with
+  momentum; its BatchNorm layers update their running statistics): the
+  median and the least of 11 untraced steps, images/s from the median,
+  and one traced step's device time and launches.
 
 Each turn prints one JSON line ``{"turn": ..., "tree": ..., ...}``. It
 exits non-zero when a turn fails or no card is present.
@@ -56,9 +60,11 @@ def measure() -> dict:
 
     import chip_smoke as c
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
-    from idunno_tpu_torch.engine.train import adamw, flat_tx
+    from idunno_tpu_torch.engine.train import (adamw, create_train_state,
+                                               flat_tx, make_train_step, sgd)
     from idunno_tpu_torch.engine.train_lm import (create_lm_train_state,
                                                   make_lm_train_step)
+    from idunno_tpu_torch.models import create_model
     from idunno_tpu_torch.models.transformer import (TransformerLM,
                                                      make_attn_fn)
     from idunno_tpu_torch.ops import cuda_build
@@ -186,6 +192,31 @@ def measure() -> dict:
         "k4_ms": _device_ms(by_name, "flash_bwd_dq"),
         "k5_ms": _device_ms(by_name, "flash_bwd_dkv"),
         "flash_share_of_device": flash / busy}
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    cnn = create_model("resnet18")
+    cstate = create_train_state(
+        cnn, torch.Generator(device="cuda").manual_seed(0),
+        flat_tx(sgd(0.1, momentum=0.9)))
+    cstep = make_train_step(cnn, cstate.optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn((256, 3, 224, 224), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (256,), generator=gen, device="cuda")
+    for _ in range(3):
+        cstep(cstate, images, labels)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(cstep(cstate, images, labels)["loss"])
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[TRAIN_STEPS // 2]
+    wall, by_name, n = c.device_profile(lambda: cstep(cstate, images, labels))
+    rec["cnn_train"] = {
+        "step_ms_median": step_s * 1e3, "step_ms_min": min(times) * 1e3,
+        "images_per_s": 256 / step_s, "traced_wall_ms": wall,
+        "launches": n, "device_ms": sum(by_name.values())}
     return rec
 
 

@@ -12,13 +12,18 @@ version, times it, and then drives the port's three main paths:
 - CNN serving: ResNet-18 and AlexNet at full width (224² crops of 256²
   images, engine batch 256, seeded random weights) served by an
   in-process cluster of three hosts (membership, fair scheduler,
-  inference service) around one engine on the card — kernel K1;
+  inference service) around one engine on the card — kernel K1; then
+  ResNet-18 with int8 weights and with the space-to-depth stem, and
+  ViT-S/16 (dim 384, depth 12, 6 heads, 197 tokens) served by the engine
+  through K1 and the flash kernel K2;
 - LM serving: the 0.2 B-parameter ``TransformerLM`` (dim 1024, depth 12,
   16 heads, vocab 32768, bf16, seeded random weights) — its full forward
   prefill through the flash kernel K2, and a continuous-batching
   ``DecodeServer`` with the paged KV block pool and radix prefix cache,
   driven by ``LMServingLoop`` from two request threads, attending cached
-  prefixes through the paged kernel K3;
+  prefixes through the paged kernel K3, with the bf16 weights and with
+  int8 ones; and the JAX package's default-size model (head_dim 32) in a
+  paged pool through K3;
 - LM training: the same 0.2 B-parameter model with f32 master parameters
   and bf16 compute, trained on seq 1024 × batch 8 by the port's LM train
   step (next-token cross-entropy, fused AdamW), attending through the
@@ -34,9 +39,11 @@ Phases:
    run);
 2. every kernel against its plain version, at the main paths' shapes
    (bf16 K2, K4 and K5 within the per-element bound of their bf16
-   rounding of P and dS, ``ops/flash_attention.py:tensor_core_bound``);
-3. kernel timing by CUDA-graph replay (K4 and K5 also by CUDA events; K3
-   at the decode and the radix-hit prefill shapes), beside its bound, the
+   rounding of P and dS, ``ops/flash_attention.py:tensor_core_bound``;
+   K2 also at ViT-S/16's [256, 197, 6, 64]; K3 also at head_dim 32);
+3. kernel timing by CUDA-graph replay (K4 and K5 also by CUDA events; K2
+   also at the ViT shape, non-causal; K3 at the decode, the radix-hit
+   prefill and the head_dim 32 decode shapes), beside its bound, the
    plain time and, where one exists, one PyTorch library call computing
    the same function;
 4. CNN serving: concurrent ``resnet`` and ``alexnet`` queries of 1024
@@ -44,26 +51,40 @@ Phases:
    reported, and the K1 launch count, zeroed just before, must rise;
 5. CNN preprocess paths on the same weights: ``kernel`` logits against
    ``plain`` and ``fold``, the card's logits against an f32 CPU reference
-   on 8 images, and each path's images/s;
-6. LM prefill: the full-width forward on [4, 1024] tokens through
+   on 8 images, and each path's images/s; then ResNet-18 with int8
+   weights (logits against the same engine on its dequantized weights)
+   and with the space-to-depth stem (against the 7x7 stem), images/s,
+   and the int8 weights' stored bytes;
+6. ViT serving: a 1024-image query through ViT-S/16; every record comes
+   back, K2 launches (zeroed just before) equal 12 x the forward batches,
+   K1 launches rise; flash logits against ``full`` attention on the same
+   weights (bf16 within 2% of max|logit|; in f32, K2's f32 variant, top-1
+   equal on at least 99%), the card against an f32 CPU reference on 8
+   images; images/s; one forward under ``torch.profiler``;
+7. LM prefill: the full-width forward on [4, 1024] tokens through
    ``make_attn_fn("auto")``; K2 launches must equal depth × forwards, and
    the logits must agree with the ``full`` attention forward; one forward
    under ``torch.profiler`` gives K2's share of the device time;
-7. LM serving: 48 shared-prefix prompts from two threads; every request
+8. LM serving: 48 shared-prefix prompts from two threads; every request
    completes with prompt + max_new in-vocab tokens, radix hits > 0, K3
    launches (zeroed just before) > 0, no loop errors; tokens/s and TTFT;
-8. LM token exactness: the same workload at full width, depth 2, f32, on
-   a ``paged_kernel="kernel"`` and a ``"plain"`` pool: equal greedy
-   streams;
-9. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
-   seeded corpus; the gradients of every parameter through flash and
-   through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
-   ten steps on that batch with finite, falling loss, K2, K4 and K5
-   launches (zeroed just before) each equal to depth × 10, and f32 master
-   parameters after; one step under ``torch.profiler``; then the train
-   bench's record, with no point in error;
-10. one JSON line ``{"kernels": [...]}``;
-11. the last line, ``{"ok": true, "device": {...}}``.
+   then 32 of them with int8 weights (``quantize="int8"``), with the
+   resident weight bytes against the bf16 pool's;
+9. LM token exactness: the same workload at full width, depth 2, f32, on
+   a ``paged_kernel="kernel"`` and a ``"plain"`` pool, with dense and
+   with int8 weights: equal greedy streams; then the default-size model
+   (dim 128, 4 heads: head_dim 32) on both pools: equal streams, K3
+   launches > 0;
+10. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+    seeded corpus; the gradients of every parameter through flash and
+    through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
+    ten steps on that batch with finite, falling loss, K2, K4 and K5
+    launches (zeroed just before) each equal to depth × 10, and f32
+    master parameters after; one step under ``torch.profiler``; then the
+    train bench's record, with no point in error;
+11. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+    sum over the paths it runs on;
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -94,6 +115,7 @@ LM_BLOCK = 16                    # KV block size of the served pool
 LM_DECODE_STEPS = 16             # decode steps per DecodeServer.step()
 LM_FORWARDS = 5                  # timed prefill forwards in phase 6
 LM_TRAIN_STEPS = 10              # train steps on one batch in phase 9
+LM_INT8_REQUESTS = 32            # requests of the int8-weight serving run
 
 
 def say(phase: str, **fields) -> None:
@@ -355,6 +377,20 @@ def phase_serving(engine) -> int:
     return launches
 
 
+def staged_rates(engines: dict, name: str, staged, n: int,
+                 turns: list[str]) -> dict:
+    """images/s of ``infer_staged`` on one staged block, the engines taken
+    in ``turns`` (each warmed first): mode → sorted rates."""
+    rates = {mode: [] for mode in engines}
+    for eng in engines.values():
+        eng.infer_staged(name, staged, n)                  # warm
+    for mode in turns:
+        t0 = time.time()
+        engines[mode].infer_staged(name, staged, n)
+        rates[mode].append(n / (time.time() - t0))
+    return {mode: sorted(r) for mode, r in rates.items()}
+
+
 def phase_paths(engines: dict, card: str) -> None:
     """Logits of each preprocess path on the same weights, an f32 CPU
     reference on 8 images, and images/s of each path."""
@@ -400,20 +436,12 @@ def phase_paths(engines: dict, card: str) -> None:
     staged, n = engines["kernel"].stage(block)
     turns = ["kernel", "plain", "fold", "fold", "plain", "kernel"] * 4
     for name in ("resnet", "alexnet"):
-        rates = {mode: [] for mode in engines}
-        for mode, eng in engines.items():
-            eng.infer_staged(name, staged, n)              # warm
-            res = eng.infer(name, 0, N_QUERY - 1)
-            rates[mode].append(N_QUERY / res.elapsed_s)
-        staged_rates = {mode: [] for mode in engines}
-        for mode in turns:
-            t0 = time.time()
-            engines[mode].infer_staged(name, staged, n)
-            staged_rates[mode].append(n / (time.time() - t0))
-        for mode in engines:
-            r = sorted(staged_rates[mode])
+        rates = staged_rates(engines, name, staged, n, turns)  # warms
+        infer = {mode: N_QUERY / eng.infer(name, 0, N_QUERY - 1).elapsed_s
+                 for mode, eng in engines.items()}
+        for mode, r in rates.items():
             say("paths", model=name, preprocess=mode, card=card,
-                infer_images_per_s=rates[mode][0],
+                infer_images_per_s=infer[mode],
                 staged_images_per_s_median=(r[3] + r[4]) / 2,
                 staged_images_per_s_min=r[0], staged_images_per_s_max=r[-1])
 
@@ -421,10 +449,12 @@ def phase_paths(engines: dict, card: str) -> None:
 # -- LM kernels and paths (K2, K3) ----------------------------------------
 
 # bf16 (the tensor-core kernel): the prefill shape causal and not, the
-# training shape, a ragged T = 1000, and head_dim 32
+# training shape, a ragged T = 1000, head_dim 32, and ViT-S/16's attention
+# at the engine batch (T = 197 non-causal: 5 live rows in the last tile)
+VIT_SHAPE = (BATCH, 197, 6, 64)
 FLASH_CHECKS = (((4, 1024, 16, 64), True), ((4, 1024, 16, 64), False),
                 ((8, 1024, 16, 64), True), ((4, 1000, 16, 64), True),
-                ((4, 1000, 16, 32), False))
+                ((4, 1000, 16, 32), False), (VIT_SHAPE, False))
 
 
 def flash_inputs(shape, seed: int):
@@ -472,11 +502,12 @@ def phase_flash_vs_plain() -> float:
     return worst
 
 
-def paged_inputs(*, b, t, kvh, g, d, n, bs, chains, int8, seed, layers=None):
-    """Decode-pool inputs: f32 queries, pages (bf16, or int8 with f32
-    per-token scales; ``layers`` stacks that many layers' stores), tables
-    whose live entries are distinct pages and dead entries 0, and
-    block-aligned lengths ``chains[b] * bs``."""
+def paged_inputs(*, b, t, kvh, g, d, n, bs, chains, int8, seed, layers=None,
+                 dtype="bf16"):
+    """Decode-pool inputs: f32 queries, pages (``dtype``, "bf16" or "f32",
+    or int8 with f32 per-token scales; ``layers`` stacks that many
+    layers' stores), tables whose live entries are distinct pages and
+    dead entries 0, and block-aligned lengths ``chains[b] * bs``."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -491,7 +522,8 @@ def paged_inputs(*, b, t, kvh, g, d, n, bs, chains, int8, seed, layers=None):
                   + 0.001 for _ in range(2))
     else:
         kp, vp = (torch.randn(shape, generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(2))
+                  .to({"f32": torch.float32, "bf16": torch.bfloat16}[dtype])
+                  for _ in range(2))
     c = max(1, max(chains))
     tables = torch.zeros((b, c), dtype=torch.int32)
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
@@ -505,20 +537,24 @@ def paged_inputs(*, b, t, kvh, g, d, n, bs, chains, int8, seed, layers=None):
 
 def paged_shapes():
     """(label, inputs kwargs) of the K3 checks: the served decode shape
-    (16 slots, 16 kv-heads, bs 16, chains of 0-3 blocks, row 0 empty) and
-    a radix-hit prefill (one row, 64 query positions, a 3-block chain)."""
+    (16 slots, 16 kv-heads, bs 16, chains of 0-3 blocks, row 0 empty), a
+    radix-hit prefill (one row, 64 query positions, a 3-block chain), and
+    the default-size model's decode shape (head_dim 32, 4 kv-heads)."""
     rng = random.Random(3)
     chains = [0] + [rng.randint(0, 3) for _ in range(15)]
     return (("decode", dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=LM_BLOCK,
                             chains=chains)),
             ("hit_prefill", dict(b=1, t=64, kvh=16, g=1, d=64, n=68,
-                                 bs=LM_BLOCK, chains=[3])))
+                                 bs=LM_BLOCK, chains=[3])),
+            ("decode_d32", dict(b=16, t=1, kvh=4, g=1, d=32, n=68,
+                                bs=LM_BLOCK, chains=chains)))
 
 
 def phase_paged_vs_plain() -> float:
-    """K3 against its plain version at the decode and hit-prefill shapes,
-    bf16 and int8 pages: out and lse within 1e-5 relative; empty chains
-    exactly (0, -1e30). Returns the largest |out difference|."""
+    """K3 against its plain version at the decode, hit-prefill and
+    head_dim 32 decode shapes, f32, bf16 and int8 pages: out and lse
+    within 1e-5 relative; empty chains exactly (0, -1e30). Returns the
+    largest |out difference|."""
     import torch
 
     from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
@@ -526,9 +562,9 @@ def phase_paged_vs_plain() -> float:
 
     worst = 0.0
     for label, dims in paged_shapes():
-        for int8 in (False, True):
+        for i, pages in enumerate(("f32", "bf16", "int8")):
             q5, kp, vp, tables, lengths, ks, vs = paged_inputs(
-                int8=int8, seed=20 + int8, **dims)
+                int8=pages == "int8", dtype=pages, seed=20 + i, **dims)
             out, lse = paged_attention_kernel(
                 q5, kp, vp, tables, lengths, k_scale_pages=ks,
                 v_scale_pages=vs)
@@ -544,43 +580,46 @@ def phase_paged_vs_plain() -> float:
             exact_empty = bool((out[empty] == 0).all()
                                and (lse[empty] == -1e30).all())
             say("kernel_vs_plain", kernel="paged_attention", shape=label,
-                pages="int8" if int8 else "bf16", max_abs_err=diff,
+                head_dim=dims["d"], pages=pages, max_abs_err=diff,
                 tolerance=tol, lse_max_rel_err=lse_err, lse_tolerance=1e-5,
                 empty_rows=int(empty.sum()), empty_rows_exact=exact_empty)
             if not (diff <= tol and lse_err <= 1e-5 and exact_empty):
                 raise AssertionError(f"paged kernel off at {label} "
-                                     f"int8={int8}: out {diff}, lse {lse_err}")
+                                     f"{pages}: out {diff}, lse {lse_err}")
             worst = max(worst, diff)
     return worst
 
 
 def phase_flash_timing() -> dict:
-    """K2 (bf16, causal) at the prefill shape [4, 1024, 16, 64], whose
-    numbers it returns, and at the training shape [8, 1024, 16, 64],
-    against its bound, its plain version and
-    ``scaled_dot_product_attention``. The kernel is timed by graph
-    replay: a launch takes about as long on the card as its Python
-    wrapper takes to enqueue it."""
+    """K2 (bf16) at the prefill shape [4, 1024, 16, 64] (causal), whose
+    numbers it returns, at the training shape [8, 1024, 16, 64] (causal)
+    and at ViT-S/16's shape [256, 197, 6, 64] (non-causal), against its
+    bound, its plain version and ``scaled_dot_product_attention``. The
+    kernel is timed by graph replay: a launch takes about as long on the
+    card as its Python wrapper takes to enqueue it."""
     import torch.nn.functional as F
 
     from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
                                                       flash_attention_plain)
 
     timed = {}
-    for shape in ((4, 1024, 16, 64), (8, 1024, 16, 64)):
+    for shape, causal in (((4, 1024, 16, 64), True),
+                          ((8, 1024, 16, 64), True), (VIT_SHAPE, False)):
         b, t, h, d = shape
         q, k, v = flash_inputs(shape, 30)
         kernel_ms = graph_ms(
-            lambda: flash_attention_kernel(q, k, v, causal=True), 50)
+            lambda: flash_attention_kernel(q, k, v, causal=causal), 50)
         plain_ms = cuda_ms(
-            lambda: flash_attention_plain(q, k, v, causal=True), 10)
+            lambda: flash_attention_plain(q, k, v, causal=causal), 10)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 50)
-        # q, k, v read once and out written once; the causal work is the
-        # T(T+1)/2 live (query, key) pairs, two D-long products each
+            qt, kt, vt, is_causal=causal), 50)
+        # q, k, v read once and out written once; the work is the live
+        # (query, key) pairs, T(T+1)/2 causal or T² not, two D-long
+        # products each
         nbytes = 4 * q.numel() * q.element_size()
-        flops = 2 * 2 * b * h * d * t * (t + 1) // 2
+        pairs = t * (t + 1) // 2 if causal else t * t
+        flops = 2 * 2 * b * h * d * pairs
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
         timed[shape] = {"ms": kernel_ms, "plain_ms": plain_ms,
@@ -589,7 +628,7 @@ def phase_flash_timing() -> dict:
                         else "operations",
                         "library_ms": library_ms}
         say("timing", kernel="flash_attention", shape=list(shape),
-            causal=True, **timed[shape], bytes=nbytes, flops=flops,
+            causal=causal, **timed[shape], bytes=nbytes, flops=flops,
             timed_by="cuda graph replay",
             achieved_tflops=flops / (kernel_ms * 1e-3) / 1e12)
     return timed[(4, 1024, 16, 64)]
@@ -598,19 +637,23 @@ def phase_flash_timing() -> dict:
 def phase_paged_timing() -> dict:
     """K3 at the served decode shape (16 rows, 15 with a 3-block chain as a
     radix hit of 48 tokens gives, one empty), whose numbers it returns,
-    and at the radix-hit prefill shape (one row, 64 query positions, a
-    3-block chain), bf16 pages. The pages of 12 layers rotate as in a
-    decode step (54 MB, above the 50 MB L2), so each launch reads its
-    pages from device memory."""
+    at the radix-hit prefill shape (one row, 64 query positions, a
+    3-block chain), and at the default-size model's decode shape (head_dim
+    32, 4 kv-heads), bf16 pages. The pages of 12 layers rotate as in a
+    decode step (54 MB at head_dim 64, above the 50 MB L2), so each launch
+    reads its pages from device memory; at head_dim 32 the 12 layers'
+    pages (3.3 MB) stay in L2, as that small model's would."""
     from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
                                                       paged_attention_kernel)
 
-    layers, bs, d = 12, LM_BLOCK, 64
+    layers, bs = 12, LM_BLOCK
     timed = {}
-    for label, b, t, chains in (("decode", 16, 1, [0] + [3] * 15),
-                                ("hit_prefill", 1, 64, [3])):
+    for label, b, t, kvh, d, chains in (
+            ("decode", 16, 1, 16, 64, [0] + [3] * 15),
+            ("hit_prefill", 1, 64, 16, 64, [3]),
+            ("decode_d32", 16, 1, 4, 32, [0] + [3] * 15)):
         q5, kp, vp, tables, lengths, _, _ = paged_inputs(
-            b=b, t=t, kvh=16, g=1, d=d, n=68, bs=bs, chains=chains,
+            b=b, t=t, kvh=kvh, g=1, d=d, n=68, bs=bs, chains=chains,
             int8=False, seed=40, layers=layers)
         it = iter(range(10 ** 9))
 
@@ -626,7 +669,6 @@ def phase_paged_timing() -> dict:
         plain_ms = graph_ms(lambda: _paged_plain(
             q5, kp[0], vp[0], tables, lengths, scale=1.0 / d ** 0.5), 24)
         live = sum(chains) * bs                 # live tokens over the rows
-        kvh = q5.shape[2]
         nbytes = (2 * live * kvh * d * kp.element_size()       # K and V pages
                   + 2 * q5.numel() * 4 + q5.numel() // d * 4   # q, out, lse
                   + tables.numel() * 4 + lengths.numel() * 4)
@@ -639,7 +681,8 @@ def phase_paged_timing() -> dict:
                         "bound_by": "bytes" if bytes_ms >= ops_ms
                         else "operations",
                         "library_ms": None}
-        say("timing", kernel="paged_attention", shape=label, **timed[label],
+        say("timing", kernel="paged_attention", shape=label, head_dim=d,
+            **timed[label],
             bytes=nbytes, flops=flops, live_tokens=live,
             host_loop_ms=host_loop_ms, timed_by="cuda graph replay")
     return timed["decode"]
@@ -724,21 +767,34 @@ def lm_pool_kw(cfg: dict, buckets) -> dict:
                 kv_cache_blocks=(cfg["slots"] + 1) * 4)
 
 
-def phase_lm_serving(model, cfg: dict, card: str) -> int:
-    """48 shared-prefix prompts from two threads through an LMServingLoop
-    around the full-width paged DecodeServer; returns K3's launches."""
+def weight_bytes(model) -> int:
+    """Bytes of a dense model's parameters as they are held."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
+                     n_requests: int | None = None) -> int:
+    """The shared-prefix prompts (all 48, or the first ``n_requests``)
+    from two threads through an LMServingLoop around the full-width paged
+    DecodeServer, with the model's weights or (``quantize="int8"``) an
+    int8 copy of them; returns K3's launches."""
     import threading
 
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.ops.quantize import quantized_bytes
     from idunno_tpu_torch.serve.lm_pool import LMServingLoop
     from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
                                                  serving_max_new)
     from idunno_tpu_torch.utils.spans import SpanStore
 
     prompts, shared, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    prompts = prompts[:n_requests]
     max_new = serving_max_new(cfg)
     srv = DecodeServer(model, paged_kernel="auto", device="cuda",
-                       **lm_pool_kw(cfg, buckets))
+                       quantize=quantize, **lm_pool_kw(cfg, buckets))
+    dense_bytes = weight_bytes(model)
+    resident = (quantized_bytes(srv.model)[0] if quantize == "int8"
+                else dense_bytes)
     warm_s = srv.warmup()
     spans = SpanStore("chip")
     loop = LMServingLoop(srv, name="lm", spans=spans)
@@ -803,7 +859,10 @@ def phase_lm_serving(model, cfg: dict, card: str) -> int:
     steps = stats["dispatches"] * LM_DECODE_STEPS
     # every radix-hit prefill attends its hit through K3 once per layer
     prefill_launches = hits * model.depth
-    say("lm_serving", card=card, requests=len(done), max_new=max_new,
+    say("lm_serving", card=card, quantize=quantize, requests=len(done),
+        max_new=max_new, resident_weight_bytes=resident,
+        dense_weight_bytes=dense_bytes,
+        dense_weight_dtype=str(next(model.parameters()).dtype),
         decode_steps_per_dispatch=LM_DECODE_STEPS, warmup_s=warm_s,
         wall_s=wall, tokens_generated=gen, tokens_per_s=gen / wall,
         ttft_p50_s=ttft[len(ttft) // 2],
@@ -860,7 +919,8 @@ def profile_dispatch(srv, prompts, max_new: int, card: str) -> None:
     srv.run_until_drained()
     busy_ms = sum(by_name.values())
     steps = srv.decode_steps
-    say("lm_decode_profile", card=card, live_rows=len(prompts),
+    say("lm_decode_profile", card=card,
+        quantize=srv.stats()["config"]["quantize"], live_rows=len(prompts),
         model_steps=steps, wall_ms=wall_ms,
         wall_ms_per_model_step=wall_ms / steps,
         kernel_launches_per_model_step=n / steps,
@@ -869,10 +929,10 @@ def profile_dispatch(srv, prompts, max_new: int, card: str) -> None:
         top_kernels_ms=dict(by_name.most_common(8)))
 
 
-def phase_lm_exactness(cfg: dict) -> None:
+def phase_lm_exactness(cfg: dict, quantize: str = "none") -> None:
     """Full width, depth 2, f32: a ``kernel`` and a ``plain`` paged pool
-    serve the shared-prefix workload; their greedy streams must be
-    equal token for token."""
+    (with the dense or the int8 weights) serve the shared-prefix workload;
+    their greedy streams must be equal token for token."""
     import torch
 
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
@@ -886,14 +946,15 @@ def phase_lm_exactness(cfg: dict) -> None:
     streams, hits = {}, {}
     for kernel in ("kernel", "plain"):
         srv = DecodeServer(model, paged_kernel=kernel, device="cuda",
-                           **lm_pool_kw(cfg, buckets))
+                           quantize=quantize, **lm_pool_kw(cfg, buckets))
         ids = [srv.submit(p, max_new=max_new) for p in prompts]
         done = {c.id: c.tokens for c in srv.run_until_drained()}
         streams[kernel] = [done[i] for i in ids]
         hits[kernel] = srv.prefix_cache_stats()["hits"]
     differ = sum(a != b for sa, sb in zip(streams["kernel"], streams["plain"])
                  for a, b in zip(sa, sb))
-    say("lm_exactness", depth=2, dtype="float32", requests=len(prompts),
+    say("lm_exactness", depth=2, dtype="float32", quantize=quantize,
+        requests=len(prompts),
         tokens_per_stream=len(streams["kernel"][0]), radix_hits=hits,
         tokens_differing=differ)
     if streams["kernel"] != streams["plain"] or hits["kernel"] <= 0:
@@ -1173,6 +1234,270 @@ def phase_lm_train(card: str) -> dict:
     return launches
 
 
+def phase_cnn_int8_s2d(dense, card: str) -> int:
+    """ResNet-18 with int8 weights and with the space-to-depth stem on the
+    weights of ``dense`` (the ``kernel`` engine): int8 logits against the
+    same engine on its dequantized weights, s2d logits against the 7x7
+    engine's, each path's images/s, and the int8 engine's stored bytes
+    against dense; returns K1's launches in the int8 and s2d queries."""
+    import torch
+
+    from idunno_tpu_torch.config import EngineConfig
+    from idunno_tpu_torch.engine import data as data_lib
+    from idunno_tpu_torch.engine.inference import InferenceEngine
+    from idunno_tpu_torch.ops.quantize import dequantize_tree, quantized_bytes
+
+    name = "resnet"
+    cfg = dict(batch_size=BATCH, image_size=CROP, resize_size=SIDE,
+               preprocess="kernel")
+    weights = dense._models[name].state_dict()
+    engines = {"dense": dense,
+               "int8": InferenceEngine(EngineConfig(quantize="int8", **cfg)),
+               "s2d": InferenceEngine(EngineConfig(stem_s2d=True, **cfg))}
+    for mode in ("int8", "s2d"):
+        engines[mode].load(name, state_dict=weights)
+    deq = InferenceEngine(EngineConfig(**cfg))
+    deq.load(name, state_dict=dequantize_tree(engines["int8"]._models[name]))
+    _, images = data_lib.load_range(None, 0, BATCH - 1)
+    batch = torch.from_numpy(images).cuda()
+    # both sides hold the same bf16 weights (int8 dequantized and cast);
+    # they differ in the convolutions' algorithms and memory formats (the
+    # dequantized weight is contiguous, the dense one channels_last). The
+    # s2d stem sums the same taps in another order: its bf16 output
+    # rounds differently and the difference runs through the network
+    tol = {"int8_vs_dequantized": 1e-2, "s2d_vs_7x7": 2e-2}
+    pairs = {"int8_vs_dequantized": (engines["int8"], deq),
+             "s2d_vs_7x7": (engines["s2d"], dense)}
+    for label, (a, b) in pairs.items():
+        out, ref = a.logits(name, batch), b.logits(name, batch)
+        if out.shape != (BATCH, 1000) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{label}: bad logits {tuple(out.shape)}")
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        top1 = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+        say("cnn_int8_s2d", model=name, compare=label, max_rel_err=rel,
+            tolerance=tol[label], top1_agreement=top1)
+        if not rel <= tol[label]:
+            raise AssertionError(f"{label}: logits off by {rel}")
+    stored, dense_f32 = quantized_bytes(engines["int8"]._models[name])
+    bf16 = weight_bytes(dense._models[name])
+    del deq
+    _, block = data_lib.load_range(None, 0, N_QUERY - 1)
+    staged, n = dense.stage(block)
+    zero_launches()
+    for mode in ("int8", "s2d"):
+        res = engines[mode].infer(name, 0, N_QUERY - 1)
+        if len(res.records) != N_QUERY:
+            raise AssertionError(f"{mode}: {len(res.records)} records")
+    launches = read_launches()["preprocess"]
+    if launches < 2 * N_QUERY // BATCH:
+        raise AssertionError(f"K1 launched {launches} times in the int8 and "
+                             "s2d queries")
+    rates = staged_rates(engines, name, staged, n,
+                         ["dense", "int8", "s2d", "s2d", "int8", "dense"] * 2)
+    for mode, r in rates.items():
+        say("cnn_int8_s2d", model=name, path=mode, card=card,
+            staged_images_per_s_median=(r[1] + r[2]) / 2,
+            staged_images_per_s_min=r[0], staged_images_per_s_max=r[-1])
+    say("cnn_int8_s2d", model=name, stored_bytes=stored,
+        dense_f32_bytes=dense_f32, dense_bf16_param_bytes=bf16,
+        preprocess_launches=launches)
+    return launches
+
+
+def vit_logits(eng, staged, attn_fn=None):
+    """f32 logits of every staged batch through ``eng``'s ViT, its blocks
+    attending through ``attn_fn`` (default: as built)."""
+    import torch
+
+    blocks = eng._models["vit"].blocks
+    built = blocks[0].attn.attn_fn
+    for blk in blocks:
+        blk.attn.attn_fn = attn_fn or built
+    try:
+        return torch.cat([eng.logits("vit", b).float() for b in staged])
+    finally:
+        for blk in blocks:
+            blk.attn.attn_fn = built
+
+
+def agreement(a, b) -> dict:
+    """Top-1 agreement, max |difference| and max |difference| over
+    max|b| of two logit blocks."""
+    diff = float((a - b).abs().max())
+    return {"top1": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+            "max_abs_dlogit": diff, "max_rel_err": diff / float(b.abs().max())}
+
+
+def phase_vit_serving(card: str) -> dict:
+    """ViT-S/16 at full width (dim 384, depth 12, 6 heads, 224² crops of
+    256², engine batch 256, bf16, seeded weights) served by
+    ``InferenceEngine`` through K1 and K2: a query of ``N_QUERY`` images,
+    K2 launches equal to 12 x the forward batches; logits against
+    ``full`` attention on the same weights, in bf16 and in f32, and
+    against an f32 CPU reference; returns the K1 and K2 launches of the
+    query.
+
+    The top-1 gate runs in f32 (K2's f32 variant against ``full``): with
+    seeded random weights 5% of the images have a top-2 logit margin
+    below 0.011 while either bf16 forward moves logits by up to 0.05, so
+    in bf16 flash and ``full`` each keep the f32 top-1 on only about 96%
+    of the images (PERF.md §6). The bf16 paths are held to the 2%
+    relative tolerance of the LM prefill's flash-vs-full check."""
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.config import EngineConfig
+    from idunno_tpu_torch.engine import data as data_lib
+    from idunno_tpu_torch.engine.inference import InferenceEngine
+    from idunno_tpu_torch.ops.attention import full_attention
+
+    name = "vit"
+    cfg = dict(batch_size=BATCH, image_size=CROP, resize_size=SIDE)
+    eng = InferenceEngine(EngineConfig(preprocess="kernel", **cfg), seed=0)
+    warm_s = eng.warmup(name)
+    model = eng._models[name]
+    depth = len(model.blocks)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.time()
+    res = eng.infer(name, 0, N_QUERY - 1)
+    wall = time.time() - t0
+    launches = read_launches()
+    batches = -(-N_QUERY // BATCH)
+    if len(res.records) != N_QUERY or {r[0] for r in res.records} != {
+            f"test_{i}.JPEG" for i in range(N_QUERY)}:
+        raise AssertionError(f"vit: {len(res.records)} records of {N_QUERY}")
+    if not all(math.isfinite(p) and 0.0 <= p <= 1.0 for *_, p in res.records):
+        raise AssertionError("vit: malformed record")
+    if launches["flash_attention"] != depth * batches:
+        raise AssertionError(f"K2 launched {launches['flash_attention']} "
+                             f"times in {batches} forwards of depth {depth}")
+    if launches["preprocess"] < batches:
+        raise AssertionError(f"K1 launched {launches['preprocess']} times")
+    _, block = data_lib.load_range(None, 0, N_QUERY - 1)
+    staged, n = eng.stage(block)
+    rates = {}
+    for kind, fn in (("flash", None), ("full", full_attention)):
+        vit_logits(eng, staged[:1], fn)                    # warm
+        torch.cuda.synchronize()
+        t1 = time.time()
+        vit_logits(eng, staged, fn)
+        torch.cuda.synchronize()
+        rates[kind] = n / (time.time() - t1)
+    flash = vit_logits(eng, staged)
+    full = vit_logits(eng, staged, full_attention)
+    if not bool(torch.isfinite(flash).all()) or flash.shape != (n, 1000):
+        raise AssertionError(f"vit: bad logits {tuple(flash.shape)}")
+    # the same weights in f32 on the card (no TF32): K2's f32 variant
+    # against full attention, and the reference for both bf16 paths
+    backends = torch.backends
+    tf32 = backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32
+    backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+    f32 = InferenceEngine(EngineConfig(preprocess="plain",
+                                       compute_dtype="float32", **cfg))
+    f32.load(name, state_dict={k: v.float()
+                               for k, v in model.state_dict().items()})
+    flash32 = vit_logits(f32, staged)
+    full32 = vit_logits(f32, staged, full_attention)
+    backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32 = tf32
+    del f32
+    top2 = full32.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    cmp = {"bf16_flash_vs_bf16_full": agreement(flash, full),
+           "bf16_flash_vs_f32_full": agreement(flash, full32),
+           "bf16_full_vs_f32_full": agreement(full, full32),
+           "f32_flash_vs_f32_full": agreement(flash32, full32)}
+    # the card's bf16 forward against an f32 CPU reference on 8 images
+    cpu = InferenceEngine(EngineConfig(
+        batch_size=8, image_size=CROP, resize_size=SIDE,
+        compute_dtype="float32", preprocess="plain"), device="cpu")
+    cpu.load(name, state_dict={k: v.float().cpu()
+                               for k, v in model.state_dict().items()})
+    ref = cpu.logits(name, torch.from_numpy(np.ascontiguousarray(block[:8])))
+    cpu_rel = float((flash[:8].cpu() - ref).abs().max() / ref.abs().max())
+    say("vit_serving", card=card, images=N_QUERY, dim=model.dim,
+        depth=depth, tokens=(CROP // model.patch) ** 2 + 1, warmup_s=warm_s,
+        wall_s=wall, infer_images_per_s=N_QUERY / wall,
+        staged_images_per_s_flash=rates["flash"],
+        staged_images_per_s_full_attention=rates["full"],
+        flash_launches=launches["flash_attention"],
+        preprocess_launches=launches["preprocess"], forward_batches=batches,
+        **cmp, f32_top2_margin_quantiles={
+            q: float(margin.quantile(q)) for q in (0.01, 0.05, 0.1, 0.5)},
+        card_vs_cpu_f32_max_rel_err=cpu_rel,
+        tolerance={"f32_flash_vs_f32_full_top1": 0.99,
+                   "bf16_max_rel_err": 2e-2, "card_vs_cpu_f32": 5e-2},
+        weights=res.weights)
+    if cmp["f32_flash_vs_f32_full"]["top1"] < 0.99:
+        raise AssertionError(f"vit: f32 flash and full top-1 agree on "
+                             f"{cmp['f32_flash_vs_f32_full']['top1']}")
+    for key in ("bf16_flash_vs_bf16_full", "bf16_flash_vs_f32_full"):
+        if not cmp[key]["max_rel_err"] <= 2e-2:
+            raise AssertionError(f"vit: {key} off by {cmp[key]}")
+    if not cpu_rel <= 5e-2:
+        raise AssertionError(f"vit: card vs CPU reference off by {cpu_rel}")
+    wall_ms, by_name, k = device_profile(lambda: eng.logits(name, staged[0]))
+    busy_ms = sum(by_name.values())
+    flash_ms = sum(v for key, v in by_name.items() if "flash_fwd" in key)
+    say("vit_profile", card=card, batch=BATCH, wall_ms=wall_ms,
+        kernel_launches=k,
+        device_busy_ms=busy_ms if k else "not measured",
+        device_busy_share=busy_ms / wall_ms if k else "not measured",
+        flash_device_ms=flash_ms if k else "not measured",
+        flash_share_of_device=flash_ms / busy_ms if k else "not measured",
+        top_kernels_ms=dict(by_name.most_common(8)))
+    return {"preprocess": launches["preprocess"],
+            "flash_attention": launches["flash_attention"]}
+
+
+def phase_default_pool(card: str) -> int:
+    """The JAX package's default-size ``TransformerLM`` (dim 128, 4 heads:
+    head_dim 32; vocab 1024, depth 2, f32) in a paged pool on the card
+    through K3: a ``kernel`` and a ``plain`` pool serve the shared-prefix
+    workload; equal greedy streams, radix hits, K3 launches > 0; returns
+    them."""
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.transformer import TransformerLM
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    cfg = {"vocab": 1024, "slots": 4, "prompt_len": 64, "max_len": 128,
+           "decode_steps": LM_DECODE_STEPS}
+    with torch.device("cuda"):
+        model = TransformerLM(vocab=cfg["vocab"], dim=128, depth=2,
+                              num_heads=4)
+    init_like_flax(model, torch.Generator(device="cuda").manual_seed(2))
+    model.eval().requires_grad_(False)
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    streams, hits = {}, {}
+    for kernel in ("plain", "kernel"):
+        srv = DecodeServer(model, paged_kernel=kernel, device="cuda",
+                           **lm_pool_kw(cfg, buckets))
+        torch.cuda.synchronize()
+        zero_launches()
+        ids = [srv.submit(p, max_new=max_new) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        launches = read_launches()["paged_attention"]
+        streams[kernel] = [done[i] for i in ids]
+        hits[kernel] = srv.prefix_cache_stats()["hits"]
+    differ = sum(a != b for sa, sb in zip(streams["kernel"], streams["plain"])
+                 for a, b in zip(sa, sb))
+    say("lm_default_pool", card=card, dim=128, heads=4, head_dim=32,
+        depth=2, dtype="float32", requests=len(prompts),
+        tokens_per_stream=len(streams["kernel"][0]), radix_hits=hits,
+        paged_launches=launches, tokens_differing=differ)
+    if streams["kernel"] != streams["plain"] or hits["kernel"] <= 0:
+        raise AssertionError(f"default-size kernel and plain pools differ in "
+                             f"{differ} tokens (hits {hits})")
+    if launches <= 0:
+        raise AssertionError("K3 never launched in the default-size pool")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1210,22 +1535,35 @@ def main() -> int:
                for mode in ("kernel", "plain", "fold")}
     for name in ("resnet", "alexnet"):
         engines["kernel"].warmup(name)
-    launches = {"preprocess": phase_serving(engines["kernel"])}
+    # each path's launches, zeroed just before it and read just after,
+    # summed over the paths a kernel runs on
+    launches = dict.fromkeys(KERNELS, 0)
+    launches["preprocess"] += phase_serving(engines["kernel"])
     phase_paths(engines, smi)
+    launches["preprocess"] += phase_cnn_int8_s2d(engines["kernel"], smi)
     del engines
+    torch.cuda.empty_cache()
+    for name, n in phase_vit_serving(smi).items():
+        launches[name] += n
     torch.cuda.empty_cache()
 
     lm_cfg = lm_bench_config()
     lm = build_lm(lm_cfg, "bf16", depth=lm_cfg["depth"], seed=0)
-    launches["flash_attention"] = phase_lm_prefill(lm, lm_cfg, smi)
-    launches["paged_attention"] = phase_lm_serving(lm, lm_cfg, smi)
+    launches["flash_attention"] += phase_lm_prefill(lm, lm_cfg, smi)
+    launches["paged_attention"] += phase_lm_serving(lm, lm_cfg, smi)
+    torch.cuda.empty_cache()
+    launches["paged_attention"] += phase_lm_serving(
+        lm, lm_cfg, smi, quantize="int8", n_requests=LM_INT8_REQUESTS)
     del lm
     torch.cuda.empty_cache()
     phase_lm_exactness(lm_cfg)
+    phase_lm_exactness(lm_cfg, quantize="int8")
     torch.cuda.empty_cache()
+    launches["paged_attention"] += phase_default_pool(smi)
     train = phase_lm_train(smi)
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        launches[name] = train[name]
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        launches[name] += train[name]
 
     replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",
                 "flash_attention": "idunno_tpu/ops/flash_attention.py:71",

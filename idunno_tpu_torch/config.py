@@ -191,6 +191,7 @@ class ClusterConfig:
 
 
 PREPROCESS_MODES = ("auto", "fold", "kernel", "plain")
+QUANTIZE_MODES = ("none", "int8")
 
 
 @dataclass(frozen=True)
@@ -211,8 +212,9 @@ class EngineConfig:
                  (``ops/preprocess_kernel.py``, ``csrc/preprocess.cu``)
         plain  → ``xla``: plain tensor ops (``ops/preprocess.py``)
 
-    ``quantize`` takes only ``"none"``; int8 weights are still to port
-    (ROADMAP.md)."""
+    ``quantize`` is ``"none"`` or ``"int8"``: weight-only int8 with f32
+    per-channel scales, dequantized inside the forward
+    (``ops/quantize.py``)."""
 
     batch_size: int = 256           # device batch per forward
     image_size: int = 224           # crop fed to the model
@@ -222,11 +224,11 @@ class EngineConfig:
     # uint8→normalized preprocess: auto | fold | kernel | plain (see the
     # class docstring for what each means and its JAX-package name)
     preprocess: str = "auto"
-    # "none" only: weight-only int8 is still to port (ROADMAP.md)
+    # weight residency: none | int8 (ops/quantize.py)
     quantize: str = "none"
     # ResNet stem as a space-to-depth 4x4/s1 conv (models/resnet.py
-    # _S2DStem): same parameters and outputs, better MXU shape for the
-    # 3-channel stride-2 stem; opt-in until measured on hardware
+    # _S2DStem): same parameters and outputs, no stride in the stem conv;
+    # opt-in: on the H100 the 7x7 stem serves faster (PERF.md §6)
     stem_s2d: bool = False
     # models to load + compile in the background at node start, so the first
     # query doesn't pay the (remote) compile — the reference instead paid a
@@ -238,10 +240,9 @@ class EngineConfig:
         if self.preprocess not in PREPROCESS_MODES:
             raise ValueError(f"EngineConfig.preprocess={self.preprocess!r}: "
                              f"want {'|'.join(PREPROCESS_MODES)}")
-        if self.quantize != "none":
-            raise ValueError(
-                f"EngineConfig.quantize={self.quantize!r}: only 'none' is "
-                "ported so far; int8 weights are listed in ROADMAP.md")
+        if self.quantize not in QUANTIZE_MODES:
+            raise ValueError(f"EngineConfig.quantize={self.quantize!r}: "
+                             f"want {'|'.join(QUANTIZE_MODES)}")
         # JSON configs carry lists; keep the dataclass hashable/frozen-safe
         object.__setattr__(self, "warmup_models",
                            tuple(self.warmup_models))

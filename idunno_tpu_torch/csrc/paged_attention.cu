@@ -33,10 +33,11 @@
 //   together.
 // - Pages are read in 16-byte vectors straight into registers: a token
 //   row of D elements spans D / V lanes (V = 4 f32, 8 bf16 or 16 int8
-//   elements a vector), so a warp covers 2, 4 or 8 tokens a pass. Each
-//   score is a per-lane partial product over the lane's V columns and a
-//   shuffle reduction over the token's lanes; the block's max is a
-//   shuffle reduction over the token groups. Each lane accumulates p.V
+//   elements a vector), so a warp covers 2, 4 or 8 tokens a pass at
+//   D = 64, and 4, 8 or 16 at D = 32 (an int8 pass is then a whole
+//   16-token chunk). Each score is a per-lane partial product over the
+//   lane's V columns and a shuffle reduction over the token's lanes; the
+//   block's max is a shuffle reduction over the token groups. Each lane accumulates p.V
 //   over its V columns and its own tokens; the rescaling factor of the
 //   online softmax is the same in every lane, so the partial sums of the
 //   token groups are added together once per warp, at the end.
@@ -365,6 +366,7 @@ int dispatch_dim(int head_dim, const void* q5, const void* kp, const void* vp,
                           batch, seq, kv_heads, group, num_pages,          \
                           block_size, chain, scale, s);
   switch (head_dim) {
+    IDUNNO_PAGED_CASE(32)
     IDUNNO_PAGED_CASE(64)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -380,7 +382,7 @@ int dispatch_dim(int head_dim, const void* q5, const void* kp, const void* vp,
 // contiguous f32 scale pages [num_pages, block_size, kv_heads]; pass null
 // scales otherwise), 16-byte aligned; tables: contiguous int32
 // [batch, chain]; lengths: int32 [batch]. out: contiguous f32 like q5;
-// lse: contiguous f32 [batch, seq, kv_heads, group]. head_dim is 64.
+// lse: contiguous f32 [batch, seq, kv_heads, group]. head_dim is 32 or 64.
 // Launches on `stream` and returns the launch's cudaError_t (0 = success);
 // it neither synchronizes nor allocates.
 extern "C" int idunno_paged_attention_fwd(

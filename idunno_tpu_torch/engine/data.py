@@ -9,17 +9,19 @@ runs on the device (``ops/preprocess.py``, ``ops/preprocess_kernel.py``).
 A synthetic generator stands in for the dataset when no image files exist:
 deterministic per-index uint8 images, the same as the JAX package's.
 
-Staging keeps its own copy of the JAX package's numpy staging
-(``idunno_tpu/native/__init__.py:_stage_batch_np``), which is bit-identical
-to its C++/OpenMP library; porting that library is still to do
-(ROADMAP.md).
+Staging runs through the port's copy of the native library
+(``idunno_tpu_torch/native``: C++ with OpenMP across frames, built with g++
+at first use), whose numpy fallback is bit-identical to it.
 """
 from __future__ import annotations
 
 import logging
 import os
+from collections.abc import Iterator
 
 import numpy as np
+
+from idunno_tpu_torch import native
 
 logger = logging.getLogger("idunno.data")
 
@@ -50,60 +52,14 @@ def decode_image(path: str) -> np.ndarray:
         return np.asarray(img, dtype=np.uint8)
 
 
-def _axis_coords(s: int, d: int):
-    """Half-pixel 16.16 fixed-point source coordinates for one axis."""
-    step = (s << 16) // d
-    c = np.arange(d, dtype=np.int64) * step + step // 2 - (1 << 15)
-    np.clip(c, 0, (s - 1) << 16, out=c)
-    lo = c >> 16
-    hi = np.minimum(lo + 1, s - 1)
-    frac = c & 0xFFFF
-    return lo, hi, frac
-
-
-def _resize_bilinear_np(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
-    """Fixed-point bilinear resize of RGB u8 [H, W, 3] → [dh, dw, 3]."""
-    sh, sw = src.shape[:2]
-    y0, y1, fy = _axis_coords(sh, dh)
-    x0, x1, fx = _axis_coords(sw, dw)
-    p = src.astype(np.int64)
-    r0, r1 = p[y0], p[y1]                       # [dh, sw, 3]
-    top = (r0[:, x0] << 16) + (r0[:, x1] - r0[:, x0]) * fx[None, :, None]
-    bot = (r1[:, x0] << 16) + (r1[:, x1] - r1[:, x0]) * fx[None, :, None]
-    val = (top << 16) + (bot - top) * fy[:, None, None]
-    return ((val + (1 << 31)) >> 32).astype(np.uint8)
-
-
-def stage_batch(frames: list[np.ndarray], size: int) -> np.ndarray:
-    """K decoded RGB frames (varying sizes) → contiguous u8
-    [K, size, size, 3] with shortest-side resize + center crop. A frame
-    already ``size``² is copied as it is: the resize is the identity there
-    (every source coordinate is whole), so the result is the same."""
-    out = np.empty((len(frames), size, size, 3), np.uint8)
-    for i, f in enumerate(frames):
-        h, w = f.shape[:2]
-        if (h, w) == (size, size):
-            out[i] = f
-            continue
-        # rounded division, same integer formula as the JAX package's
-        if w <= h:
-            rw, rh = size, max(size, (h * size + w // 2) // w)
-        else:
-            rh, rw = size, max(size, (w * size + h // 2) // h)
-        r = _resize_bilinear_np(
-            np.ascontiguousarray(f, dtype=np.uint8), rh, rw)
-        top, left = (rh - size) // 2, (rw - size) // 2
-        out[i] = r[top:top + size, left:left + size]
-    return out
-
-
 def load_range(root: str | None, start: int, end: int,
                size: int = CANONICAL_SIZE) -> tuple[list[str], np.ndarray]:
     """Load dataset indices [start, end] inclusive (the reference's range
     convention, `alexnet_resnet.py:48`) → (names, uint8 [N, size, size, 3]).
 
-    Decode runs in a thread pool (PIL releases the GIL), then
-    ``stage_batch`` packs all frames into one contiguous batch. Missing
+    Decode runs in a thread pool (PIL releases the GIL), then the native
+    staging library resizes, crops and packs all frames into one
+    contiguous batch with OpenMP (``native.stage_batch``). Missing
     files become synthetic images, so a query over a partially-present
     dataset still completes with an exact result count."""
     from concurrent.futures import ThreadPoolExecutor
@@ -131,5 +87,13 @@ def load_range(root: str | None, start: int, end: int,
             frames = list(pool.map(fetch, indices))
     else:
         frames = [fetch(indices[0])]
-    return names, stage_batch(frames, size)
+    return names, native.stage_batch(frames, size)
+
+
+def iter_batches(names: list[str], images: np.ndarray,
+                 batch_size: int) -> Iterator[tuple[list[str], np.ndarray]]:
+    """(names, images) in consecutive chunks of ``batch_size``; the last
+    chunk may be shorter."""
+    for i in range(0, len(names), batch_size):
+        yield names[i:i + batch_size], images[i:i + batch_size]
 

@@ -27,7 +27,7 @@ def decode_model(model: TransformerLM, max_len: int) -> TransformerLM:
 
 
 def _device_of(model: TransformerLM) -> torch.device:
-    return model.embed.weight.device
+    return model.ln_f.weight.device
 
 
 def init_cache(model: TransformerLM, batch: int, max_len: int,

@@ -15,6 +15,12 @@ back. The ``kernel`` preprocess writes NHWC bf16, which after
 ``.permute(0, 3, 1, 2)`` is already a ``channels_last`` NCHW tensor, so no
 transpose copy sits at the boundary.
 
+``EngineConfig.quantize="int8"`` holds each model's weights as int8 with
+f32 per-channel scales, dequantized inside the forward
+(``ops/quantize.py``); ``stem_s2d`` builds ResNets with the space-to-depth
+stem. ViTs attend through ``make_attn_fn("auto")``: the flash kernel K2 on
+a card.
+
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (the tests do), and raises when no card is present.
 """
@@ -34,9 +40,11 @@ from idunno_tpu_torch.config import EngineConfig
 from idunno_tpu_torch.engine import data as data_lib
 from idunno_tpu_torch.models import create_model
 from idunno_tpu_torch.models.classes import imagenet_categories
+from idunno_tpu_torch.models.transformer import make_attn_fn
 from idunno_tpu_torch.ops.classify import top1_from_logits
 from idunno_tpu_torch.ops.preprocess import center_crop, preprocess_batch
 from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
+from idunno_tpu_torch.ops.quantize import quantize_tree
 
 # the JAX package's replicated-store dataset prefix (engine/data_store.py)
 STORE_SCHEME = "store://"
@@ -83,10 +91,6 @@ class InferenceEngine:
                  device: str | torch.device | None = None,
                  seed: int = 0) -> None:
         self.config = config or EngineConfig()
-        if self.config.stem_s2d:
-            raise NotImplementedError(
-                "EngineConfig.stem_s2d: the space-to-depth stem is not "
-                "ported yet; ROADMAP.md lists it")
         self.device = resolve_device(device)
         self.seed = seed
         self.dtype = getattr(torch, self.config.compute_dtype)
@@ -107,28 +111,47 @@ class InferenceEngine:
         ``state_dict`` (torchvision keys, e.g. carried from the JAX package
         by ``models/convert.py:state_dict_from_flax``) when given, else a
         seeded random init. Passing a state_dict for a loaded model
-        replaces its weights. Thread-safe: a warmup thread and the worker
-        loop may race here."""
+        replaces its weights. With ``quantize="int8"`` the weights are
+        quantized once they sit on the device in the compute dtype.
+        Thread-safe: a warmup thread and the worker loop may race here."""
         if name in self._models and state_dict is None:
             return
         with self._load_lock:
             if name in self._models and state_dict is None:
                 return
-            if self.preprocess == "fold":
-                try:
-                    module = create_model(name, fold_preprocess=True)
-                except TypeError:
-                    raise ValueError(f"preprocess='fold': model {name!r} "
-                                     "does not support fold_preprocess") from None
-            else:
-                module = create_model(name)
+            module = self._create(name)
             if state_dict is None:
                 module.init_weights(torch.Generator().manual_seed(self.seed))
             else:
                 module.load_state_dict(state_dict)
-            self._models[name] = module.to(
-                device=self.device, dtype=self.dtype,
-                memory_format=torch.channels_last).eval()
+            module = module.to(device=self.device, dtype=self.dtype,
+                               memory_format=torch.channels_last).eval()
+            if self.config.quantize == "int8":
+                module = quantize_tree(module)
+            self._models[name] = module
+
+    def _create(self, name: str) -> nn.Module:
+        """``name`` with the engine's options. As in the JAX engine, a
+        family that does not take an option rejects its kwarg (a
+        TypeError): ``preprocess="fold"`` then raises, ``stem_s2d`` (the
+        ResNets') is left out, and so are the ViTs' ``image_size`` (the
+        crop) and ``attn_fn`` (``make_attn_fn("auto")``)."""
+        if self.preprocess == "fold":
+            tries = [{"fold_preprocess": True}]
+        elif self.config.stem_s2d:
+            tries = [{"stem_s2d": True}, {}]
+        else:
+            tries = [{}]
+        vit = {"image_size": self.config.image_size,
+               "attn_fn": make_attn_fn("auto")}
+        for opts in tries:
+            for extra in (vit, {}):
+                try:
+                    return create_model(name, **opts, **extra)
+                except TypeError:
+                    pass
+        raise ValueError(f"preprocess='fold': model {name!r} does not "
+                         "support fold_preprocess")
 
     def weights_provenance(self, name: str) -> str:
         """The provenance marker of a loaded model; "unknown" if not loaded

@@ -19,13 +19,18 @@ decoding. Three steps, each eager PyTorch on one device:
              a paged pool every step attends each row's radix-hit region
              through K3. The KV cache is updated in place.
 
+``quantize="int8"`` serves an int8 copy of the model's weights (f32
+per-channel scales, dequantized inside each forward: ``ops/quantize.py``),
+quantized layer by layer as the JAX package does; the caller's model stays
+as it is.
+
 What waits for later slices raises a ValueError naming ROADMAP.md:
 speculative decoding (``draft``), tensor parallelism (``mesh``,
-``n_model > 1``), int8 weight residency (``quantize="int8"``), and the
-cluster-prefix and KV-handoff verbs.
+``n_model > 1``), and the cluster-prefix and KV-handoff verbs.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from collections import deque
@@ -41,6 +46,7 @@ from idunno_tpu_torch.models.transformer import (KV_LEAF_KEYS, TransformerLM,
                                                  decode_apply)
 from idunno_tpu_torch.ops.paged_attention import (PagedContext,
                                                   resolve_paged_kernel)
+from idunno_tpu_torch.ops.quantize import quantize_tree
 from idunno_tpu_torch.ops.sampling import (categorical, fused_decode_tail,
                                            masked_sample_logits)
 
@@ -227,10 +233,7 @@ class DecodeServer:
         if mesh is not None or int(n_model) > 1:
             raise _later("tensor parallelism (mesh=, n_model > 1)",
                          "the parallelism slice, modules item 10")
-        if quantize == "int8":
-            raise _later("int8 weight residency (quantize='int8', "
-                         "ops/quantize.py)", "modules item 4")
-        if quantize != "none":
+        if quantize not in ("none", "int8"):
             raise ValueError(f"quantize={quantize!r}: want none|int8")
         if not model.causal:
             raise ValueError("continuous batching needs a causal LM")
@@ -289,6 +292,10 @@ class DecodeServer:
         self.penalties = bool(penalties)
         self._pl_static = len(self.prefix) if self.prefix else 0
         self.model = model.to(self.device).eval()
+        if quantize == "int8":
+            # decode re-reads every weight per step: int8 residency halves
+            # those bytes against bf16; the dequantize runs in each forward
+            self.model = quantize_tree(copy.deepcopy(self.model))
         self.slots = slots
         self.prompt_len = prompt_len
         self.max_len = max_len

@@ -13,14 +13,12 @@ hyperparameters of the optax transformations the JAX callers use written
 out (``adamw``, ``adam``, ``sgd``); ``flat_tx`` is the counterpart of
 ``optax.flatten``.
 
-BatchNorm: flax's ``momentum=0.9`` is torch's ``momentum=0.1`` (the port's
-``nn.BatchNorm2d`` default), so the running mean follows the same rule.
-The running variance does not quite: flax folds in the *biased* batch
-variance, torch the unbiased one (times n / (n - 1), n = batch × height ×
-width). The port keeps torch's rule. At the bench's batch of 256 at 224²
-the factor is 1 + 3.1e-7 at the stem (112²) and 1 + 8.0e-5 in the last
-stage (7²); ``tests/test_torch_train.py`` holds the port's running
-statistics to the JAX step's with that factor applied.
+BatchNorm: flax's ``momentum=0.9`` is torch's ``momentum=0.1``, and the
+port's ResNets use ``models/resnet.py:BatchNorm2d``, which folds the
+*biased* batch variance into the running variance, as flax does (torch's
+own ``nn.BatchNorm2d`` folds the unbiased one). So the running statistics
+follow flax's rule; ``tests/test_torch_train.py`` holds both to the JAX
+step's directly.
 """
 from __future__ import annotations
 

@@ -46,7 +46,7 @@ class AlexNet(nn.Module):
         init_like_flax(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.features(x.to(self.classifier[1].weight.dtype))
+        x = self.features(x.to(self.classifier[1].bias.dtype))
         # torchvision AdaptiveAvgPool2d((6, 6)); identity at 224x224 input
         x = adaptive_avg_pool(x.permute(0, 2, 3, 1), (6, 6)).permute(0, 3, 1, 2)
         x = torch.flatten(x, 1)                 # CHW order, as torchvision

@@ -13,6 +13,9 @@ inverse of ``idunno_tpu/models/convert.py:convert_resnet/convert_alexnet``
 - AlexNet's first FC reads a flattened feature map: the NHWC JAX model
   flattens HWC, torch flattens CHW, so fc0's input rows go from HWC order
   back to CHW order.
+- Transformer blocks (the LM's and ViT's): DenseGeneral q/k/v kernels
+  [dim, H, hd] and the output kernel [H, hd, dim] flatten to the port's
+  Linear over H·hd (`_block_state_dict`).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 # (stage sizes, convs per block) of the ResNet names in the registry
 _RESNETS = {"resnet": ((2, 2, 2, 2), 2), "resnet18": ((2, 2, 2, 2), 2),
             "resnet34": ((3, 4, 6, 3), 2), "resnet50": ((3, 4, 6, 3), 3)}
+_VITS = ("vit", "vit_tiny")
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -96,6 +100,24 @@ def alexnet_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def vit_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ViT variables → the port's ``ViT`` state_dict."""
+    p = variables.get("params", variables)
+    sd: dict[str, torch.Tensor] = {
+        "embed.weight": _conv(p["embed"]["kernel"]),
+        "embed.bias": _t(p["embed"]["bias"]),
+        "cls": _t(p["cls"]),
+        "pos_embed": _t(p["pos_embed"]),
+        "ln_f.weight": _t(p["ln_f"]["scale"]),
+        "ln_f.bias": _t(p["ln_f"]["bias"]),
+        "head.weight": _dense(p["head"]["kernel"]),
+        "head.bias": _t(p["head"]["bias"]),
+    }
+    for i in range(_depth(p)):
+        sd.update(_block_state_dict(p[f"block{i}"], f"blocks.{i}"))
+    return sd
+
+
 def state_dict_from_flax(name: str, variables: dict) -> dict[str, torch.Tensor]:
     """The port's state_dict for registry model ``name`` from the JAX
     package's variables of the same model."""
@@ -104,8 +126,43 @@ def state_dict_from_flax(name: str, variables: dict) -> dict[str, torch.Tensor]:
     if name in _RESNETS:
         stages, convs = _RESNETS[name]
         return resnet_state_dict(variables, stages, convs)
-    raise ValueError(f"no weight carry for model {name!r}; "
-                     f"have alexnet, {', '.join(sorted(_RESNETS))}")
+    if name in _VITS:
+        return vit_state_dict(variables)
+    raise ValueError(f"no weight carry for model {name!r}; have alexnet, "
+                     f"{', '.join(sorted(_RESNETS) + sorted(_VITS))}")
+
+
+def _depth(p: dict) -> int:
+    """The number of per-block entries ``block0``, ``block1``, ... of
+    ``p``; raises when there is none."""
+    depth = 0
+    while f"block{depth}" in p:
+        depth += 1
+    if depth == 0:
+        raise ValueError("the weight carry takes per-block params "
+                         "(block0, block1, ...)")
+    return depth
+
+
+def _block_state_dict(bp: dict, tp: str) -> dict[str, torch.Tensor]:
+    """One transformer ``Block``'s flax params → the port's keys under
+    ``tp``."""
+    sd: dict[str, torch.Tensor] = {}
+    for ln in ("ln1", "ln2"):
+        sd[f"{tp}.{ln}.weight"] = _t(bp[ln]["scale"])
+        sd[f"{tp}.{ln}.bias"] = _t(bp[ln]["bias"])
+    for name in ("q", "k", "v"):
+        kern = np.asarray(bp["attn"][name]["kernel"])      # [dim, H, hd]
+        sd[f"{tp}.attn.{name}.weight"] = _t(kern.reshape(kern.shape[0], -1).T)
+        sd[f"{tp}.attn.{name}.bias"] = _t(
+            np.asarray(bp["attn"][name]["bias"]).reshape(-1))
+    kern = np.asarray(bp["attn"]["out"]["kernel"])         # [H, hd, dim]
+    sd[f"{tp}.attn.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+    sd[f"{tp}.attn.out.bias"] = _t(bp["attn"]["out"]["bias"])
+    for name in ("mlp_up", "mlp_down"):
+        sd[f"{tp}.{name}.weight"] = _dense(bp[name]["kernel"])
+        sd[f"{tp}.{name}.bias"] = _t(bp[name]["bias"])
+    return sd
 
 
 def lm_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
@@ -124,27 +181,6 @@ def lm_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         "head.weight": _dense(p["head"]["kernel"]),
         "head.bias": _t(p["head"]["bias"]),
     }
-    depth = 0
-    while f"block{depth}" in p:
-        depth += 1
-    if depth == 0:
-        raise ValueError("lm_state_dict_from_flax takes per-block params "
-                         "(block0, block1, ...)")
-    for i in range(depth):
-        bp, tp = p[f"block{i}"], f"blocks.{i}"
-        for ln in ("ln1", "ln2"):
-            sd[f"{tp}.{ln}.weight"] = _t(bp[ln]["scale"])
-            sd[f"{tp}.{ln}.bias"] = _t(bp[ln]["bias"])
-        for name in ("q", "k", "v"):
-            kern = np.asarray(bp["attn"][name]["kernel"])      # [dim, H, hd]
-            sd[f"{tp}.attn.{name}.weight"] = _t(
-                kern.reshape(kern.shape[0], -1).T)
-            sd[f"{tp}.attn.{name}.bias"] = _t(
-                np.asarray(bp["attn"][name]["bias"]).reshape(-1))
-        kern = np.asarray(bp["attn"]["out"]["kernel"])         # [H, hd, dim]
-        sd[f"{tp}.attn.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
-        sd[f"{tp}.attn.out.bias"] = _t(bp["attn"]["out"]["bias"])
-        for name in ("mlp_up", "mlp_down"):
-            sd[f"{tp}.{name}.weight"] = _dense(bp[name]["kernel"])
-            sd[f"{tp}.{name}.bias"] = _t(bp[name]["bias"])
+    for i in range(_depth(p)):
+        sd.update(_block_state_dict(p[f"block{i}"], f"blocks.{i}"))
     return sd

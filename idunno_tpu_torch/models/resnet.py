@@ -19,10 +19,67 @@ back in f32. Padding is explicit, torch-style, as the JAX module spells it
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from idunno_tpu_torch.models.init import init_like_flax
 from idunno_tpu_torch.models.stem_fold import FoldedStemConv
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm`` (``momentum=0.9``, ``epsilon=1e-5``): in
+    training it normalizes with the batch statistics, as torch does, but
+    folds the *biased* batch variance into ``running_var``, where torch
+    folds the unbiased one (n / (n - 1) larger, n = batch x height x
+    width). Eval reads the running statistics, as torch does.
+
+    torch's own update runs, then the unbiased share is scaled back on
+    the per-channel vectors: with ``keep = (1 - momentum) * var0``, torch
+    leaves ``keep + momentum * var * n / (n - 1)``, so ``(rv - keep) *
+    (n - 1) / n + keep`` is flax's value, and no second pass over the
+    activations is needed."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        keep = (1.0 - self.momentum) * self.running_var
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        # a new tensor, not an in-place update: the autograd node of the
+        # forward above holds running_var and checks its version
+        with torch.no_grad():
+            self.running_var = (self.running_var - keep) * ((n - 1) / n) + keep
+        return y
+
+
+class _S2DStem(nn.Conv2d):
+    """The 7x7/stride-2 stem conv recast as a 4x4/stride-1 conv over the
+    2x2 space-to-depth input [B, 4C, H/2, W/2] (``idunno_tpu/models/
+    resnet.py:_S2DStem``, the MLPerf-ResNet trick): no stride, and 4·4·12
+    = 192 taps contracted instead of 7·7·3 = 147.
+
+    The parameter stays the torchvision-shaped ``weight`` [F, C, 7, 7]
+    (same state_dict, same weight carry); the recast runs at forward time:
+    zero-pad 7 → 8 with one *leading* row and column (tap a = 2m + dy - 1,
+    so a = -1 is the empty slot), then fold each 2x2 tap block into the
+    channels in the order of the input's (dy, dx, C). The output equals
+    the 7x7 form's up to the order of the summation."""
+
+    def __init__(self, in_channels: int, out_channels: int) -> None:
+        super().__init__(in_channels, out_channels, 7, 2, 3, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"space-to-depth stem needs even spatial dims, "
+                             f"got {h}x{w}")
+        f = self.out_channels
+        k = F.pad(self.weight, (1, 0, 1, 0))             # [F, C, 8, 8]
+        k = (k.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+             .reshape(f, 4 * c, 4, 4))                  # (dy, dx, C) taps
+        xs = (x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+              .reshape(b, 4 * c, h // 2, w // 2))
+        return F.conv2d(F.pad(xs, (2, 1, 2, 1)), k)
 
 
 class BasicBlock(nn.Module):
@@ -33,14 +90,14 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, filters: int, stride: int) -> None:
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, filters, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters)
         self.conv2 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters)
+        self.bn2 = BatchNorm2d(filters)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _projection(in_ch, filters, stride)
 
     @property
-    def last_bn(self) -> nn.BatchNorm2d:
+    def last_bn(self) -> BatchNorm2d:
         return self.bn2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -60,16 +117,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_ch = filters * self.expansion
         self.conv1 = nn.Conv2d(in_ch, filters, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters)
         self.conv2 = nn.Conv2d(filters, filters, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters)
+        self.bn2 = BatchNorm2d(filters)
         self.conv3 = nn.Conv2d(filters, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch)
+        self.bn3 = BatchNorm2d(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _projection(in_ch, out_ch, stride)
 
     @property
-    def last_bn(self) -> nn.BatchNorm2d:
+    def last_bn(self) -> BatchNorm2d:
         return self.bn3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +142,7 @@ def _projection(in_ch: int, out_ch: int, stride: int) -> nn.Sequential | None:
     if stride == 1 and in_ch == out_ch:
         return None
     return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride, bias=False),
-                         nn.BatchNorm2d(out_ch))
+                         BatchNorm2d(out_ch))
 
 
 class ResNet(nn.Module):
@@ -95,23 +152,25 @@ class ResNet(nn.Module):
     ``fold_preprocess`` folds the normalize affine into the stem conv
     (``models/stem_fold.py``): the model then takes RAW cropped 0..255
     inputs, with the same parameters and mathematically identical
-    outputs. ``stem_s2d`` (the JAX package's space-to-depth stem) is not
-    ported yet and raises."""
+    outputs. ``stem_s2d`` runs the stem as the space-to-depth conv
+    (`_S2DStem`), with the same parameters and outputs. Both recast the
+    stem, so they exclude each other."""
 
     def __init__(self, stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock,
                  num_classes: int = 1000, num_filters: int = 64,
                  stem_s2d: bool = False, fold_preprocess: bool = False) -> None:
         super().__init__()
-        if stem_s2d:
-            raise NotImplementedError(
-                "stem_s2d (the space-to-depth stem) is not ported yet; "
-                "ROADMAP.md lists it")
+        if stem_s2d and fold_preprocess:
+            raise ValueError("stem_s2d and fold_preprocess both recast the "
+                             "stem conv; pick one")
         self.fold_preprocess = fold_preprocess
         if fold_preprocess:
             self.conv1 = FoldedStemConv(3, num_filters, 7, 2, 3, bias=False)
+        elif stem_s2d:
+            self.conv1 = _S2DStem(3, num_filters)
         else:
             self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(num_filters)
+        self.bn1 = BatchNorm2d(num_filters)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         in_ch = num_filters

@@ -50,10 +50,11 @@ class FoldedStemConv(nn.Module):
         self.shift = [float(v) for v in -mean / std]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.weight.dtype
+        weight = self.weight        # read once: an int8 weight dequantizes
+        dtype = weight.dtype
         x = x.to(dtype)
         h, w = x.shape[2], x.shape[3]
-        wf = self.weight.to(torch.float32)
+        wf = weight.to(torch.float32)
         ks = torch.cat([wf[:, i:i + 1] * a for i, a in enumerate(self.scale)],
                        dim=1).to(dtype)
         y = F.conv2d(x, ks, stride=self.stride, padding=self.padding)
@@ -62,7 +63,7 @@ class FoldedStemConv(nn.Module):
         cimg = torch.cat([torch.full((1, 1, h, w), v, dtype=dtype,
                                      device=x.device) for v in self.shift],
                          dim=1)
-        y = y + F.conv2d(cimg, self.weight, stride=self.stride,
+        y = y + F.conv2d(cimg, weight, stride=self.stride,
                          padding=self.padding)
         if self.bias is not None:
             y = y + self.bias[None, :, None, None]

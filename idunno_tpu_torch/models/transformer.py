@@ -188,6 +188,12 @@ class MultiHeadAttention(nn.Module):
         self.k = Dense(dim, kv * hd)
         self.v = Dense(dim, kv * hd)
         self.out = Dense(num_heads * hd, dim)
+        # flax's DenseGeneral layouts of q/k/v (kernel [dim, heads, hd],
+        # bias [heads, hd]), by which int8 weights are grouped
+        # (ops/quantize.py)
+        for proj, heads in ((self.q, num_heads), (self.k, kv), (self.v, kv)):
+            proj.flax_views = {"weight": ((heads, hd, dim), 1),
+                               "bias": ((heads, hd), 1)}
 
     def _qkv(self, x):
         b, t, _ = x.shape
@@ -397,8 +403,9 @@ class TransformerLM(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The parameters' dtype; follows ``model.to(...)``."""
-        return self.embed.weight.dtype
+        """The parameters' dtype; follows ``model.to(...)``. Read from a
+        LayerNorm, which int8 quantization leaves dense."""
+        return self.ln_f.weight.dtype
 
     @property
     def compute_dtype(self) -> torch.dtype:

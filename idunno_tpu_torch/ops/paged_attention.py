@@ -36,10 +36,11 @@ import torch
 
 from idunno_tpu_torch.ops.flash_attention import NEG_INF
 
-# the variants the kernel compiles: the LM's pages, D = 64, in its f32 or
-# bf16 dtype or int8 with f32 scales
+# the variants the kernel compiles: the LM's pages in its f32 or bf16 dtype
+# or int8 with f32 scales, at D = 64 (the served 0.2 B model) and D = 32
+# (the default-size model, dim 128 over 4 heads)
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
-_HEAD_DIMS = (64,)
+_HEAD_DIMS = (32, 64)
 
 
 def resolve_paged_kernel(kind: str, device: torch.device | str | None = None

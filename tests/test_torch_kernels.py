@@ -78,15 +78,17 @@ def _assert_within_bound(name, got, ref, q, k, v, causal, **bwd):
 
 
 # (batch, seq, heads, head_dim, dtype, causal): the LM prefill shape of the
-# full-width model, a ragged f32 shape whose last tile is partly past T, and
-# the tensor-core kernel's second head_dim and a ragged T in bf16
+# full-width model, a ragged f32 shape whose last tile is partly past T,
+# the tensor-core kernel's second head_dim and a ragged T in bf16, and
+# ViT-S/16's attention (T = 197, non-causal: 5 live rows in the last tile)
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,causal", [
     ((4, 1024, 16, 64), torch.bfloat16, True),
     ((2, 1000, 3, 32), torch.float32, False),
     ((2, 1000, 3, 32), torch.float32, True),
     ((2, 256, 4, 32), torch.bfloat16, False),
-    ((2, 1000, 3, 64), torch.bfloat16, True)])
+    ((2, 1000, 3, 64), torch.bfloat16, True),
+    ((8, 197, 6, 64), torch.bfloat16, False)])
 def test_flash_kernel_matches_plain_version(cuda_device, shape, dtype,
                                             causal):
     from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
@@ -154,12 +156,18 @@ def _paged_inputs(device, *, b, t, kvh, g, d, n, bs, c, page_dtype, seed,
 # the served decode shape (16 slots, 16 kv-heads, one row each, bs 16,
 # chains of up to 3 blocks), a radix-hit prefill (one row, 64 query
 # positions, GQA group 2) and chains of up to 9 blocks (more than the
-# kernel's 4 warps), each with f32, bf16 and int8 pages
+# kernel's 4 warps); at head_dim 32 the default-size model's decode shape
+# (4 kv-heads), GQA chains of up to 9 blocks, and blocks of 2 tokens (an
+# int8 pass of 16 tokens then covers a block 8 times over); each with
+# f32, bf16 and int8 pages
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [
     dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=16, c=3),
     dict(b=1, t=64, kvh=8, g=2, d=64, n=20, bs=16, c=3),
-    dict(b=4, t=1, kvh=4, g=2, d=64, n=40, bs=16, c=9)])
+    dict(b=4, t=1, kvh=4, g=2, d=64, n=40, bs=16, c=9),
+    dict(b=16, t=1, kvh=4, g=1, d=32, n=68, bs=16, c=3),
+    dict(b=4, t=1, kvh=2, g=2, d=32, n=40, bs=16, c=9),
+    dict(b=4, t=2, kvh=4, g=1, d=32, n=40, bs=2, c=9)])
 @pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16,
                                         torch.int8])
 def test_paged_kernel_matches_plain_version(cuda_device, dims, page_dtype):
@@ -187,6 +195,17 @@ def test_paged_kernel_matches_plain_version(cuda_device, dims, page_dtype):
     if bool(empty.any()):
         assert bool((out[empty] == 0).all())
         assert bool((lse[empty] == -1e30).all())
+
+
+@pytest.mark.gpu
+def test_paged_kernel_refuses_a_head_dim_it_was_not_built_for(cuda_device):
+    """No quiet fallback: the error names the head dims K3 is built for."""
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    q5, kp, vp, tables, lengths, _, _ = _paged_inputs(
+        cuda_device, b=2, t=1, kvh=2, g=1, d=16, n=8, bs=16, c=2,
+        page_dtype=torch.float32, seed=0)
+    with pytest.raises(ValueError, match=r"\(32, 64\)"):
+        paged_attention_kernel(q5, kp, vp, tables, lengths)
 
 
 @pytest.mark.gpu

@@ -143,14 +143,42 @@ def test_weight_carry_round_trips_exactly(name, convert, carried):
 
 
 def test_registry_and_unported_options():
+    """The registry lists the JAX package's names, ViTs included; a name
+    it does not hold raises, and so do the two stem recasts together."""
     assert available_models() == ["alexnet", "resnet", "resnet18",
-                                  "resnet34", "resnet50"]
+                                  "resnet34", "resnet50", "vit", "vit_tiny"]
     with pytest.raises(ValueError):
-        create_model("vit")
-    with pytest.raises(NotImplementedError):
-        create_model("resnet", stem_s2d=True)
+        create_model("vit_l16")
+    with pytest.raises(ValueError, match="pick one"):
+        create_model("resnet", stem_s2d=True, fold_preprocess=True)
     with pytest.raises(ValueError):
-        state_dict_from_flax("vit", {})
+        state_dict_from_flax("vit_l16", {})
+
+
+# space-to-depth stem: the same function as the 7x7 stem, summed in
+# another order, so within f32 reassociation of the logits' scale
+S2D_TOL = 1e-4
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_s2d_stem_matches_jax_s2d_and_port_7x7(carried, seed):
+    variables, sd = carried["resnet"]
+    x = normalized_images(seed)
+    ref = jax_logits("resnet", variables, x, stem_s2d=True)
+    out = port_logits("resnet", sd, x, stem_s2d=True)
+    plain = port_logits("resnet", sd, x)
+    scale = float(np.max(np.abs(ref)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=S2D_TOL * scale)
+    np.testing.assert_allclose(out, plain, rtol=0, atol=S2D_TOL * scale)
+
+
+def test_s2d_stem_keeps_the_parameter_and_needs_even_sides():
+    model = create_model("resnet", stem_s2d=True)
+    assert type(model.conv1).__name__ == "_S2DStem"
+    assert model.conv1.weight.shape == (64, 3, 7, 7)
+    assert set(model.state_dict()) == set(create_model("resnet").state_dict())
+    with pytest.raises(ValueError, match="even"):
+        model.eval()(torch.zeros(1, 3, 33, 33))
 
 
 def test_seeded_init_is_deterministic_and_zeroes_last_bn():

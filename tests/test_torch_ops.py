@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from idunno_tpu.ops.classify import top1_from_logits as jax_top1
+from idunno_tpu.ops.classify import topk_from_logits as jax_topk
 from idunno_tpu.ops.pallas_preprocess import preprocess_batch_pallas
 from idunno_tpu.ops.pooling import adaptive_avg_pool as jax_adaptive_avg_pool
 from idunno_tpu.ops.preprocess import preprocess_batch as jax_preprocess
-from idunno_tpu_torch.ops.classify import top1_from_logits
+from idunno_tpu_torch.ops.classify import top1_from_logits, topk_from_logits
 from idunno_tpu_torch.ops.pooling import adaptive_avg_pool
 from idunno_tpu_torch.ops.preprocess import center_crop, preprocess_batch
 from idunno_tpu_torch.ops.preprocess_kernel import (preprocess_batch_kernel,
@@ -116,6 +117,21 @@ def test_top1_matches_jax_including_ties():
     # f32 softmax over 1000 classes in two libraries: a few f32 ulps
     np.testing.assert_allclose(prob.numpy(), np.asarray(ref_prob),
                                rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_topk_matches_jax_including_ties(k):
+    rng = np.random.default_rng(8)
+    logits = rng.standard_normal((16, 1000)).astype(np.float32)
+    logits[3, [5, 17, 900]] = 50.0          # tie: lower indices first
+    logits[4, :] = 0.0                      # flat row: 0, 1, 2, ...
+    ref_idx, ref_prob = jax_topk(jnp.asarray(logits), k)
+    idx, prob = topk_from_logits(torch.from_numpy(logits), k)
+    assert idx.dtype == torch.int32 and idx.shape == (16, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    assert idx[4].tolist() == list(range(k))
+    np.testing.assert_allclose(prob.numpy(), np.asarray(ref_prob),
+                               rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("hw", [(13, 13), (7, 9), (1, 1), (6, 6)])

@@ -7,9 +7,12 @@ attention on the CPU) against the JAX package's
 ``DecodeServer(paged_kernel="pallas")`` (the Pallas kernel in interpret
 mode) on the shared-prefix workload of ``utils/lm_bench.py``: the greedy
 streams must match token for token and the radix hits must be equal.
-The rest holds the port's server to the port's own ``generate``, and the
-serving loop, gateway and block pool to their contracts. Small model:
-dim 32, depth 2, vocab 61, f32.
+Int8 weights (``quantize="int8"``) and the JAX package's default-size
+model (head_dim 32) are held to the JAX server with its plain paged
+attention (``paged_kernel="xla"``) the same way. The rest holds the
+port's server to the port's own ``generate``, and the serving loop,
+gateway and block pool to their contracts. Small model: dim 32, depth 2,
+vocab 61, f32.
 """
 import threading
 
@@ -26,6 +29,7 @@ from idunno_tpu_torch.engine.kv_blocks import KVBlockPool, concat_kv_prefix
 from idunno_tpu_torch.engine.serve_lm import DecodeServer
 from idunno_tpu_torch.models.convert import lm_state_dict_from_flax
 from idunno_tpu_torch.models.transformer import TransformerLM
+from idunno_tpu_torch.ops.quantize import dequantize_tree, qtensors
 from idunno_tpu_torch.serve.admission import AdmissionShed
 from idunno_tpu_torch.serve.gateway import AdmissionGateway
 from idunno_tpu_torch.serve.lm_pool import LMServingLoop
@@ -110,6 +114,59 @@ def test_server_streams_equal_generate(lm, workload, mode):
         assert srv.prefix_cache_stats()["hits"] == 3
 
 
+def serve_both_xla(jm, params, tm, prompts, buckets, **kw):
+    """Greedy streams and radix hits of the JAX ``paged_kernel="xla"``
+    server and the port's ``"auto"`` server on ``prompts`` (6 new
+    tokens each)."""
+    jsrv = JaxDecodeServer(jm, params, paged_kernel="xla",
+                           **pool_kw(buckets, **kw))
+    jids = [jsrv.submit(p, max_new=6) for p in prompts]
+    jdone = {c.id: c.tokens for c in jsrv.run_until_drained()}
+    srv = DecodeServer(tm, paged_kernel="auto", device="cpu",
+                       **pool_kw(buckets, **kw))
+    ids = [srv.submit(p, max_new=6) for p in prompts]
+    done = {c.id: c.tokens for c in srv.run_until_drained()}
+    assert ids == jids
+    hits = srv.prefix_cache_stats()["hits"]
+    assert hits == jsrv.prefix_cache_stats()["hits"] and hits > 0
+    return [jdone[i] for i in jids], [done[i] for i in ids], srv
+
+
+def test_int8_weights_match_jax_int8_server(lm, workload):
+    """``quantize="int8"`` on both servers: equal greedy streams and radix
+    hits; the port's server holds an int8 copy of the weights (per block
+    six kernels and the q/k/v biases, the embedding, the head) and the
+    caller's model keeps its dense ones."""
+    jm, params, tm = lm
+    prompts, _, buckets = workload
+    want, got, srv = serve_both_xla(jm, params, tm, prompts, buckets,
+                                    quantize="int8")
+    assert got == want
+    assert srv.stats()["config"]["quantize"] == "int8"
+    assert len(qtensors(srv.model)) == 2 * (6 + 3) + 2
+    assert not qtensors(tm)
+    dense = tm.state_dict()
+    assert not all(bool((dense[k] == v).all())
+                   for k, v in dequantize_tree(srv.model).items())
+
+
+def test_default_size_paged_server_matches_jax():
+    """The JAX package's default ``TransformerLM`` (dim 128, 4 heads, so
+    head_dim 32, which K3 is built for on the card; vocab 1024) at depth
+    2, f32: equal streams and radix hits."""
+    jm = JaxLM(depth=2)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(11),
+                              jnp.zeros((1, 8), jnp.int32))["params"]
+    tm = TransformerLM(depth=2)
+    tm.load_state_dict(lm_state_dict_from_flax(jax.tree.map(np.asarray,
+                                                            params)))
+    assert tm.dim // tm.num_heads == 32
+    prompts, _, buckets = prefix_bench_workload(
+        {"prompt_len": 8, "vocab": tm.vocab, "slots": 2}, BS)
+    want, got, _ = serve_both_xla(jm, params, tm.eval(), prompts, buckets)
+    assert got == want
+
+
 def test_static_prefix_and_chunked_prefill_token_exact(lm):
     _, _, tm = lm
     prefix = [5, 9, 11]
@@ -179,7 +236,7 @@ def test_unported_options_raise_naming_the_roadmap(lm):
     _, _, tm = lm
     base = dict(slots=2, prompt_len=8, max_len=24, device="cpu")
     for extra in (dict(draft=(tm, None)), dict(n_model=2),
-                  dict(mesh=object()), dict(quantize="int8")):
+                  dict(mesh=object())):
         with pytest.raises(ValueError, match="ROADMAP"):
             DecodeServer(tm, **base, **extra)
     srv = DecodeServer(tm, kv_block_size=BS, **base)

@@ -108,9 +108,9 @@ def test_engine_failure_surfaces_at_the_master(cluster):
     """The service catches engine exceptions and re-dispatches; the
     master's error count is what shows a failing engine."""
     cfg, net, clock, members, services = cluster
-    qnum = services["n2"].submit_query("vit", 0, 5)    # not in the registry
+    qnum = services["n2"].submit_query("vit_l16", 0, 5)  # not registered
     run_jobs(services, rounds=30)
     master = services["n0"]
-    assert master._task_errors.get("vit", 0) > 0
-    assert master.query_failed("vit", qnum)
-    assert not master.query_done("vit", qnum)
+    assert master._task_errors.get("vit_l16", 0) > 0
+    assert master.query_failed("vit_l16", qnum)
+    assert not master.query_done("vit_l16", qnum)
