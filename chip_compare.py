@@ -38,6 +38,7 @@ exits non-zero when a turn fails or no card is present.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -140,7 +141,11 @@ def measure() -> dict:
                       "k2_ms": _device_ms(by_name, "flash_fwd")}
 
     prompts, _, buckets = prefix_bench_workload(cfg, c.LM_BLOCK)
-    srv = DecodeServer(lm, paged_kernel="auto", device="cuda",
+    # an eager dispatch on every tree, so that turns compare like with
+    # like (trees without ``decode_graph`` dispatch eagerly anyway)
+    mode = ({"decode_graph": "eager"} if "decode_graph"
+            in inspect.signature(DecodeServer).parameters else {})
+    srv = DecodeServer(lm, paged_kernel="auto", device="cuda", **mode,
                        **c.lm_pool_kw(cfg, buckets))
     srv.warmup()
     for p in prompts[:cfg["slots"]]:
@@ -151,7 +156,8 @@ def measure() -> dict:
     rec["decode_dispatch"] = {"wall_ms": wall, "launches": n,
                               "device_ms": sum(by_name.values()),
                               "k3_ms": _device_ms(by_name, "paged_fwd"),
-                              "model_steps": srv.decode_steps}
+                              "model_steps": srv.decode_steps,
+                              "decode_graph": "eager"}
     del srv, lm
     torch.cuda.empty_cache()
 

@@ -21,9 +21,12 @@ version, times it, and then drives the port's three main paths:
   prefill through the flash kernel K2, and a continuous-batching
   ``DecodeServer`` with the paged KV block pool and radix prefix cache,
   driven by ``LMServingLoop`` from two request threads, attending cached
-  prefixes through the paged kernel K3, with the bf16 weights and with
-  int8 ones; and the JAX package's default-size model (head_dim 32) in a
-  paged pool through K3;
+  prefixes through the paged kernel K3, each all-greedy decode dispatch
+  replayed as one CUDA graph (and once eagerly beside it), with the bf16
+  weights and with int8 ones, plain and speculative (a draft proposes 4
+  tokens a round, the target verifies them through K3); beam search;
+  and the JAX package's default-size model (head_dim 32) in a paged pool
+  through K3;
 - LM training: the same 0.2 B-parameter model with f32 master parameters
   and bf16 compute, trained on seq 1024 × batch 8 by the port's LM train
   step (next-token cross-entropy, fused AdamW), attending through the
@@ -40,10 +43,11 @@ Phases:
 2. every kernel against its plain version, at the main paths' shapes
    (bf16 K2, K4 and K5 within the per-element bound of their bf16
    rounding of P and dS, ``ops/flash_attention.py:tensor_core_bound``;
-   K2 also at ViT-S/16's [256, 197, 6, 64]; K3 also at head_dim 32);
+   K2 also at ViT-S/16's [256, 197, 6, 64]; K3 also at head_dim 32 and
+   at the speculative verify shape, 16 rows x 5 positions);
 3. kernel timing by CUDA-graph replay (K4 and K5 also by CUDA events; K2
    also at the ViT shape, non-causal; K3 at the decode, the radix-hit
-   prefill and the head_dim 32 decode shapes), beside its bound, the
+   prefill, the head_dim 32 decode and the verify shapes), beside its bound, the
    plain time and, where one exists, one PyTorch library call computing
    the same function;
 4. CNN serving: concurrent ``resnet`` and ``alexnet`` queries of 1024
@@ -65,16 +69,30 @@ Phases:
    ``make_attn_fn("auto")``; K2 launches must equal depth × forwards, and
    the logits must agree with the ``full`` attention forward; one forward
    under ``torch.profiler`` gives K2's share of the device time;
-8. LM serving: 48 shared-prefix prompts from two threads; every request
+8. LM serving: 48 shared-prefix prompts from two threads, each
+   all-greedy dispatch replayed as one CUDA graph; every request
    completes with prompt + max_new in-vocab tokens, radix hits > 0, K3
-   launches (zeroed just before) > 0, no loop errors; tokens/s and TTFT;
+   launches (zeroed just before; a replay adds the launches its capture
+   recorded) > 0, dispatches replayed, no loop errors; tokens/s, TTFT,
+   ms a model step, and one dispatch under ``torch.profiler`` (host
+   launch calls, device busy share); the same prompts eagerly beside it;
    then 32 of them with int8 weights (``quantize="int8"``), with the
-   resident weight bytes against the bf16 pool's;
-9. LM token exactness: the same workload at full width, depth 2, f32, on
-   a ``paged_kernel="kernel"`` and a ``"plain"`` pool, with dense and
-   with int8 weights: equal greedy streams; then the default-size model
-   (dim 128, 4 heads: head_dim 32) on both pools: equal streams, K3
-   launches > 0;
+   resident weight bytes against the bf16 pool's; then (b) speculative
+   serving with the JAX bench's draft (dim 256, depth 2, 4 heads,
+   draft_len 4): every request completes, tokens/s, tokens committed a
+   round, K3 launches; (c) the bench's mechanism ceiling (zeroed target
+   and draft, acceptance 1.0): every round commits draft_len + 1 tokens,
+   tokens/s beside the plain pool's; beam search: width 1 equals greedy
+   ``generate`` (f32, depth 2), the full-width time for batch 4, width
+   4, 32 new tokens;
+9. LM token exactness: the same workload at full width, depth 2, f32,
+   with dense and with int8 weights: paged pools with K3 replayed, K3
+   eager and the plain paged attention eager, and a contiguous pool
+   replayed and eager: equal greedy streams within each; (a) speculative
+   pools (the bench's draft replayed and eager, the target as its own
+   draft) against the plain pool: equal streams; then the default-size
+   model (dim 128, 4 heads: head_dim 32) on a ``kernel`` and a
+   ``plain`` pool: equal streams, K3 launches > 0;
 10. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
@@ -116,6 +134,10 @@ LM_DECODE_STEPS = 16             # decode steps per DecodeServer.step()
 LM_FORWARDS = 5                  # timed prefill forwards in phase 6
 LM_TRAIN_STEPS = 10              # train steps on one batch in phase 9
 LM_INT8_REQUESTS = 32            # requests of the int8-weight serving run
+LM_DRAFT_LEN = 4                 # proposals a speculative round
+# the JAX LM bench's draft (``idunno_tpu/utils/lm_bench.py:75-77``)
+LM_DRAFT = {"dim": 256, "depth": 2, "heads": 4}
+BEAM = {"batch": 4, "width": 4, "max_new": 32}
 
 
 def say(phase: str, **fields) -> None:
@@ -538,21 +560,28 @@ def paged_inputs(*, b, t, kvh, g, d, n, bs, chains, int8, seed, layers=None,
 def paged_shapes():
     """(label, inputs kwargs) of the K3 checks: the served decode shape
     (16 slots, 16 kv-heads, bs 16, chains of 0-3 blocks, row 0 empty), a
-    radix-hit prefill (one row, 64 query positions, a 3-block chain), and
-    the default-size model's decode shape (head_dim 32, 4 kv-heads)."""
+    radix-hit prefill (one row, 64 query positions, a 3-block chain), the
+    default-size model's decode shape (head_dim 32, 4 kv-heads), and the
+    speculative verify of draft_len 4 (16 rows x 5 positions) at head_dim
+    64 (16 kv-heads) and 32 (4 kv-heads)."""
     rng = random.Random(3)
     chains = [0] + [rng.randint(0, 3) for _ in range(15)]
+    t = LM_DRAFT_LEN + 1
     return (("decode", dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=LM_BLOCK,
                             chains=chains)),
             ("hit_prefill", dict(b=1, t=64, kvh=16, g=1, d=64, n=68,
                                  bs=LM_BLOCK, chains=[3])),
             ("decode_d32", dict(b=16, t=1, kvh=4, g=1, d=32, n=68,
+                                bs=LM_BLOCK, chains=chains)),
+            ("verify", dict(b=16, t=t, kvh=16, g=1, d=64, n=68, bs=LM_BLOCK,
+                            chains=chains)),
+            ("verify_d32", dict(b=16, t=t, kvh=4, g=1, d=32, n=68,
                                 bs=LM_BLOCK, chains=chains)))
 
 
 def phase_paged_vs_plain() -> float:
-    """K3 against its plain version at the decode, hit-prefill and
-    head_dim 32 decode shapes, f32, bf16 and int8 pages: out and lse
+    """K3 against its plain version at the decode, hit-prefill, head_dim
+    32 decode and speculative verify shapes, f32, bf16 and int8 pages: out and lse
     within 1e-5 relative; empty chains exactly (0, -1e30). Returns the
     largest |out difference|."""
     import torch
@@ -638,8 +667,9 @@ def phase_paged_timing() -> dict:
     """K3 at the served decode shape (16 rows, 15 with a 3-block chain as a
     radix hit of 48 tokens gives, one empty), whose numbers it returns,
     at the radix-hit prefill shape (one row, 64 query positions, a
-    3-block chain), and at the default-size model's decode shape (head_dim
-    32, 4 kv-heads), bf16 pages. The pages of 12 layers rotate as in a
+    3-block chain), at the default-size model's decode shape (head_dim
+    32, 4 kv-heads), and at the speculative verify shape (16 rows x 5
+    positions, 16 kv-heads), bf16 pages. The pages of 12 layers rotate as in a
     decode step (54 MB at head_dim 64, above the 50 MB L2), so each launch
     reads its pages from device memory; at head_dim 32 the 12 layers'
     pages (3.3 MB) stay in L2, as that small model's would."""
@@ -651,7 +681,8 @@ def phase_paged_timing() -> dict:
     for label, b, t, kvh, d, chains in (
             ("decode", 16, 1, 16, 64, [0] + [3] * 15),
             ("hit_prefill", 1, 64, 16, 64, [3]),
-            ("decode_d32", 16, 1, 4, 32, [0] + [3] * 15)):
+            ("decode_d32", 16, 1, 4, 32, [0] + [3] * 15),
+            ("verify", 16, LM_DRAFT_LEN + 1, 16, 64, [0] + [3] * 15)):
         q5, kp, vp, tables, lengths, _, _ = paged_inputs(
             b=b, t=t, kvh=kvh, g=1, d=d, n=68, bs=bs, chains=chains,
             int8=False, seed=40, layers=layers)
@@ -688,9 +719,9 @@ def phase_paged_timing() -> dict:
     return timed["decode"]
 
 
-def build_lm(cfg: dict, dtype, depth: int, seed: int):
+def build_lm(cfg: dict, dtype, depth: int, seed: int, zero: bool = False):
     """The full-width TransformerLM on the card, seeded with flax's
-    initialisers."""
+    initialisers (every weight zero with ``zero``)."""
     import torch
 
     from idunno_tpu_torch.models.init import init_like_flax
@@ -700,6 +731,9 @@ def build_lm(cfg: dict, dtype, depth: int, seed: int):
         model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
                               num_heads=cfg["heads"], dtype=torch.float32)
     init_like_flax(model, torch.Generator(device="cuda").manual_seed(seed))
+    if zero:
+        for prm in model.parameters():
+            prm.data.zero_()
     return model.to(torch.bfloat16 if dtype == "bf16" else torch.float32
                     ).eval().requires_grad_(False)
 
@@ -773,11 +807,15 @@ def weight_bytes(model) -> int:
 
 
 def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
-                     n_requests: int | None = None) -> int:
+                     n_requests: int | None = None,
+                     decode_graph: str = "auto", draft=None) -> int:
     """The shared-prefix prompts (all 48, or the first ``n_requests``)
     from two threads through an LMServingLoop around the full-width paged
     DecodeServer, with the model's weights or (``quantize="int8"``) an
-    int8 copy of them; returns K3's launches."""
+    int8 copy of them, each all-greedy dispatch replayed as one CUDA graph
+    (``decode_graph="auto"`` on the card) or run eagerly, plain or with a
+    ``draft`` model (``LM_DRAFT_LEN`` proposals a round, LM_DECODE_STEPS
+    rounds a dispatch); returns K3's launches."""
     import threading
 
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
@@ -790,8 +828,11 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     prompts, shared, buckets = prefix_bench_workload(cfg, LM_BLOCK)
     prompts = prompts[:n_requests]
     max_new = serving_max_new(cfg)
+    spec = {} if draft is None else dict(draft=(draft, None),
+                                         draft_len=LM_DRAFT_LEN)
     srv = DecodeServer(model, paged_kernel="auto", device="cuda",
-                       quantize=quantize, **lm_pool_kw(cfg, buckets))
+                       quantize=quantize, decode_graph=decode_graph,
+                       **spec, **lm_pool_kw(cfg, buckets))
     dense_bytes = weight_bytes(model)
     resident = (quantized_bytes(srv.model)[0] if quantize == "int8"
                 else dense_bytes)
@@ -859,8 +900,18 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     steps = stats["dispatches"] * LM_DECODE_STEPS
     # every radix-hit prefill attends its hit through K3 once per layer
     prefill_launches = hits * model.depth
+    graph = srv.graph_stats()
+    if graph["mode"] == "graph" and graph["replayed"] <= 0:
+        raise AssertionError(f"no dispatch was replayed: {graph}")
     say("lm_serving", card=card, quantize=quantize, requests=len(done),
+        decode_graph=graph["mode"],
+        speculative_draft_len=srv.stats()["config"]["speculative_draft_len"],
+        dispatches_replayed=graph["replayed"],
+        dispatches_eager=graph["eager"],
+        graph_pool_bytes=graph["graph_pool_bytes"],
+        launches_per_replay=graph["launches_per_replay"],
         max_new=max_new, resident_weight_bytes=resident,
+        weights_plus_graph_pool_bytes=resident + graph["graph_pool_bytes"],
         dense_weight_bytes=dense_bytes,
         dense_weight_dtype=str(next(model.parameters()).dtype),
         decode_steps_per_dispatch=LM_DECODE_STEPS, warmup_s=warm_s,
@@ -868,6 +919,7 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
         ttft_p50_s=ttft[len(ttft) // 2],
         ttft_p95_s=ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
         dispatches=stats["dispatches"], decode_model_steps=steps,
+        wall_ms_per_model_step=wall * 1e3 / steps,
         radix_hits=hits, radix_lookups=stats["prefix_cache"]["lookups"],
         paged_launches=launches,
         paged_launches_in_hit_prefills=prefill_launches,
@@ -878,13 +930,22 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     return launches
 
 
-def device_profile(fn):
+# the host's calls that put work on the card: kernels one by one, or a
+# whole captured graph
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def device_profile(fn, host: dict | None = None):
     """``fn`` once under ``torch.profiler``, after a synchronize: (its wall
     ms, a Counter of device ms by kernel name, the number of kernels the
     profiler recorded). The counter is empty where it records none. User
     annotations on the device timeline (the optimizer's
     ``Optimizer.step#...`` range) span kernels already counted and are
-    left out."""
+    left out. ``host``, where given, receives ``launch_calls``: the
+    host's kernel and graph launch calls (``LAUNCH_CALLS``) the profiler
+    recorded, and ``kernel_counts``: a Counter of the kernels it recorded
+    by full name (those inside a replayed graph included)."""
     import collections
 
     import torch
@@ -898,44 +959,117 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    if host is not None:
+        host["launch_calls"] = sum(
+            e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS
+            for e in events)
+        host["kernel_counts"] = collections.Counter(e.name for e in kernels)
     return wall_ms, by_name, len(kernels)
 
 
-def profile_dispatch(srv, prompts, max_new: int, card: str) -> None:
-    """One decode dispatch (``decode_steps`` model steps, every slot live)
-    under ``torch.profiler``: its wall time, the device's kernel time and
-    busy share, and the kernels that take the most of it. Prints "not
-    measured" for the device numbers where the profiler records no
-    kernel."""
+def profile_dispatch(srv, prompts, max_new: int, card: str) -> dict:
+    """One decode dispatch (``decode_steps`` model steps or speculative
+    rounds, every slot live) under ``torch.profiler``: its wall time (and
+    the next dispatch's, untraced), the host's launch calls, the device's kernel time and busy share, the
+    kernels that take the most of it, and on a speculative pool the
+    tokens a live row committed a round in it. Prints "not measured" for
+    the device numbers where the profiler records no kernel; returns the
+    printed record. K3's launch count on that dispatch (on a replay, the
+    launches its capture recorded, which the server adds on each replay)
+    must equal the K3 kernels the profiler saw run, or the run fails."""
+    import torch
+
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+
     for p in prompts:
         srv.submit(p, max_new=max_new)
     srv.step()                             # admissions + one dispatch
-    wall_ms, by_name, n = device_profile(srv.step)
+    cur0 = srv._cursors.cpu().clone()
+    host = {}
+    replays0 = srv.graph_stats()["replayed"]
+    k3_0 = paged_attention_kernel.launches
+    wall_ms, by_name, n = device_profile(srv.step, host)
+    k3_counted = paged_attention_kernel.launches - k3_0
+    k3_traced = sum(c for name, c in host["kernel_counts"].items()
+                    if "paged_fwd" in name)
+    committed = int((srv._cursors.cpu() - cur0).sum())
+    replayed = srv.graph_stats()["replayed"] - replays0
+    # the next dispatch untraced: what the profiler's own cost hides
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.step()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
     srv.run_until_drained()
     busy_ms = sum(by_name.values())
     steps = srv.decode_steps
-    say("lm_decode_profile", card=card,
-        quantize=srv.stats()["config"]["quantize"], live_rows=len(prompts),
-        model_steps=steps, wall_ms=wall_ms,
+    spec = srv.stats()["config"]["speculative_draft_len"]
+    rec = dict(
+        card=card, quantize=srv.stats()["config"]["quantize"],
+        speculative_draft_len=spec, replayed=bool(replayed),
+        live_rows=len(prompts), model_steps=steps, wall_ms=wall_ms,
         wall_ms_per_model_step=wall_ms / steps,
+        untraced_wall_ms=untraced_ms,
+        untraced_wall_ms_per_model_step=untraced_ms / steps,
+        host_launch_calls=host["launch_calls"],
+        host_launch_calls_per_model_step=host["launch_calls"] / steps,
         kernel_launches_per_model_step=n / steps,
         device_busy_ms=busy_ms if n else "not measured",
         device_busy_share=busy_ms / wall_ms if n else "not measured",
+        k3_launches_counted=k3_counted, k3_kernels_traced=k3_traced,
+        tokens_committed=committed,
+        tokens_per_row_per_step=committed / (len(prompts) * steps),
         top_kernels_ms=dict(by_name.most_common(8)))
+    say("lm_decode_profile", **rec)
+    if k3_traced != k3_counted or k3_counted <= 0:
+        raise AssertionError(f"K3: {k3_counted} launches counted in the "
+                             f"dispatch (replayed: {bool(replayed)}), "
+                             f"{k3_traced} traced by the profiler")
+    return rec
+
+
+def serve_streams(model, prompts, max_new: int, **kw) -> tuple:
+    """Greedy streams of ``prompts`` from one DecodeServer on the card
+    (submitted at once, drained), its radix hits and its graph stats."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+
+    srv = DecodeServer(model, device="cuda", **kw)
+    ids = [srv.submit(p, max_new=max_new) for p in prompts]
+    done = {c.id: c.tokens for c in srv.run_until_drained()}
+    hits = (srv.prefix_cache_stats()["hits"] if kw.get("kv_block_size")
+            else None)
+    return [done[i] for i in ids], hits, srv.graph_stats()
+
+
+def hold_equal(phase: str, streams: dict, **fields) -> None:
+    """Every pool's greedy streams equal the first's token for token, or
+    the run fails; prints the count of differing tokens per pool."""
+    first, ref = next(iter(streams.items()))
+    differ = {name: sum(a != b for sa, sb in zip(got, ref)
+                        for a, b in zip(sa, sb))
+              for name, got in streams.items()}
+    say(phase, tokens_per_stream=len(ref[0]), requests=len(ref),
+        tokens_differing=differ, against=first, **fields)
+    bad = [name for name, got in streams.items() if got != ref]
+    if bad:
+        raise AssertionError(f"{phase}: pools {bad} differ from {first} in "
+                             f"{differ} tokens")
 
 
 def phase_lm_exactness(cfg: dict, quantize: str = "none") -> None:
-    """Full width, depth 2, f32: a ``kernel`` and a ``plain`` paged pool
-    (with the dense or the int8 weights) serve the shared-prefix workload;
-    their greedy streams must be equal token for token."""
+    """Full width, depth 2, f32, with the dense or the int8 weights, the
+    shared-prefix workload: on paged pools, K3 replayed (``decode_graph=
+    "graph"``), K3 eager and the plain paged attention eager; on a
+    contiguous pool, replayed and eager. Greedy streams equal token for
+    token within each, radix hits > 0, and the graph pools replayed."""
     import torch
 
-    from idunno_tpu_torch.engine.serve_lm import DecodeServer
     from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
                                                  serving_max_new)
 
@@ -943,24 +1077,201 @@ def phase_lm_exactness(cfg: dict, quantize: str = "none") -> None:
     model = build_lm(cfg, "f32", depth=2, seed=1)
     prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
     max_new = serving_max_new(cfg)
-    streams, hits = {}, {}
-    for kernel in ("kernel", "plain"):
-        srv = DecodeServer(model, paged_kernel=kernel, device="cuda",
-                           quantize=quantize, **lm_pool_kw(cfg, buckets))
-        ids = [srv.submit(p, max_new=max_new) for p in prompts]
-        done = {c.id: c.tokens for c in srv.run_until_drained()}
-        streams[kernel] = [done[i] for i in ids]
-        hits[kernel] = srv.prefix_cache_stats()["hits"]
-    differ = sum(a != b for sa, sb in zip(streams["kernel"], streams["plain"])
-                 for a, b in zip(sa, sb))
-    say("lm_exactness", depth=2, dtype="float32", quantize=quantize,
-        requests=len(prompts),
-        tokens_per_stream=len(streams["kernel"][0]), radix_hits=hits,
-        tokens_differing=differ)
-    if streams["kernel"] != streams["plain"] or hits["kernel"] <= 0:
-        raise AssertionError(f"kernel and plain pools differ in {differ} "
-                             f"tokens (hits {hits})")
+    paged, hits, graphs = {}, {}, {}
+    for kernel, mode in (("kernel", "graph"), ("kernel", "eager"),
+                         ("plain", "eager")):
+        name = f"{kernel}/{mode}"
+        paged[name], hits[name], graphs[name] = serve_streams(
+            model, prompts, max_new, paged_kernel=kernel, decode_graph=mode,
+            quantize=quantize, **lm_pool_kw(cfg, buckets))
+    contiguous = {}
+    kw = {k: v for k, v in lm_pool_kw(cfg, buckets).items()
+          if not k.startswith("kv_")}
+    for mode in ("graph", "eager"):
+        contiguous[mode], _, graphs[f"contiguous/{mode}"] = serve_streams(
+            model, prompts, max_new, decode_graph=mode, quantize=quantize,
+            **kw)
+    replayed = {k: g["replayed"] for k, g in graphs.items()}
+    hold_equal("lm_exactness", paged, depth=2, dtype="float32",
+               quantize=quantize, pool="paged", radix_hits=hits,
+               replayed=replayed)
+    hold_equal("lm_exactness", contiguous, depth=2, dtype="float32",
+               quantize=quantize, pool="contiguous")
+    if min(hits.values()) <= 0 or min(
+            n for k, n in replayed.items() if "graph" in k) <= 0:
+        raise AssertionError(f"radix hits {hits}, replays {replayed}")
     del model
+
+
+def build_draft(cfg: dict, dtype, seed: int, zero: bool = False):
+    """The JAX LM bench's draft (``LM_DRAFT``) at the target's vocab on the
+    card, seeded (or zeroed, for the mechanism-ceiling point)."""
+    return build_lm(dict(cfg, dim=LM_DRAFT["dim"], heads=LM_DRAFT["heads"]),
+                    dtype, depth=LM_DRAFT["depth"], seed=seed, zero=zero)
+
+
+def phase_spec_exactness(cfg: dict) -> None:
+    """(a) f32, depth-2 target, the shared-prefix workload on paged pools
+    (K3): speculative pools (the bench's draft, replayed and eager; the
+    target as its own draft, replayed) give the greedy streams of the
+    plain replayed pool."""
+    import torch
+
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_lm(cfg, "f32", depth=2, seed=1)
+    draft = build_draft(cfg, "f32", seed=7)
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    kw = dict(paged_kernel="kernel", **lm_pool_kw(cfg, buckets))
+    streams, graphs = {}, {}
+    for name, extra in (
+            ("plain/graph", dict(decode_graph="graph")),
+            ("spec/graph", dict(decode_graph="graph", draft=(draft, None))),
+            ("spec/eager", dict(decode_graph="eager", draft=(draft, None))),
+            ("spec_self/graph", dict(decode_graph="graph",
+                                     draft=(model, None)))):
+        if "draft" in extra:
+            extra["draft_len"] = LM_DRAFT_LEN
+        streams[name], _, graphs[name] = serve_streams(
+            model, prompts, max_new, **kw, **extra)
+    hold_equal("lm_spec_exactness", streams, depth=2, dtype="float32",
+               draft=LM_DRAFT, draft_len=LM_DRAFT_LEN,
+               replayed={k: g["replayed"] for k, g in graphs.items()})
+    del model, draft
+
+
+def phase_spec_ceiling(lm, cfg: dict, card: str) -> None:
+    """(c) The JAX bench's mechanism-ceiling point
+    (``idunno_tpu/utils/lm_bench.py:484-520``): the full-width target and
+    the bench's draft with every weight zero, so every logit ties and both
+    pick token 0: acceptance 1.0. 16 rows, rounds a dispatch by the
+    bench's ``spec_rounds``; each row's budget after its prefill token a
+    multiple of draft_len + 1. Committed tokens a round are measured: the
+    cursors and budgets are read after every timed dispatch, and each
+    row's cursor advance over a dispatch that it spent live from its
+    first round to its last (budget >= rounds · (draft_len + 1) before
+    it) is divided by the rounds in it; every such advance must be
+    rounds · (draft_len + 1), or the run fails. Tokens/s beside a plain
+    pool on the same zeroed target committing as many tokens a
+    dispatch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+
+    target = copy.deepcopy(lm)
+    for prm in target.parameters():
+        prm.zero_()
+    draft = build_draft(cfg, "bf16", seed=0, zero=True)
+    chunk = LM_DRAFT_LEN + 1
+    bench = dict(cfg, max_new=448, draft_len=LM_DRAFT_LEN)
+    spec_max_new = min(bench["max_new"],
+                       cfg["max_len"] - cfg["prompt_len"] - chunk)
+    rounds = max(1, min(cfg["decode_steps"] // chunk,
+                        spec_max_new // (3 * chunk)))
+    while rounds > 1 and rounds * chunk >= spec_max_new - 1:
+        rounds -= 1
+    max_new = 1 + (spec_max_new - 1) // chunk * chunk
+    prompt = list(range(1, cfg["prompt_len"] + 1))
+    out = {}
+    for name, extra in (("speculative", dict(draft=(draft, None),
+                                             draft_len=LM_DRAFT_LEN,
+                                             decode_steps=rounds)),
+                        ("plain", dict(decode_steps=rounds * chunk))):
+        srv = DecodeServer(target, slots=cfg["slots"],
+                           prompt_len=cfg["prompt_len"],
+                           max_len=cfg["max_len"], device="cuda", **extra)
+        srv.warmup()
+        for _ in range(cfg["slots"]):
+            srv.submit(prompt, max_new=max_new)
+        srv.step()               # admission (prefills) + first dispatch
+        # (cursors, budgets) after each dispatch, copied on the card's
+        # stream: no host read inside the timed loop
+        snaps = [(srv._cursors.clone(), srv._remaining.clone())]
+        disp0 = srv.stats()["dispatches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            left = srv.step()
+            snaps.append((srv._cursors.clone(), srv._remaining.clone()))
+            if left == 0:
+                break
+        dt = time.perf_counter() - t0
+        srv.run_until_drained()
+        cur = np.stack([c.cpu().numpy() for c, _ in snaps])
+        rem = np.stack([r.cpu().numpy() for _, r in snaps])
+        gen = int((cur[-1] - cur[0]).sum())
+        out[name] = {"tokens_per_s": gen / dt, "tokens": gen,
+                     "timed_dispatches": srv.stats()["dispatches"] - disp0,
+                     "graph": srv.graph_stats()}
+        if name == "speculative":
+            advance = cur[1:] - cur[:-1]          # [dispatches, rows]
+            full = rem[:-1] >= rounds * chunk     # live every round
+            measured = advance[full] / rounds
+            out[name]["full_dispatch_rows"] = int(full.sum())
+            out[name]["rounds_measured"] = int(full.sum()) * rounds
+            out[name]["committed_per_round"] = (
+                float(measured.mean()) if measured.size else 0.0)
+            out[name]["committed_per_round_min"] = (
+                float(measured.min()) if measured.size else 0.0)
+        del srv
+    say("lm_spec_ceiling", card=card, draft=LM_DRAFT, draft_len=LM_DRAFT_LEN,
+        rounds_per_dispatch=rounds, max_new=max_new, rows=cfg["slots"],
+        speedup_vs_plain=(out["speculative"]["tokens_per_s"]
+                          / out["plain"]["tokens_per_s"]), **out)
+    spec = out["speculative"]
+    if (spec["full_dispatch_rows"] <= 0
+            or spec["committed_per_round_min"] != chunk
+            or spec["committed_per_round"] != chunk):
+        raise AssertionError(f"mechanism ceiling committed "
+                             f"{spec['committed_per_round']} tokens a round "
+                             f"(least {spec['committed_per_round_min']}) "
+                             f"over {spec['full_dispatch_rows']} row "
+                             f"dispatches, want {chunk}")
+    if min(out[k]["graph"]["replayed"] for k in out) <= 0:
+        raise AssertionError("the ceiling's dispatches were not replayed")
+    del target, draft
+
+
+def phase_beam(lm, cfg: dict, card: str) -> None:
+    """Beam search on the card: width 1 equals greedy ``generate`` (f32,
+    depth 2, full width), then the full-width bf16 model's time for
+    ``BEAM`` (batch 4, width 4, 32 new tokens) after 64-token prompts."""
+    import torch
+
+    from idunno_tpu_torch.engine.generate import beam_search, generate
+    from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts, _, _ = prefix_bench_workload(cfg, LM_BLOCK)
+    b, plen = BEAM["batch"], cfg["prompt_len"]
+    p = torch.tensor(prompts[:b], device="cuda")
+    small = build_lm(cfg, "f32", depth=2, seed=1)
+    seq1, _ = beam_search(small, p, plen, BEAM["max_new"], beam_width=1)
+    greedy = generate(small, p, plen, BEAM["max_new"])
+    if not torch.equal(seq1, greedy):
+        raise AssertionError("width-1 beam search is not greedy generate")
+    del small
+    beam_search(lm, p, plen, 2, beam_width=BEAM["width"])       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq, score = beam_search(lm, p, plen, BEAM["max_new"],
+                             beam_width=BEAM["width"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if (seq.shape != (b, plen + BEAM["max_new"])
+            or not bool(torch.isfinite(score).all())
+            or not bool(((seq >= 0) & (seq < cfg["vocab"])).all())):
+        raise AssertionError(f"beam search output bad: {tuple(seq.shape)}")
+    say("lm_beam", card=card, width1_equals_greedy=True, dtype="bfloat16",
+        depth=lm.depth, **BEAM, prompt_len=plen, wall_s=wall,
+        ms_per_position=wall * 1e3 / BEAM["max_new"],
+        best_scores=[float(x) for x in score])
 
 
 # -- LM training kernels and path (K4, K5) --------------------------------
@@ -1550,14 +1861,26 @@ def main() -> int:
     lm_cfg = lm_bench_config()
     lm = build_lm(lm_cfg, "bf16", depth=lm_cfg["depth"], seed=0)
     launches["flash_attention"] += phase_lm_prefill(lm, lm_cfg, smi)
-    launches["paged_attention"] += phase_lm_serving(lm, lm_cfg, smi)
-    torch.cuda.empty_cache()
+    # replayed (the default on the card), then the same prompts eagerly
+    for mode in ("auto", "eager"):
+        launches["paged_attention"] += phase_lm_serving(
+            lm, lm_cfg, smi, decode_graph=mode)
+        torch.cuda.empty_cache()
     launches["paged_attention"] += phase_lm_serving(
         lm, lm_cfg, smi, quantize="int8", n_requests=LM_INT8_REQUESTS)
+    torch.cuda.empty_cache()
+    # (b) speculative serving with the bench's draft, seeded weights
+    launches["paged_attention"] += phase_lm_serving(
+        lm, lm_cfg, smi, draft=build_draft(lm_cfg, "bf16", seed=3))
+    torch.cuda.empty_cache()
+    phase_spec_ceiling(lm, lm_cfg, smi)                       # (c)
+    torch.cuda.empty_cache()
+    phase_beam(lm, lm_cfg, smi)
     del lm
     torch.cuda.empty_cache()
     phase_lm_exactness(lm_cfg)
     phase_lm_exactness(lm_cfg, quantize="int8")
+    phase_spec_exactness(lm_cfg)                              # (a)
     torch.cuda.empty_cache()
     launches["paged_attention"] += phase_default_pool(smi)
     train = phase_lm_train(smi)

@@ -19,7 +19,10 @@ imports nothing of it and nothing of JAX. What is here so far:
   AdamW over f32 master parameters, bf16 compute) with the flash
   backward kernels (``csrc/flash_attention_bwd.cu``: dQ, and dK/dV)
   joined to the forward in one ``torch.autograd.Function``, the
-  ResNet-18 train step, ``TokenDataset`` and the train bench.
+  ResNet-18 train step, ``TokenDataset`` and the train bench;
+- later slices: int8 weights, the space-to-depth stem, native staging,
+  ViT; speculative decoding and beam search, and each all-greedy decode
+  dispatch replayed as one CUDA graph.
 
 Every kernel runs on a CUDA tensor and falls to its plain PyTorch version
 only for a CPU tensor. ROADMAP.md lists what is still to port.

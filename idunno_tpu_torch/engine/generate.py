@@ -1,13 +1,13 @@
 """Autoregressive LM generation: KV-cached greedy/temperature decoding.
 
 A port of ``idunno_tpu/engine/generate.py`` (``decode_model``,
-``init_cache``, ``generate``, ``stepwise_logits``). The whole decode —
-prompt teacher-forcing and generation — runs one token per step through
+``init_cache``, ``generate``, ``beam_search`` with ``gather_beams``,
+``stepwise_logits``). The whole decode — prompt teacher-forcing and
+generation — runs one token per step through
 ``models/transformer.py:decode_apply`` with the scalar cursor against a
 static-length cache, exactly the step the serving pool runs, so the
 pool's greedy streams can be held against ``generate`` token for token.
-``beam_search`` and the ``save_lm``/``load_lm`` store verbs wait for the
-port of the store.
+The ``save_lm``/``load_lm`` store verbs wait for the port of the store.
 """
 from __future__ import annotations
 
@@ -112,6 +112,69 @@ def generate(model: TransformerLM, prompt: torch.Tensor, prompt_len: int,
         if penalized:   # teacher-forced (prompt) tokens never count
             counts[rows, nxt] += (~keep_prompt).to(counts.dtype)
     return tokens
+
+
+def gather_beams(x, parent: torch.Tensor, axis: int = 0):
+    """Re-gather the beams of ``x`` (a tensor, or a dict of them, whose
+    ``axis`` holds B·W rows in row-major [b0w0..b0wW-1, b1w0, ...] order)
+    to follow their parent beams ``parent`` [B, W]."""
+    b, w = parent.shape
+    flat = (torch.arange(b, device=parent.device)[:, None] * w
+            + parent).reshape(-1)
+    if isinstance(x, dict):
+        return {k: v.index_select(axis, flat) for k, v in x.items()}
+    return x.index_select(axis, flat)
+
+
+@torch.no_grad()
+def beam_search(model: TransformerLM, prompt: torch.Tensor, prompt_len: int,
+                max_new: int, *, beam_width: int = 4
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decoding with the same KV cache as `generate`.
+
+    prompt int [B, prompt_len] → (sequences int64 [B, prompt_len +
+    max_new], total log-prob f32 [B]) of the best beam. The prompt
+    prefills the cache at batch B (paid once, not per beam), the cache is
+    then replicated to B·W rows, and each generated position keeps the top
+    W of the W·V continuations, re-gathering the KV caches to follow their
+    parent beams. No EOS handling: every beam has length max_new, so the
+    scores are comparable log-probs."""
+    if prompt.shape[1] != prompt_len:
+        raise ValueError(f"prompt is [B, {prompt.shape[1]}] but "
+                         f"prompt_len={prompt_len}; slice/pad upstream")
+    dev = _device_of(model)
+    b, w = prompt.shape[0], beam_width
+    total = prompt_len + max_new
+    prompt = prompt.to(dev, torch.int64)
+
+    cache_b = init_cache(model, b, total)
+    for t in range(prompt_len - 1):
+        decode_apply(model, cache_b, prompt[:, t:t + 1], t)
+    # the cache leads with depth: beams run along axis 1
+    cache = {k: v.repeat_interleave(w, dim=1) for k, v in cache_b.items()}
+    tokens = torch.cat([prompt, torch.zeros((b, max_new), dtype=torch.int64,
+                                            device=dev)],
+                       dim=1).repeat_interleave(w, dim=0)   # [B*W, total]
+    # only beam 0 is live before the first expansion (identical beams
+    # would count the same continuation several times)
+    scores = torch.where(torch.arange(w, device=dev) == 0,
+                         torch.zeros((), device=dev),
+                         torch.full((), -1e30, device=dev)).repeat(b)
+    for t in range(prompt_len - 1, total - 1):
+        logits = decode_apply(model, cache, tokens[:, t:t + 1], t)[:, 0]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        vocab = logp.shape[-1]
+        cand = (scores[:, None] + logp).reshape(b, w * vocab)
+        new_scores, flat_idx = torch.topk(cand, w, dim=-1)  # [B, W]
+        parent = flat_idx // vocab                # the beam each came from
+        tokens = gather_beams(tokens, parent)
+        cache = gather_beams(cache, parent, axis=1)
+        tokens[:, t + 1] = (flat_idx % vocab).reshape(-1)
+        scores = new_scores.reshape(-1)
+    scores = scores.reshape(b, w)
+    best = torch.argmax(scores, dim=1)
+    rows = torch.arange(b, device=dev)
+    return tokens.reshape(b, w, total)[rows, best], scores[rows, best]
 
 
 @torch.no_grad()

@@ -3,7 +3,7 @@
 A port of ``idunno_tpu/engine/serve_lm.py:DecodeServer``: a fixed pool of
 decode slots where finished sequences retire immediately and queued
 prompts are admitted into the freed rows while the other rows keep
-decoding. Three steps, each eager PyTorch on one device:
+decoding. Three steps on one device:
 
   prefill  — the whole prompt bucket in ONE chunked decode step
              (`models/transformer.py:decode_apply`, scalar cursor, t>1):
@@ -19,14 +19,30 @@ decoding. Three steps, each eager PyTorch on one device:
              a paged pool every step attends each row's radix-hit region
              through K3. The KV cache is updated in place.
 
-``quantize="int8"`` serves an int8 copy of the model's weights (f32
+Speculative decoding (``draft=(draft_model, None)``): a cheap draft
+proposes ``draft_len`` tokens a round, the target verifies them in ONE
+chunked per-row apply (``draft_len + 1`` positions, K3 on a paged pool),
+and `spec_commit` keeps greedy rows exactly on the target's greedy stream
+and sampled rows exactly on its sampling distribution; ``decode_steps``
+rounds run per `step()` call.
+
+One dispatch, one replay (``decode_graph``): the JAX package compiles a
+dispatch (``decode_steps`` steps or rounds) into one program; here a
+dispatch in which no live row samples is recorded once as a
+``torch.cuda.CUDAGraph`` (after one eager pass that builds the kernels)
+and replayed from then on. The state it reads and writes lives in fixed
+buffers updated in place. A dispatch in which a live row samples runs
+eagerly: each sampled row draws from its own ``torch.Generator``, which a
+fixed graph cannot hold. ``graph_stats()`` counts both kinds.
+
+``quantize="int8"`` serves an int8 copy of the target's weights (f32
 per-channel scales, dequantized inside each forward: ``ops/quantize.py``),
 quantized layer by layer as the JAX package does; the caller's model stays
-as it is.
+as it is, and so does the draft.
 
-What waits for later slices raises a ValueError naming ROADMAP.md:
-speculative decoding (``draft``), tensor parallelism (``mesh``,
-``n_model > 1``), and the cluster-prefix and KV-handoff verbs.
+What waits for later slices raises a ValueError naming ROADMAP.md: tensor
+parallelism (``mesh``, ``n_model > 1``) and the cluster-prefix and
+KV-handoff verbs.
 """
 from __future__ import annotations
 
@@ -45,10 +61,18 @@ from idunno_tpu_torch.engine.kv_blocks import concat_kv_prefix
 from idunno_tpu_torch.models.transformer import (KV_LEAF_KEYS, TransformerLM,
                                                  decode_apply)
 from idunno_tpu_torch.ops.paged_attention import (PagedContext,
+                                                  paged_attention_kernel,
                                                   resolve_paged_kernel)
 from idunno_tpu_torch.ops.quantize import quantize_tree
-from idunno_tpu_torch.ops.sampling import (categorical, fused_decode_tail,
+from idunno_tpu_torch.ops.sampling import (categorical, draw_sampled,
+                                           filter_on, filtered_probs,
+                                           fused_decode_tail,
                                            masked_sample_logits)
+
+# the launch-counted kernel wrappers a decode dispatch can reach; a replay
+# adds, per wrapper, the launches its capture recorded
+_COUNTED = (paged_attention_kernel,)
+
 
 def _later(what: str, where: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: it comes with {where} "
@@ -107,6 +131,125 @@ def _splice_prefix(cache: dict, prefix_cache: dict) -> dict:
             src = prefix_cache[name]
             cache[name][:, :, :src.shape[2]] = src
     return cache
+
+
+def resolve_decode_graph(kind: str, device: torch.device) -> str:
+    """``auto`` → ``graph`` on a CUDA device, ``eager`` elsewhere;
+    ``graph`` anywhere but on a CUDA device raises."""
+    if kind not in ("auto", "graph", "eager"):
+        raise ValueError(f"decode_graph must be auto|graph|eager, got {kind!r}")
+    if kind == "auto":
+        return "graph" if device.type == "cuda" else "eager"
+    if kind == "graph" and device.type != "cuda":
+        raise ValueError(f"decode_graph='graph' replays CUDA graphs and needs "
+                         f"a CUDA device, got {device}")
+    return kind
+
+
+def _insert_cache(cache: dict, row_cache: dict, slot: int) -> dict:
+    """Cache-only splice of a batch-1 row cache into slot ``slot`` of the
+    pool's cache, in place (the draft's prompt prefill; the target's
+    insert writes the tokens as well)."""
+    for name, leaf in cache.items():
+        src = row_cache[name]
+        leaf[:, slot, :src.shape[2]] = src[:, 0]
+    return cache
+
+
+def _fill_cand(proposals: torch.Tensor, bonus: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+    """[S, γ+1] candidate tokens from [S, γ] proposals: positions < acc
+    keep the (accepted) proposal, position acc carries the bonus token,
+    the rest are zero padding (never committed)."""
+    s, gamma = proposals.shape
+    jidx = torch.arange(gamma + 1, device=proposals.device)[None, :]
+    props_pad = torch.cat([proposals, proposals.new_zeros((s, 1))], dim=1)
+    return torch.where(jidx < acc[:, None], props_pad,
+                       torch.where(jidx == acc[:, None],
+                                   bonus[:, None].to(proposals.dtype),
+                                   torch.zeros_like(props_pad)))
+
+
+def greedy_commit(proposals: torch.Tensor, tpred: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy-lane speculative commit: accept the longest prefix where the
+    proposal equals the target argmax; bonus = the target argmax at the
+    first miss. The committed stream is exactly the target's own greedy
+    sequence. ONE definition shared by `spec_commit` (its greedy lane) and
+    the all-greedy round of `DecodeServer`, so the two cannot drift."""
+    gamma = proposals.shape[1]
+    ok = proposals == tpred[:, :gamma]                       # [S, γ]
+    acc = torch.cumprod(ok.to(torch.int64), dim=1).sum(dim=1)
+    bonus = torch.gather(tpred, 1, acc[:, None])[:, 0]
+    return _fill_cand(proposals, bonus, acc), acc
+
+
+def spec_commit(proposals: torch.Tensor, qdist: torch.Tensor,
+                pdist: torch.Tensor, tpred: torch.Tensor,
+                sampled: torch.Tensor, u: torch.Tensor,
+                resid_gens) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative-decoding acceptance + commit math, standalone so its
+    distribution guarantee is testable without a model.
+
+    Greedy rows (``sampled[r]`` False): `greedy_commit` — the committed
+    stream is exactly the target's greedy sequence.
+
+    Sampled rows: speculative SAMPLING (Leviathan et al. 2023 / Chen et
+    al. 2023): proposal j is accepted iff ``u_j < p_j(x_j) / q_j(x_j)``;
+    at the first rejection the bonus draws from the residual
+    ``max(p_j - q_j, 0)`` (normalized), and when every proposal is
+    accepted from the target's ``p_{γ+1}``. The first committed token is
+    then distributed EXACTLY as p (P[token] = q·min(1, p/q) + (1-α)·resid
+    = p). The bonus of row r is drawn from ``resid_gens[r]``, its own
+    ``torch.Generator``, so its bits differ from ``jax.random``'s and the
+    lane is held to that distribution, not to the JAX package's tokens.
+
+    Shapes: proposals [S, γ] int; qdist [S, γ, V] draft probabilities;
+    pdist [S, γ+1, V] target probabilities; tpred [S, γ+1] target argmax;
+    sampled [S] bool; u [S, γ] uniforms; ``resid_gens`` one generator (or
+    None for a greedy row) per row. Returns (cand [S, γ+1] candidate
+    tokens, acc [S] accepted proposal count); callers commit
+    ``cand[:, :acc+1]``."""
+    gamma = proposals.shape[1]
+    cand_g, acc_g = greedy_commit(proposals, tpred)
+
+    # sampled lane: rejection acceptance per position
+    p_at = torch.gather(pdist[:, :gamma], 2, proposals[..., None])[..., 0]
+    q_at = torch.gather(qdist, 2, proposals[..., None])[..., 0]
+    ratio = p_at / torch.clamp_min(q_at, 1e-20)
+    acc_s = torch.cumprod((u < ratio).to(torch.int64), dim=1).sum(dim=1)
+
+    # bonus at the first non-accepted position from the residual; qdist
+    # zero-padded at position γ makes the all-accepted case the same
+    # formula (residual = p_{γ+1} - 0 = the target distribution)
+    q_pad = torch.cat([qdist, torch.zeros_like(qdist[:, :1])], dim=1)
+    at = acc_s[:, None, None].expand(-1, 1, pdist.shape[-1])
+    p_acc = torch.gather(pdist, 1, at)[:, 0]                 # [S, V]
+    q_acc = torch.gather(q_pad, 1, at)[:, 0]
+    resid = torch.clamp_min(p_acc - q_acc, 0.0)
+    mass = resid.sum(dim=1, keepdim=True)
+    # p == q exactly → zero residual, but then rejection has probability
+    # 0 under exact arithmetic; guard round-off by falling back to p
+    resid = torch.where(mass > 1e-12, resid, p_acc)
+    rows = [int(r) for r in torch.nonzero(sampled)[:, 0].tolist()]
+    bonus_s = torch.zeros_like(acc_s)
+    if rows:
+        bonus_s[rows] = draw_sampled(resid[rows], [resid_gens[r] for r in rows])
+    cand_s = _fill_cand(proposals, bonus_s, acc_s)
+
+    acc = torch.where(sampled, acc_s, acc_g)
+    cand = torch.where(sampled[:, None], cand_s, cand_g)
+    return cand, acc
+
+
+@dataclass
+class _Replay:
+    """One captured dispatch: the graph, the launches its capture recorded
+    per counted wrapper, and the bytes of its private memory pool."""
+
+    graph: torch.cuda.CUDAGraph
+    launches: dict
+    pool_bytes: int
 
 
 def _make_paged_ctx(pages: dict, tables: torch.Tensor,
@@ -204,8 +347,21 @@ class DecodeServer:
     prompts are padded to the smallest ``prompt_buckets`` entry covering
     them (true lengths tracked exactly). Greedy requests match
     `engine.generate.generate(temperature=0)` token for token; sampled
-    requests draw per-request seeded streams. The model is moved to
-    ``device`` (the card unless ``device="cpu"``; no card raises).
+    requests draw per-request seeded streams (on speculative pools the
+    rejection scheme keeps them distribution-exact against the target).
+    The model is moved to ``device`` (the card unless ``device="cpu"``;
+    no card raises).
+
+    ``draft=(draft_model, None)`` makes the pool speculative: the JAX
+    package's ``(model, params)`` tuple becomes the draft ``nn.Module``,
+    which carries its own weights, and ``None`` where the params stood.
+    The draft proposes ``draft_len`` tokens a round and keeps its own
+    contiguous per-row cache (on a paged pool only the target attends
+    through the block table); it is not quantized by ``quantize``.
+
+    ``decode_graph`` is ``auto`` (``graph`` on CUDA, ``eager`` on the
+    CPU), ``graph`` (replay each all-greedy dispatch as one captured CUDA
+    graph; a failed capture raises) or ``eager``.
 
     Usage::
 
@@ -219,17 +375,13 @@ class DecodeServer:
     def __init__(self, model: TransformerLM, *, slots: int, prompt_len: int,
                  max_len: int, decode_steps: int = 1, quantize: str = "none",
                  eos_id: int | None = None, mesh=None, n_model: int = 1,
-                 draft: tuple | None = None,
+                 draft: tuple | None = None, draft_len: int = 4,
                  prompt_buckets: tuple[int, ...] | None = None,
                  track_logprobs: bool = False, penalties: bool = False,
                  prefix: list[int] | None = None, kv_block_size: int = 0,
                  kv_cache_blocks: int = 0, paged_kernel: str | None = None,
-                 prefill_chunk: int = 0,
+                 prefill_chunk: int = 0, decode_graph: str = "auto",
                  device: torch.device | str | None = None) -> None:
-        if draft is not None:
-            raise _later("speculative decoding (draft=, greedy_commit, "
-                         "spec_commit)", "the LM serving queue, modules "
-                         "item 8")
         if mesh is not None or int(n_model) > 1:
             raise _later("tensor parallelism (mesh=, n_model > 1)",
                          "the parallelism slice, modules item 10")
@@ -260,6 +412,7 @@ class DecodeServer:
         if paged_kernel is not None and not self.kv_block_size:
             raise ValueError("paged_kernel needs kv_block_size > 0")
         self.device = resolve_device(device)
+        self.decode_graph = resolve_decode_graph(decode_graph, self.device)
         self.paged_kernel = (None if paged_kernel is None else
                              resolve_paged_kernel(paged_kernel, self.device))
         self._paged = paged_kernel is not None
@@ -287,6 +440,33 @@ class DecodeServer:
                 raise ValueError(
                     f"prefix of {len(self.prefix)} + prompt bucket "
                     f"{max(self.prompt_buckets)} exceeds max_len {max_len}")
+        if draft is not None:
+            # decode_steps on a speculative pool = draft+verify ROUNDS a
+            # dispatch (each commits 1..draft_len+1 tokens per row)
+            if draft_len < 1:
+                raise ValueError(f"draft_len {draft_len} must be >= 1")
+            if draft[1] is not None:
+                raise ValueError("the draft carries its weights in its "
+                                 "module: pass draft=(model, None)")
+            if not draft[0].causal:
+                raise ValueError("the draft model must be causal")
+            if draft[0].vocab != model.vocab:
+                raise ValueError(
+                    f"draft vocab {draft[0].vocab} != target {model.vocab}")
+            if getattr(model, "ffn_factory", None) is not None:
+                # routed-FFN logits depend on the batch composition, so a
+                # γ+1 verify chunk is not equivalent to per-token decode
+                raise ValueError(
+                    "speculative decoding requires a dense target "
+                    "(routed-FFN logits are batch-composition-dependent, "
+                    "so chunked verification is not equivalent to "
+                    "per-token decode)")
+            if penalties:
+                # a verify chunk's later positions would need counts that
+                # include tokens committed earlier in the same chunk
+                raise ValueError(
+                    "penalties are not supported on speculative pools "
+                    "(count-dependent logits break the parallel verify)")
         self.quantize = quantize
         self.track_logprobs = bool(track_logprobs)
         self.penalties = bool(penalties)
@@ -301,6 +481,16 @@ class DecodeServer:
         self.max_len = max_len
         self.decode_steps = decode_steps
         self.eos_id = eos_id
+        self.draft_len = draft_len
+        self._draft_model = self._draft_cache = None
+        self._draft_prefix_cache = None
+        if draft is not None:
+            self._draft_model = draft[0].to(self.device).eval()
+            self._draft_cache = init_cache(self._draft_model, slots, max_len)
+        # the captured all-greedy dispatch (graph pools), made at the first
+        # such dispatch; replayed and eager dispatch counts
+        self._replay: _Replay | None = None
+        self._dispatch_counts = {"replayed": 0, "eager": 0}
 
         dev = self.device
         i64 = torch.int64
@@ -356,6 +546,9 @@ class DecodeServer:
             pl = len(self.prefix)
             with torch.no_grad():
                 self._prefix_cache, _ = _prefill(self.model, pf, pl, pl)
+                if self._draft_model is not None:
+                    self._draft_prefix_cache, _ = _prefill(
+                        self._draft_model, pf, pl, pl)
 
         if self.kv_block_size:
             from idunno_tpu_torch.engine.kv_blocks import KVBlockPool
@@ -384,11 +577,16 @@ class DecodeServer:
         if len(tokens) > self.prompt_len:
             raise ValueError(f"prompt of {len(tokens)} tokens exceeds the "
                              f"prompt_len bucket {self.prompt_len}")
+        # a verify chunk may overshoot the last token
+        headroom = (self.draft_len + 1 if self._draft_model is not None
+                    else 0)
         pl = len(self.prefix) if self.prefix else 0
-        if pl + len(tokens) + max_new > self.max_len:
+        if pl + len(tokens) + max_new + headroom > self.max_len:
             raise ValueError(
                 (f"{pl} prefix + " if pl else "")
                 + f"{len(tokens)} prompt + {max_new} new"
+                + (f" + {headroom} speculative headroom" if headroom
+                   else "")
                 + f" > max_len {self.max_len}")
         if max_new < 1:
             raise ValueError("max_new must be >= 1")
@@ -512,6 +710,9 @@ class DecodeServer:
             "prefix_len": len(self.prefix) if self.prefix else 0,
             "decode_steps": self.decode_steps,
             "prompt_len": self.prompt_len, "max_len": self.max_len,
+            "speculative_draft_len": (self.draft_len
+                                      if self._draft_model is not None
+                                      else None),
             "kv_block_size": self.kv_block_size,
             "paged_kernel": self.paged_kernel,
             "prefill_chunk": self.prefill_chunk,
@@ -525,6 +726,20 @@ class DecodeServer:
         if self._radix is not None:
             out["prefix_cache"] = self.prefix_cache_stats()
         return out
+
+    def graph_stats(self) -> dict:
+        """How dispatches ran (outside `stats()`, whose keys are the JAX
+        package's): ``replayed`` (one CUDA-graph replay each) and
+        ``eager`` counts, the resolved ``decode_graph`` mode, the
+        captured graph's private memory pool in bytes and the kernel
+        launches one replay makes (by wrapper name; 0 and {} before a
+        capture)."""
+        r = self._replay
+        return dict(self._dispatch_counts, mode=self.decode_graph,
+                    graph_pool_bytes=r.pool_bytes if r else 0,
+                    launches_per_replay=({fn.__name__: n for fn, n
+                                          in r.launches.items()}
+                                         if r else {}))
 
     def prefix_cache_stats(self) -> dict:
         """Radix prefix-cache gauges (kv_block_size pools): hit rate over
@@ -548,7 +763,7 @@ class DecodeServer:
 
     def _cluster_not_ported(self, *args, **kwargs):
         raise _later("the cluster prefix cache and the KV handoff",
-                     "the LM serving queue, modules item 8")
+                     "the control plane, modules items 7-8")
 
     prefix_probe = prefix_warm = prefix_publish = _cluster_not_ported
     handoff_probe = handoff_export = handoff_adopt = _cluster_not_ported
@@ -801,8 +1016,23 @@ class DecodeServer:
         # insert: prompt tokens, the first generated token, the row cache
         self._tokens[slot, :bucket] = torch.from_numpy(prompt).to(dev)
         self._tokens[slot, true_len] = first
-        for name, leaf in self._cache.items():
-            leaf[:, slot, :bucket] = row_cache[name][:, 0]
+        _insert_cache(self._cache, row_cache, slot)
+        if self._draft_model is not None:
+            # the draft needs the FULL request prompt through its own
+            # weights (a radix hit only covers the target's cache)
+            dbucket = next(b for b in self.prompt_buckets
+                           if b >= suffix_true)
+            dsuffix = torch.zeros((1, dbucket), dtype=torch.int64)
+            dsuffix[0, :suffix_true] = torch.tensor(per_req)
+            dsuffix = dsuffix.to(dev)
+            if self.prefix:
+                drow, _ = _prefill_suffix(
+                    self._draft_model, self._draft_prefix_cache, dsuffix,
+                    suffix_true, pl, dbucket)
+            else:
+                drow, _ = _prefill(self._draft_model, dsuffix, suffix_true,
+                                   dbucket)
+            _insert_cache(self._draft_cache, drow, slot)
         self._cursors[slot] = true_len
         self._temps[slot] = req.temperature
         self._top_ps[slot] = req.top_p
@@ -846,7 +1076,8 @@ class DecodeServer:
                  if req.stop}
         if not stops:
             return
-        bound = self.decode_steps
+        bound = self.decode_steps * (
+            self.draft_len + 1 if self._draft_model is not None else 1)
         cursors = self._remaining_cursors()[1]
         for slot, seqs in stops.items():
             gen_start = len(self._live[slot].tokens)
@@ -870,30 +1101,181 @@ class DecodeServer:
             self._rc_invalidate()
 
     def _decode(self) -> None:
-        """``decode_steps`` model steps for all slots, state updated in
-        place. The sampling machinery runs only for live rows that sample
-        (known on the host), each from its own generator."""
+        """One decode dispatch: ``decode_steps`` model steps (speculative
+        pools: rounds) for all slots, the state updated in place. On a
+        graph pool a dispatch in which no live row samples replays the
+        captured graph; the first such dispatch runs eagerly on a side
+        stream (building the kernels) and is then captured. A dispatch in
+        which a live row samples runs eagerly, each sampled row drawing
+        from its own generator."""
+        sampled = sorted(s for s, r in self._live.items()
+                         if r.temperature > 0.0)
+        if self.decode_graph == "graph" and not sampled:
+            if self._replay is not None:
+                self._replay.graph.replay()
+                for fn, n in self._replay.launches.items():
+                    fn.launches += n
+                self._dispatch_counts["replayed"] += 1
+                return
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._dispatch(())
+            cur.wait_stream(side)
+            self._replay = self._capture()
+        else:
+            self._dispatch(sampled)
+        self._dispatch_counts["eager"] += 1
+
+    def _capture(self) -> _Replay:
+        """Record the all-greedy dispatch as one CUDA graph (nothing runs:
+        the state is untouched). The counted wrappers' launches made while
+        recording are taken back and added on each replay instead."""
+        dev = self.device
+        before = {fn: fn.launches for fn in _COUNTED}
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the serving loop's other threads may touch the
+        # card while this one records
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._dispatch(())
+        launches = {}
+        for fn in _COUNTED:
+            launches[fn] = fn.launches - before[fn]
+            fn.launches = before[fn]
+        return _Replay(graph, launches,
+                       torch.cuda.memory_reserved(dev) - reserved)
+
+    def _dispatch(self, sampled: list[int] | tuple) -> None:
+        """The body of one dispatch, eager or being recorded. ``sampled``
+        lists the live rows that sample (empty in a recorded dispatch)."""
         ctx = None
         if self._paged:
             ctx = _make_paged_ctx(self._block_pool.kv_pages(), self._tables,
                                   self._plens, self._pl_static,
                                   self.paged_kernel)
-        sampled = sorted(s for s, r in self._live.items()
-                         if r.temperature > 0.0)
         filtered = any(self._live[s].top_p < 1.0 or self._live[s].top_k > 0
                        for s in sampled)
         for _ in range(self.decode_steps):
+            if self._draft_model is not None:
+                self._spec_round(ctx, sampled, filtered)
+                continue
             tok = self._tokens.gather(1, self._cursors[:, None])
             logits = decode_apply(self.model, self._cache, tok,
                                   self._cursors, paged=ctx)
-            (self._tokens, self._cursors, self._remaining, self._logprobs,
-             self._counts) = fused_decode_tail(
+            _, cursors, remaining, _, _ = fused_decode_tail(
                 logits[:, 0], self._tokens, self._cursors, self._remaining,
                 self._temps, self._top_ps, self._top_ks, self._gens,
                 self._logprobs, self._pres, self._freq, self._counts,
                 max_len=self.max_len, eos_id=self.eos_id,
                 track=self.track_logprobs, pen=self.penalties,
                 sampled=sampled, filtered=filtered)
+            # tokens, logprobs and counts were written in place; the
+            # graph's fixed buffers take the new cursors and budgets
+            self._cursors.copy_(cursors)
+            self._remaining.copy_(remaining)
+
+    def _sample_probs(self, logits: torch.Tensor, rows: list[int],
+                      filtered: bool) -> torch.Tensor:
+        """The sampling distribution of slots ``rows`` from their logits
+        ``[R, n, V]``: temperature-scaled softmax, top-k/top-p filtered
+        where the row asks for it (per row, as the JAX round selects)."""
+        scaled = logits / torch.clamp_min(self._temps[rows], 1e-6)[:, None,
+                                                                   None]
+        probs = torch.softmax(scaled, dim=-1)
+        if not filtered:
+            return probs
+        top_ps, top_ks = self._top_ps[rows][:, None], self._top_ks[rows][:, None]
+        return torch.where(filter_on(top_ps, top_ks)[..., None],
+                           filtered_probs(scaled, top_ps, top_ks), probs)
+
+    def _spec_round(self, ctx: PagedContext | None, sampled: list[int] | tuple,
+                    filtered: bool) -> None:
+        """One speculative round for all slots, in place:
+
+          1. the draft runs ``draft_len`` single-token steps → proposals
+             (greedy rows: argmax; sampled rows: a draw from the draft's
+             temperature-scaled, filtered distribution);
+          2. the target verifies committed-last + all proposals in ONE
+             chunked per-row apply (``draft_len + 1`` positions);
+          3. `greedy_commit` (no live row samples) or `spec_commit`, the
+             EOS cut, and the token and logprob writes.
+
+        Rejected positions leave stale K/V in both caches strictly past
+        the new cursors; they are overwritten when those positions are
+        really ingested. Retired rows idle: their writes land past their
+        final cursor and their state is gated on ``remaining > 0``."""
+        gamma = self.draft_len
+        tokens, cursors, remaining = self._tokens, self._cursors, self._remaining
+        dev = tokens.device
+        active = remaining > 0
+        prev = tokens.gather(1, cursors[:, None])[:, 0]            # [S]
+        gens = [self._gens[r] for r in sampled]
+
+        props, qrows = [], []
+        tok, dcur = prev, cursors
+        for _ in range(gamma):
+            dl = decode_apply(self._draft_model, self._draft_cache,
+                              tok[:, None], dcur)[:, 0]            # [S, V]
+            nxt = torch.argmax(dl, dim=-1)
+            if sampled:
+                q = self._sample_probs(dl[sampled][:, None], sampled,
+                                       filtered)[:, 0]
+                nxt[sampled] = draw_sampled(q, gens)
+                qrows.append(q)
+            props.append(nxt)
+            tok, dcur = nxt, dcur + 1
+        proposals = torch.stack(props, dim=1)                      # [S, γ]
+
+        tin = torch.cat([prev[:, None], proposals], dim=1)         # [S, γ+1]
+        logits = decode_apply(self.model, self._cache, tin, cursors,
+                              paged=ctx)                           # f32
+        tpred = torch.argmax(logits, dim=-1)                       # [S, γ+1]
+
+        if sampled:
+            s, v = logits.shape[0], logits.shape[-1]
+            qdist = logits.new_zeros((s, gamma, v))
+            qdist[sampled] = torch.stack(qrows, dim=1)
+            pdist = logits.new_zeros(logits.shape)
+            pdist[sampled] = self._sample_probs(logits[sampled], sampled,
+                                                filtered)
+            u = logits.new_zeros((s, gamma))
+            u[sampled] = torch.stack([
+                torch.rand(gamma, generator=g, device=dev) for g in gens])
+            mask = torch.zeros(s, dtype=torch.bool, device=dev)
+            mask[sampled] = True
+            cand, acc = spec_commit(proposals, qdist, pdist, tpred, mask, u,
+                                    self._gens)
+        else:
+            cand, acc = greedy_commit(proposals, tpred)
+
+        jidx = torch.arange(gamma + 1, device=dev)[None, :]
+        commit = torch.minimum(acc + 1, remaining)        # ≥ 1 when active
+        if self.eos_id is not None:
+            hit = (cand == self.eos_id) & (jidx < commit[:, None])
+            any_eos = hit.any(dim=1)
+            eos_pos = hit.to(torch.int8).argmax(dim=1)
+            commit = torch.where(any_eos, eos_pos + 1, commit)
+            rem_after = torch.where(any_eos, torch.zeros_like(remaining),
+                                    remaining - commit)
+        else:
+            rem_after = remaining - commit
+        wpos = torch.clamp(cursors[:, None] + 1 + jidx, 0, self.max_len - 1)
+        keep = (jidx < commit[:, None]) & active[:, None]
+        tokens.scatter_(1, wpos, torch.where(keep, cand.to(tokens.dtype),
+                                             tokens.gather(1, wpos)))
+        if self.track_logprobs:
+            # the RAW model distribution, as the plain decode tail reports
+            shifted = logits - logits.amax(dim=-1, keepdim=True)
+            lse = torch.log(torch.exp(shifted).sum(dim=-1))
+            lp = torch.gather(shifted, 2, cand[..., None])[..., 0] - lse
+            self._logprobs.scatter_(1, wpos, torch.where(
+                keep, lp, self._logprobs.gather(1, wpos)))
+        self._cursors.copy_(torch.where(active, cursors + commit, cursors))
+        self._remaining.copy_(torch.where(active, rem_after, remaining))
 
     @torch.no_grad()
     def step(self) -> int:
@@ -948,9 +1330,11 @@ class DecodeServer:
         if self._queue or self._live:
             raise RuntimeError("warmup() needs an idle pool")
         toks = [t % self.model.vocab for t in (1, 2, 3)][:self.prompt_len]
+        headroom = (self.draft_len + 1 if self._draft_model is not None
+                    else 0)
         pl = len(self.prefix) if self.prefix else 0
         max_new = max(1, min(self.decode_steps + 1,
-                             self.max_len - pl - len(toks)))
+                             self.max_len - pl - len(toks) - headroom))
         t0 = time.perf_counter()
         self.submit(toks, max_new=max_new)
         self.run_until_drained()

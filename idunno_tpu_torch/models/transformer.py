@@ -97,6 +97,23 @@ def make_attn_fn(kind: str = "auto", *, mesh=None, axis: str = "data",
                      "want auto|full|flash|ring|ulysses")
 
 
+_FREQS: dict = {}
+
+
+def _rope_freqs(half: int, base: float, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies ``base^(-i/half)``, made once per (half,
+    base, device) and kept: made from a host scalar, they would copy it to
+    the card on every call, which a CUDA-graph capture refuses."""
+    key = (half, base, device)
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        freqs = torch.pow(
+            torch.tensor(base, dtype=torch.float32, device=device),
+            -torch.arange(0, half, dtype=torch.float32, device=device) / half)
+        _FREQS[key] = freqs
+    return freqs
+
+
 def rope(x: torch.Tensor, *, base: float = 10000.0,
          positions: torch.Tensor | None = None) -> torch.Tensor:
     """Rotary embedding over [B, T, H, D] rotating halves; ``positions``
@@ -104,9 +121,7 @@ def rope(x: torch.Tensor, *, base: float = 10000.0,
     [B, T] (per-row positions, continuous-batching decode)."""
     b, t, h, d = x.shape
     half = d // 2
-    freqs = torch.pow(
-        torch.tensor(base, dtype=torch.float32, device=x.device),
-        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    freqs = _rope_freqs(half, base, x.device)
     if positions is None:
         positions = torch.arange(t, dtype=torch.float32, device=x.device)
     angles = positions.to(torch.float32)[..., None] * freqs   # [..., half]

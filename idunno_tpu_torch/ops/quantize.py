@@ -59,9 +59,15 @@ class QTensor:
         return self.q.shape
 
     def dequantize(self, dtype: torch.dtype | None = None) -> torch.Tensor:
-        """``q * scale`` in f32, cast to ``dtype`` when given."""
-        w = (self.q.view(self.view).float() * self.scale).view(self.q.shape)
-        return w if dtype is None else w.to(dtype)
+        """``q * scale`` in f32, cast to ``dtype`` when given. One kernel
+        that computes in f32 and rounds on the store, bit-equal to
+        ``(q.float() * scale).to(dtype)`` but with no f32 temporaries: the
+        only allocation is the ``dtype`` result (a captured decode
+        dispatch's graph pool holds the largest one)."""
+        out = torch.empty(self.view, dtype=dtype or torch.float32,
+                          device=self.q.device)
+        torch.mul(self.q.view(self.view), self.scale, out=out)
+        return out.view(self.q.shape)
 
 
 def quantize_leaf(w: torch.Tensor, view: tuple[int, ...] | None = None,

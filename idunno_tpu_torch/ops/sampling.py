@@ -10,10 +10,10 @@ identically. Two forms of it:
   from exact bit-bisection over f32 patterns, so the whole tail is
   elementwise ops + per-row reductions, and the mask is the JAX package's
   on identical logits.
-- `filtered_probs`: the sort-based normalized distribution, the
-  reference the keep mask is held to. (The JAX package's
-  `nucleus_probs`/`safe_log` serve speculative verification and come
-  with it.)
+- `filtered_probs`/`nucleus_probs`: the sort-based normalized
+  distribution, the reference the keep mask is held to, and what
+  speculative verification (`engine.serve_lm.spec_commit`) compares:
+  its contract is distribution-exact, so it needs actual probabilities.
 
 Randomness: JAX's per-row ``[slots, 2]`` keys become one
 ``torch.Generator`` per row, and a draw is the Gumbel-max construction
@@ -27,6 +27,18 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import torch
+
+
+def nucleus_probs(scaled_logits: torch.Tensor,
+                  top_p: torch.Tensor) -> torch.Tensor:
+    """Temperature-scaled logits → nucleus-filtered, renormalized
+    probabilities over the LAST axis (``top_p`` broadcasts over the
+    leading shape): `filtered_probs` with top-k off, so the nucleus cut
+    has one definition (the JAX package's ``_nucleus_on_probs`` is the
+    same cut over the unnormalized cumulative sum)."""
+    return filtered_probs(scaled_logits, top_p,
+                          torch.zeros(top_p.shape, dtype=torch.int64,
+                                      device=top_p.device))
 
 
 def filtered_probs(scaled_logits: torch.Tensor, top_p: torch.Tensor,
@@ -125,6 +137,13 @@ def masked_sample_logits(scaled: torch.Tensor, top_p: torch.Tensor,
                        torch.full_like(scaled, float("-inf")))
 
 
+def safe_log(probs: torch.Tensor) -> torch.Tensor:
+    """log with EXACT -inf outside the support: a filtered-out token has
+    probability zero, not e^-87."""
+    return torch.where(probs > 0.0, torch.log(torch.clamp_min(probs, 1e-38)),
+                       torch.full_like(probs, float("-inf")))
+
+
 def categorical(logits: torch.Tensor,
                 generator: torch.Generator | None) -> torch.Tensor:
     """One draw per row of ``logits [..., V]`` (int64 [...]) by Gumbel-max
@@ -134,6 +153,18 @@ def categorical(logits: torch.Tensor,
     tiny = torch.finfo(torch.float32).tiny
     gumbel = -torch.log(-torch.log(torch.clamp_min(u, tiny)))
     return torch.argmax(logits.float() + gumbel, dim=-1)
+
+
+def draw_sampled(probs: torch.Tensor,
+                 generators: Sequence) -> torch.Tensor:
+    """One draw per row of the probability rows ``probs [R, V]``, row i
+    from its own ``generators[i]`` (int64 [R]): a Gumbel-max draw over
+    ``safe_log(probs)``, so a zero-probability token is never drawn. The
+    speculative round's draft draws and residual bonus draws; each row's
+    stream depends on its own generator alone."""
+    logp = safe_log(probs)
+    return torch.stack([categorical(logp[i], g)
+                        for i, g in enumerate(generators)])
 
 
 def fused_decode_tail(l_raw: torch.Tensor, tokens: torch.Tensor,

@@ -158,11 +158,15 @@ def _paged_inputs(device, *, b, t, kvh, g, d, n, bs, c, page_dtype, seed,
 # positions, GQA group 2) and chains of up to 9 blocks (more than the
 # kernel's 4 warps); at head_dim 32 the default-size model's decode shape
 # (4 kv-heads), GQA chains of up to 9 blocks, and blocks of 2 tokens (an
-# int8 pass of 16 tokens then covers a block 8 times over); each with
-# f32, bf16 and int8 pages
+# int8 pass of 16 tokens then covers a block 8 times over); the
+# speculative verify of draft_len 4 (16 rows x 5 query positions, a CTA's
+# 4-row tile then holds a row's last position alone) at both head dims;
+# each with f32, bf16 and int8 pages
 @pytest.mark.gpu
 @pytest.mark.parametrize("dims", [
     dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=16, c=3),
+    dict(b=16, t=5, kvh=16, g=1, d=64, n=68, bs=16, c=3),
+    dict(b=16, t=5, kvh=4, g=1, d=32, n=68, bs=16, c=3),
     dict(b=1, t=64, kvh=8, g=2, d=64, n=20, bs=16, c=3),
     dict(b=4, t=1, kvh=4, g=2, d=64, n=40, bs=16, c=9),
     dict(b=16, t=1, kvh=4, g=1, d=32, n=68, bs=16, c=3),
@@ -390,3 +394,133 @@ def test_flash_autograd_on_card_matches_plain_backward(cuda_device, causal):
                                     causal=causal)
     for leaf, want in zip(leaves, ref):
         _assert_grad_close(leaf.grad, want)
+
+
+# -- the decode dispatch replayed as one CUDA graph ---------------------------
+
+def _small_lm(device, *, dim, heads, seed):
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.transformer import TransformerLM
+    with torch.device(device):
+        model = TransformerLM(vocab=257, dim=dim, depth=2, num_heads=heads)
+    init_like_flax(model, torch.Generator(device=device).manual_seed(seed))
+    return model.eval().requires_grad_(False)
+
+
+# dense weights on a contiguous pool, int8 weights, the paged radix pool
+# (K3), and a speculative paged pool (K3 at the verify shape); head_dim 32
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "int8", "paged", "speculative"])
+def test_replayed_pool_matches_eager_pool(cuda_device, kind):
+    """A ``decode_graph="graph"`` pool gives the greedy streams of an
+    ``"eager"`` one, replays its dispatches after the first, and its K3
+    count grows by the launches the capture recorded for each replay."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _small_lm(cuda_device, dim=128, heads=4, seed=3)
+    rng = np.random.default_rng(4)
+    head = [int(t) for t in rng.integers(1, 257, 12)]
+    prompts = [head + [int(t) for t in rng.integers(1, 257, 4)]
+               for _ in range(6)]
+    kw = dict(slots=4, prompt_len=16, max_len=64, decode_steps=4,
+              device="cuda")
+    if kind != "dense":
+        kw.update(kv_block_size=4, paged_kernel="kernel",
+                  prompt_buckets=(4, 8, 16))
+    if kind == "int8":
+        kw["quantize"] = "int8"
+    if kind == "speculative":
+        kw.update(draft=(_small_lm(cuda_device, dim=64, heads=2, seed=5),
+                         None), draft_len=4, decode_steps=2)
+    streams, launches = {}, {}
+    for mode in ("graph", "eager"):
+        srv = DecodeServer(model, decode_graph=mode, **kw)
+        torch.cuda.synchronize()
+        before = paged_attention_kernel.launches
+        ids = [srv.submit(p, max_new=20) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        streams[mode] = [done[i] for i in ids]
+        launches[mode] = paged_attention_kernel.launches - before
+        g = srv.graph_stats()
+        assert g["mode"] == mode
+        if mode == "graph":
+            assert g["replayed"] > 0 and g["eager"] == 1
+            assert g["graph_pool_bytes"] > 0
+        else:
+            assert g["replayed"] == 0
+    assert streams["graph"] == streams["eager"]
+    if kind == "dense":
+        assert launches["graph"] == launches["eager"] == 0
+    else:
+        assert launches["graph"] == launches["eager"] > 0
+
+
+@pytest.mark.gpu
+def test_replay_runs_the_k3_launches_it_counts(cuda_device):
+    """One replayed paged dispatch runs on the card, under the profiler,
+    as many K3 kernels as its capture recorded, which is what the server
+    adds to K3's launch count for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    model = _small_lm(cuda_device, dim=128, heads=4, seed=3)
+    rng = np.random.default_rng(6)
+    srv = DecodeServer(model, decode_graph="graph", slots=4, prompt_len=16,
+                       max_len=64, decode_steps=4, kv_block_size=4,
+                       paged_kernel="kernel", prompt_buckets=(4, 8, 16),
+                       device="cuda")
+    for _ in range(4):
+        srv.submit([int(t) for t in rng.integers(1, 257, 16)], max_new=40)
+    srv.step()                 # admissions, the eager dispatch, the capture
+    srv.step()                 # the first replay
+    torch.cuda.synchronize()
+    before = paged_attention_kernel.launches
+    replayed = srv.graph_stats()["replayed"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        srv.step()
+        torch.cuda.synchronize()
+    g = srv.graph_stats()
+    assert g["replayed"] == replayed + 1
+    traced = sum(e.count for e in prof.key_averages()
+                 if "paged_fwd" in e.key)
+    recorded = g["launches_per_replay"]["paged_attention_kernel"]
+    assert traced == paged_attention_kernel.launches - before == recorded > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_int8_dequantize_on_card_is_bit_equal(cuda_device, dtype):
+    """The one-kernel int8 dequantize rounds ``q * scale`` computed in f32,
+    bit for bit as the f32 product cast to the weight's dtype."""
+    from idunno_tpu_torch.ops.quantize import quantize_leaf
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn((384, 4, 64), generator=g, device=cuda_device)
+    qt = quantize_leaf(w.to(dtype))
+    want = (qt.q.view(qt.view).float() * qt.scale).to(dtype)
+    assert torch.equal(qt.dequantize(dtype).view(torch.uint8),
+                       want.view(torch.uint8))
+
+
+# last in the file: it leaves a failed stream capture behind it
+@pytest.mark.gpu
+def test_failed_capture_raises(cuda_device):
+    """A dispatch that syncs the host cannot be recorded: the capture
+    raises instead of running the dispatch eagerly."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    model = _small_lm(cuda_device, dim=64, heads=2, seed=1)
+    srv = DecodeServer(model, slots=2, prompt_len=8, max_len=32,
+                       device="cuda")
+    dispatch = srv._dispatch
+
+    def syncing(sampled):
+        dispatch(sampled)
+        return float(srv._cursors.sum())          # a host read
+
+    srv._dispatch = syncing
+    srv.submit([1, 2, 3], max_new=8)
+    with pytest.raises(RuntimeError):
+        srv.run_until_drained()
+    assert srv.graph_stats()["replayed"] == 0

@@ -235,8 +235,7 @@ def test_warmup_resets_accounting(lm):
 def test_unported_options_raise_naming_the_roadmap(lm):
     _, _, tm = lm
     base = dict(slots=2, prompt_len=8, max_len=24, device="cpu")
-    for extra in (dict(draft=(tm, None)), dict(n_model=2),
-                  dict(mesh=object())):
+    for extra in (dict(n_model=2), dict(mesh=object())):
         with pytest.raises(ValueError, match="ROADMAP"):
             DecodeServer(tm, **base, **extra)
     srv = DecodeServer(tm, kv_block_size=BS, **base)
