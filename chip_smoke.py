@@ -7,7 +7,9 @@ Run from the root of the repository, with no arguments:
 
 It builds the port's CUDA kernels from ``idunno_tpu_torch/csrc/`` with
 ``nvcc`` (all sources at once), holds each against its plain PyTorch
-version, times it, and then drives the port's three main paths:
+version, times it, and then drives the port's main paths, in process and
+then as a cluster of nodes (``python -m idunno_tpu_torch``) driven
+through the control RPC:
 
 - CNN serving: ResNet-18 and AlexNet at full width (224² crops of 256²
   images, engine batch 256, seeded random weights) served by an
@@ -93,16 +95,33 @@ Phases:
    draft) against the plain pool: equal streams; then the default-size
    model (dim 128, 4 heads: head_dim 32) on a ``kernel`` and a
    ``plain`` pool: equal streams, K3 launches > 0;
-10. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+10. the cluster (``cluster``): nodes n0, n1, n2 built as ``python -m
+    idunno_tpu_torch`` builds them (``__main__.build_node``: a
+    ``NetTransport`` on free local ports, engines at batch 256, 224², on
+    the card), driven through ``comm.net.oneshot_call`` only: n0
+    publishes ResNet-18's seeded weights, then ``inference`` verbs
+    (resnet at n2, alexnet at n1, 1,024 images each) run twice, cold and
+    warm: every record comes back, n1 and n2 serve resnet with provenance
+    "store", K1 launches rise; the full-width bf16 LM is ``put`` into the
+    store as a blob file and ``lm_serve``d with phase 8's pool: the 48
+    requests from two client threads through ``lm_submit``/``lm_poll``
+    complete, K3 launches > 0, radix hits, dispatches replayed; tokens/s
+    and TTFT through the RPC beside phases 4 and 8's in-process figures;
+    ``generate`` through the verb equals this process's; the f32 depth-2
+    pool through the verbs equals an in-process pool token for token;
+    then ``python -m idunno_tpu_torch --host n0 --no-shell`` as a
+    subprocess, without ``--cpu``: ``put`` and greedy ``generate`` equal
+    to this process's, the subprocess seen among the card's compute apps;
+11. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
     ten steps on that batch with finite, falling loss, K2, K4 and K5
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-11. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+12. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-12. the last line, ``{"ok": true, "device": {...}}``.
+13. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -112,9 +131,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import random
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 CROP, SIDE, BATCH = 224, 256, 256
@@ -138,6 +162,11 @@ LM_DRAFT_LEN = 4                 # proposals a speculative round
 # the JAX LM bench's draft (``idunno_tpu/utils/lm_bench.py:75-77``)
 LM_DRAFT = {"dim": 256, "depth": 2, "heads": 4}
 BEAM = {"batch": 4, "width": 4, "max_new": 32}
+CLUSTER_HOSTS = ("n0", "n1", "n2")
+CLUSTER_GEN = {"prompts": 4, "max_new": 16}   # the cluster's `generate`
+# the in-process serving figures of phases 4 and 8, printed beside the
+# cluster's figures through the RPC
+IN_PROCESS: dict = {}
 
 
 def say(phase: str, **fields) -> None:
@@ -396,6 +425,7 @@ def phase_serving(engine) -> int:
     say("serving", rounds=rounds, wall_s=wall, images=2 * N_QUERY,
         images_per_s=2 * N_QUERY / wall, preprocess_launches=launches,
         weights=master.weights_provenance())
+    IN_PROCESS["images_per_s"] = 2 * N_QUERY / wall
     return launches
 
 
@@ -816,8 +846,6 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     (``decode_graph="auto"`` on the card) or run eagerly, plain or with a
     ``draft`` model (``LM_DRAFT_LEN`` proposals a round, LM_DECODE_STEPS
     rounds a dispatch); returns K3's launches."""
-    import threading
-
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
     from idunno_tpu_torch.ops.quantize import quantized_bytes
     from idunno_tpu_torch.serve.lm_pool import LMServingLoop
@@ -903,6 +931,12 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     graph = srv.graph_stats()
     if graph["mode"] == "graph" and graph["replayed"] <= 0:
         raise AssertionError(f"no dispatch was replayed: {graph}")
+    if (quantize, draft, decode_graph, n_requests) == ("none", None, "auto",
+                                                      None):
+        IN_PROCESS.update(tokens_per_s=gen / wall,
+                          ttft_p50_s=ttft[len(ttft) // 2],
+                          ttft_p95_s=ttft[min(len(ttft) - 1,
+                                              int(0.95 * len(ttft)))])
     say("lm_serving", card=card, quantize=quantize, requests=len(done),
         decode_graph=graph["mode"],
         speculative_draft_len=srv.stats()["config"]["speculative_draft_len"],
@@ -1809,6 +1843,486 @@ def phase_default_pool(card: str) -> int:
     return launches
 
 
+# -- the cluster: nodes as ``python -m idunno_tpu_torch`` builds them -----
+
+
+def free_port_base(n: int, spread: int = 100) -> int:
+    """A port base such that the TCP and UDP ports of ``n`` local nodes
+    (``__main__.build_addr_of``: ``spread`` apart) are free now."""
+    for base in range(24000 + os.getpid() % 2000, 64000, 777):
+        try:
+            for i in range(n):
+                for off in range(0, 30, 5):
+                    for kind in (socket.SOCK_STREAM, socket.SOCK_DGRAM):
+                        with socket.socket(socket.AF_INET, kind) as s:
+                            s.bind(("127.0.0.1", base + off + spread * i))
+        except OSError:
+            continue
+        return base
+    raise RuntimeError("no free port range")
+
+
+def cluster_json(hosts, base: int) -> dict:
+    """The cluster config as ``--config`` takes it: every host local,
+    its ports ``100 * index`` above ``base``."""
+    return {"hosts": list(hosts), "coordinator": hosts[0],
+            "standby_coordinator": hosts[-1], "introducer": hosts[0],
+            "ports": {"membership": base, "store": base + 5,
+                      "inference": base + 10, "result": base + 15,
+                      "metadata": base + 20, "grep": base + 25},
+            # generous: a node's heartbeat thread shares the GIL with
+            # model loads and serving on the same process
+            "ping_interval_s": 0.3, "failure_timeout_s": 10.0,
+            "replication_factor": min(2, len(hosts)),
+            "query_batch_size": N_QUERY, "query_interval_s": 0.0,
+            "metadata_interval_s": 0.5,
+            "engine": {"batch_size": BATCH, "image_size": CROP,
+                       "resize_size": SIDE}}
+
+
+def control_port(base: int, index: int) -> int:
+    """A node's control RPC: its one TCP listener (the store port)."""
+    return base + 5 + 100 * index
+
+
+def rpc(port: int, verb: str, timeout: float = 120.0, **kw) -> dict:
+    """One control verb over a socket (``comm.net.oneshot_call``); fails
+    on an error reply."""
+    from idunno_tpu_torch.comm.message import Message
+    from idunno_tpu_torch.comm.net import oneshot_call
+    from idunno_tpu_torch.utils.types import MessageType
+
+    out = oneshot_call("127.0.0.1", port, "control",
+                       Message(MessageType.INFERENCE, "chip_smoke",
+                               {"verb": verb, **kw}), timeout=timeout)
+    if out is None or out.type is not MessageType.ACK:
+        raise AssertionError(f"control {verb}: "
+                             f"{None if out is None else out.payload}")
+    return out.payload
+
+
+def wait_converged(port: int, hosts, seconds: float = 120.0,
+                   proc=None) -> dict:
+    """Poll ``status`` until every host is RUNNING in the node's view."""
+    from idunno_tpu_torch.comm.transport import TransportError
+
+    deadline = time.monotonic() + seconds
+    while True:
+        try:
+            st = rpc(port, "status", timeout=5.0)
+            if (sorted(st["members"]) == sorted(hosts)
+                    and set(st["members"].values()) == {"RUNNING"}):
+                return st
+        except (AssertionError, OSError, TransportError):
+            pass                     # boot window: not serving yet
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"node process exited {proc.returncode}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"membership never converged: {hosts}")
+        time.sleep(0.2)
+
+
+def lm_blob(model, path: str) -> str:
+    """``save_lm``'s blob of ``model`` written to a file, for ``put``."""
+    from idunno_tpu_torch.engine.generate import save_lm
+
+    class _File:
+        def put_bytes(self, name, blob):
+            with open(path, "wb") as f:
+                f.write(blob)
+            return 1
+
+    save_lm(_File(), "blob", model)
+    return path
+
+
+def pool_payload(cfg: dict, buckets) -> dict:
+    """Phase 8's pool (``lm_pool_kw``) as ``lm_serve`` keys."""
+    kw = lm_pool_kw(cfg, buckets)
+    kw["prompt_buckets"] = list(kw["prompt_buckets"])
+    return dict(kw, paged_kernel="auto", warmup=True)
+
+
+def serve_via_rpc(port: int, name: str, prompts, max_new: int,
+                  clients: int = 1) -> tuple:
+    """Submit ``prompts`` to pool ``name`` from ``clients`` threads over
+    the RPC and poll until all are done: (completions by id, client
+    submit stamps by id, wall seconds)."""
+    submitted, errors, lock = {}, [], threading.Lock()
+
+    def client(ps):
+        try:
+            for p in ps:
+                t = time.monotonic()
+                rid = rpc(port, "lm_submit", name=name, prompt=p,
+                          max_new=max_new)["id"]
+                with lock:
+                    submitted[rid] = (t, p)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    done = {}
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(prompts[i::clients],))
+               for i in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    deadline = time.monotonic() + 600
+    while len(done) < len(prompts) and not errors:
+        reply = rpc(port, "lm_poll", name=name)
+        errors.extend(reply.get("errors", []))
+        for c in reply["completions"]:
+            done[c["id"]] = c
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{len(done)} of {len(prompts)} done")
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"pool {name}: {errors[:5]}")
+    if sorted(done) != sorted(submitted):
+        raise AssertionError(f"pool {name}: done {sorted(done)}, "
+                             f"submitted {sorted(submitted)}")
+    return done, submitted, wall
+
+
+def cnn_queries(port: dict) -> tuple:
+    """Concurrent ``inference`` verbs, resnet at n2 and alexnet at n1,
+    1,024 images each; polls ``query_done`` at the master, fetches
+    ``results``: (records by model, provenance at the master, wall s)."""
+    qnums = {}
+
+    def submit(host, model):
+        qnums[model] = rpc(port[host], "inference", model=model, start=0,
+                           end=N_QUERY - 1)["qnums"]
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submit, args=hm)
+               for hm in (("n2", "resnet"), ("n1", "alexnet"))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if set(qnums) != {"resnet", "alexnet"}:
+        raise AssertionError(f"inference verbs answered {qnums}")
+    pending = {(m, q) for m, qs in qnums.items() for q in qs}
+    deadline = time.monotonic() + 300
+    while pending:
+        for m, q in sorted(pending):
+            st = rpc(port["n0"], "query_done", model=m, qnum=q)
+            if st["failed"]:
+                raise AssertionError(f"{m} query {q} failed")
+            if st["done"]:
+                pending.discard((m, q))
+        if time.monotonic() > deadline:
+            raise AssertionError(f"queries not done: {pending}")
+        time.sleep(0.02)
+    records, weights = {}, {}
+    for m, qs in qnums.items():
+        for q in qs:
+            res = rpc(port["n0"], "results", model=m, qnum=q)
+            records.setdefault(m, []).extend(res["records"])
+            weights = res["weights"]
+    wall = time.perf_counter() - t0
+    want = {f"test_{i}.JPEG" for i in range(N_QUERY)}
+    for m, recs in records.items():
+        if len(recs) != N_QUERY or {r[0] for r in recs} != want:
+            raise AssertionError(f"{m}: {len(recs)} records of {N_QUERY}")
+        if not all(isinstance(c, str) and math.isfinite(p) and 0.0 <= p <= 1.0
+                   for _, c, p in recs):
+            raise AssertionError(f"{m}: malformed record")
+    return records, weights, wall
+
+
+def cluster_cnn(nodes: dict, port: dict, card: str) -> int:
+    """n0 publishes ResNet-18's seeded weights; the CNN queries run twice
+    through the cluster: cold (each worker's first task loads its models,
+    resnet from the store) and warm (phase 4 warms its engine first).
+    Returns K1's launches in both."""
+    nodes["n0"].engine.load("resnet")
+    version = nodes["n0"].engine.publish_weights("resnet", allow_random=True)
+    zero_launches()
+    cold, _, cold_s = cnn_queries(port)
+    warm, weights, warm_s = cnn_queries(port)
+    launches = read_launches()["preprocess"]
+    # every worker that served resnet, the publisher aside (its seeded
+    # weights ARE the published ones, marked "random"), read it from the
+    # store
+    served = {h: n.engine.weights_provenance("resnet")
+              for h, n in nodes.items()}
+    readers = {h: w for h, w in served.items()
+               if h != "n0" and w != "unknown"}
+    if not readers or set(readers.values()) != {"store"}:
+        raise AssertionError(f"resnet provenance by worker: {served}")
+    if any(sorted(cold[m]) != sorted(warm[m]) for m in cold):
+        raise AssertionError("the warm round's records differ from the "
+                             "cold round's")
+    if launches < 2 * 2 * N_QUERY // BATCH:
+        raise AssertionError(f"K1 launched {launches} times for "
+                             f"{2 * 2 * N_QUERY} images")
+    images = 2 * N_QUERY
+    say("cluster_cnn", card=card, images_a_round=images, cold_wall_s=cold_s,
+        warm_wall_s=warm_s, images_per_s_through_rpc_cold=images / cold_s,
+        images_per_s_through_rpc_warm=images / warm_s,
+        images_per_s_in_process=IN_PROCESS.get("images_per_s"),
+        preprocess_launches=launches, published_version=version,
+        resnet_weights_by_worker=served, weights_at_master=weights)
+    return launches
+
+
+def cluster_lm(nodes: dict, port: dict, cfg: dict, card: str,
+               root: str) -> int:
+    """The full-width bf16 LM through the store and the LM verbs on n0:
+    ``put`` of its blob, ``lm_serve`` of phase 8's pool, the 48
+    shared-prefix requests from two client threads, ``generate`` against
+    the same model in this process; returns K3's launches."""
+    import torch
+
+    from idunno_tpu_torch.engine.generate import generate, lm_store_name
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    model = build_lm(cfg, "bf16", depth=cfg["depth"], seed=0)
+    t0 = time.perf_counter()
+    path = lm_blob(model, os.path.join(root, "lm.blob"))
+    blob_bytes = os.path.getsize(path)
+    rpc(port["n1"], "put", local=path, name=lm_store_name("lm"))
+    put_s = time.perf_counter() - t0
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    t0 = time.perf_counter()
+    rpc(port["n0"], "lm_serve", name="lm", timeout=600.0,
+        **pool_payload(cfg, buckets))
+    serve_s = time.perf_counter() - t0
+    zero_launches()
+    done, submitted, wall = serve_via_rpc(port["n0"], "lm", prompts,
+                                          max_new, clients=2)
+    launches = read_launches()["paged_attention"]
+    stats = rpc(port["n0"], "lm_stats", name="lm")["stats"]
+    want_len = cfg["prompt_len"] + max_new
+    for c in done.values():
+        if (len(c["tokens"]) != want_len or c["cancelled"]
+                or not all(0 <= x < cfg["vocab"] for x in c["tokens"])):
+            raise AssertionError(f"request {c['id']}: {len(c['tokens'])} "
+                                 f"tokens, want {want_len} in the vocab")
+    hits, graph = stats["prefix_cache"]["hits"], stats["decode_graph"]
+    if hits <= 0 or launches <= 0 or (graph["mode"] == "graph"
+                                      and graph["replayed"] <= 0):
+        raise AssertionError(f"radix hits {hits}, K3 launches {launches}, "
+                             f"graph {graph}")
+    ttft_rpc, ttft_server = [], []
+    for rid, (t_submit, _) in submitted.items():
+        spans = {s["name"]: s for s in rpc(port["n0"], "trace", name="lm",
+                                           id=rid)["spans"]}
+        ttft_rpc.append(spans["lm.prefill"]["t_end"] - t_submit)
+        ttft_server.append(spans["lm.prefill"]["t_end"]
+                           - spans["lm.admit"]["t_start"])
+    ttft_rpc.sort()
+    ttft_server.sort()
+    gen = sum(len(c["tokens"]) - c["prompt_len"] for c in done.values())
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    rpc(port["n0"], "lm_stop", name="lm")
+    # greedy `generate` through the verb against this process's model
+    few = prompts[:CLUSTER_GEN["prompts"]]
+    t0 = time.perf_counter()
+    got = rpc(port["n0"], "generate", name="lm", prompt=few,
+              max_new=CLUSTER_GEN["max_new"], timeout=600.0)["tokens"]
+    generate_s = time.perf_counter() - t0
+    ref = generate(model, torch.tensor(few), len(few[0]),
+                   CLUSTER_GEN["max_new"]).tolist()
+    if got != ref:
+        raise AssertionError("generate through the RPC differs from this "
+                             "process's generate of the same model")
+    say("cluster_lm", card=card, requests=len(done), max_new=max_new,
+        blob_bytes=blob_bytes, put_s=put_s, lm_serve_s=serve_s,
+        wall_s=wall, tokens_generated=gen,
+        tokens_per_s_through_rpc=gen / wall,
+        tokens_per_s_in_process=IN_PROCESS.get("tokens_per_s"),
+        ttft_p50_s_through_rpc=pct(ttft_rpc, 0.5),
+        ttft_p95_s_through_rpc=pct(ttft_rpc, 0.95),
+        ttft_p50_s_server_side=pct(ttft_server, 0.5),
+        ttft_p95_s_server_side=pct(ttft_server, 0.95),
+        ttft_p50_s_in_process=IN_PROCESS.get("ttft_p50_s"),
+        ttft_p95_s_in_process=IN_PROCESS.get("ttft_p95_s"),
+        paged_launches=launches, radix_hits=hits,
+        dispatches=stats["dispatches"], decode_graph=graph,
+        generate_prompts=len(few), generate_s=generate_s,
+        generate_equal=True)
+    del model
+    return launches
+
+
+def cluster_exactness(port: dict, cfg: dict, root: str):
+    """Full width, depth 2, f32: the shared-prefix workload through the LM
+    verbs must give the greedy streams of an in-process paged
+    DecodeServer. Returns (the model, its blob file) for the entry-point
+    check."""
+    import torch
+
+    from idunno_tpu_torch.engine.generate import lm_store_name
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_lm(cfg, "f32", depth=2, seed=1)
+    path = lm_blob(model, os.path.join(root, "lm32.blob"))
+    rpc(port["n2"], "put", local=path, name=lm_store_name("lm32"))
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    rpc(port["n0"], "lm_serve", name="lm32", timeout=600.0,
+        **pool_payload(cfg, buckets))
+    done, submitted, _ = serve_via_rpc(port["n0"], "lm32", prompts, max_new)
+    by_prompt = {tuple(p): done[rid]["tokens"]
+                 for rid, (_, p) in submitted.items()}
+    rpc(port["n0"], "lm_stop", name="lm32")
+    ref, hits, graph = serve_streams(model, prompts, max_new,
+                                     paged_kernel="auto",
+                                     **lm_pool_kw(cfg, buckets))
+    hold_equal("cluster_exactness",
+               {"in_process": ref,
+                "via_rpc": [by_prompt[tuple(p)] for p in prompts]},
+               depth=2, dtype="float32", radix_hits_in_process=hits,
+               replayed_in_process=graph["replayed"])
+    return model, path
+
+
+def cluster_entry_point(model, blob: str, cfg: dict, card: str) -> dict:
+    """``python -m idunno_tpu_torch --host n0 --config <one host>
+    --no-shell`` as a subprocess, without ``--cpu``: the f32 depth-2 LM
+    ``put`` from its blob file, greedy ``generate`` through the RPC equal
+    to this process's; the subprocess's pid among the card's compute
+    apps while it serves."""
+    import torch
+
+    from idunno_tpu_torch.engine.generate import generate, lm_store_name
+    from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_node_")
+    base = free_port_base(1)
+    cfg_path = os.path.join(root, "cluster.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cluster_json(("n0",), base), f)
+    err_path = os.path.join(root, "n0.err")
+    port = control_port(base, 0)
+    t0 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "idunno_tpu_torch", "--host", "n0",
+             "--config", cfg_path, "--no-shell",
+             "--data-dir", os.path.join(root, "n0")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        status = wait_converged(port, ("n0",), proc=proc)
+        boot_s = time.perf_counter() - t0
+        if status["device"] != "cuda":
+            raise AssertionError(f"entry point runs on {status['device']}")
+        rpc(port, "put", local=blob, name=lm_store_name("lm32"))
+        few = prefix_bench_workload(cfg, LM_BLOCK)[0][:CLUSTER_GEN["prompts"]]
+        got = rpc(port, "generate", name="lm32", prompt=few,
+                  max_new=CLUSTER_GEN["max_new"], timeout=300.0)["tokens"]
+        apps = compute_apps()
+        ref = generate(model, torch.tensor(few), len(few[0]),
+                       CLUSTER_GEN["max_new"]).tolist()
+        if got != ref:
+            raise AssertionError("the entry point's generate differs from "
+                                 "this process's")
+    except Exception:
+        with open(err_path, "rb") as f:
+            print(f.read()[-4000:].decode(errors="replace"), file=sys.stderr)
+        raise
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    after = compute_apps()
+    for _ in range(20):          # the context goes when the process exits
+        if len(after) < len(apps):
+            break
+        time.sleep(0.5)
+        after = compute_apps()
+    # the subprocess held a context on the card: its pid is among the
+    # compute apps while it serves; where nvidia-smi cannot name pids in
+    # this pid namespace (it then reports others, e.g. 1), the apps it
+    # lists are one more while the subprocess serves than after
+    if str(proc.pid) in apps:
+        seen_by = "pid"
+    elif str(os.getpid()) not in apps and len(apps) == len(after) + 1:
+        seen_by = "count"
+    else:
+        raise AssertionError(f"entry point {proc.pid} not seen on the card: "
+                             f"compute apps {apps} while it served, "
+                             f"{after} after")
+    out = {"boot_s": boot_s, "pid": proc.pid, "compute_apps_serving": apps,
+           "compute_apps_after": after, "seen_on_card_by": seen_by,
+           "exit_code": proc.returncode}
+    say("cluster_entry_point", card=card, device=status["device"],
+        generate_equal=True, **out)
+    return out
+
+
+def compute_apps() -> list[str]:
+    """The pids of the card's compute apps as ``nvidia-smi`` names them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()
+
+
+def phase_cluster(cfg: dict, card: str) -> dict:
+    """Three nodes n0, n1, n2 built as ``python -m idunno_tpu_torch``
+    builds them (``__main__.build_node``: ``NetTransport`` on free local
+    ports, a node each, engines on the card), driven through the control
+    RPC only: CNN queries (K1), the full-width LM pool (K3), the f32
+    exactness pool; then the entry point as a subprocess. Returns the
+    kernels' launches of the CNN queries and the served LM requests."""
+    import torch
+
+    from idunno_tpu_torch.__main__ import build_node, load_config
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    base = free_port_base(len(CLUSTER_HOSTS))
+    cfg_path = os.path.join(root, "cluster.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cluster_json(CLUSTER_HOSTS, base), f)
+    config, addresses, engine_config = load_config(cfg_path)
+    nodes = {h: build_node(h, config, addresses,
+                           data_dir=os.path.join(root, f"{h}-data"),
+                           engine_config=engine_config)
+             for h in CLUSTER_HOSTS}
+    port = {h: control_port(base, i) for i, h in enumerate(CLUSTER_HOSTS)}
+    t0 = time.perf_counter()
+    try:
+        for node in nodes.values():
+            node.start()
+        wait_converged(port["n0"], CLUSTER_HOSTS)
+        say("cluster_boot", nodes=list(CLUSTER_HOSTS),
+            seconds=time.perf_counter() - t0,
+            devices={h: str(n.device) for h, n in nodes.items()})
+        launches = {"preprocess": cluster_cnn(nodes, port, card)}
+        launches["paged_attention"] = cluster_lm(nodes, port, cfg, card,
+                                                 root)
+        torch.cuda.empty_cache()
+        model, blob = cluster_exactness(port, cfg, root)
+    finally:
+        for node in nodes.values():
+            node.stop()
+    try:
+        torch.cuda.empty_cache()
+        cluster_entry_point(model, blob, cfg, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("cluster", card=card, seconds=time.perf_counter() - t0, **launches)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1881,6 +2395,9 @@ def main() -> int:
     phase_lm_exactness(lm_cfg)
     phase_lm_exactness(lm_cfg, quantize="int8")
     phase_spec_exactness(lm_cfg)                              # (a)
+    torch.cuda.empty_cache()
+    for name, n in phase_cluster(lm_cfg, smi).items():
+        launches[name] += n
     torch.cuda.empty_cache()
     launches["paged_attention"] += phase_default_pool(smi)
     train = phase_lm_train(smi)

@@ -22,7 +22,14 @@ imports nothing of it and nothing of JAX. What is here so far:
   ResNet-18 train step, ``TokenDataset`` and the train bench;
 - later slices: int8 weights, the space-to-depth stem, native staging,
   ViT; speculative decoding and beam search, and each all-greedy decode
-  dispatch replayed as one CUDA graph.
+  dispatch replayed as one CUDA graph;
+- slice 8, the cluster node: ``python -m idunno_tpu_torch --host n0``
+  starts a ``Node`` (``serve/node.py``) whose engine and LM pools run on
+  the card: the replicated store, checkpoints and LM blobs in the port's
+  own format, ``store://`` datasets, the control RPC (``serve/control.py``:
+  ``inference``, ``generate``, ``lm_serve``/``lm_submit``/``lm_poll``, ...),
+  failover, the LM pool manager and autoscaler, the log grep and the
+  shell.
 
 Every kernel runs on a CUDA tensor and falls to its plain PyTorch version
 only for a CPU tensor. ROADMAP.md lists what is still to port.
@@ -30,7 +37,8 @@ only for a CPU tensor. ROADMAP.md lists what is still to port.
 Package layout:
     config      — cluster/runtime configuration
     utils       — enums, hash ring, trace spans, the LM and train bench
-    comm        — transports + typed control-plane messages
+    comm        — transports (in-process, real sockets) + typed
+                  control-plane messages
     membership  — join/heartbeat/failure detector
     models      — ResNet / AlexNet, the folded stem, TransformerLM, the
                   weight carry from flax
@@ -38,10 +46,15 @@ Package layout:
                   paged), sampling
     engine      — batched CNN inference, LM generation, the KV block
                   pool, the continuous-batching decode server, the CNN
-                  and LM train steps and the LM token dataset
+                  and LM train steps and the LM token dataset,
+                  checkpoints and datasets in the store
+    store       — the replicated versioned file store (SDFS)
     scheduler   — fair-time multi-job scheduling, task bookkeeping
-    serve       — inference service, metrics, LM serving loop, admission
-                  gateway, radix prefix cache
+    serve       — the node, the control RPC, failover, the LM pool
+                  manager and autoscaler, inference service, metrics, LM
+                  serving loop, admission gateway, radix prefix cache
+    grep        — distributed log grep
+    cli         — the interactive shell
     csrc        — CUDA sources, built with nvcc at first use
 """
 

@@ -2,18 +2,20 @@
 
 A port of ``idunno_tpu/engine/generate.py`` (``decode_model``,
 ``init_cache``, ``generate``, ``beam_search`` with ``gather_beams``,
-``stepwise_logits``). The whole decode — prompt teacher-forcing and
+``stepwise_logits``, and the store verbs ``save_lm``/``load_lm``). The
+whole decode — prompt teacher-forcing and
 generation — runs one token per step through
 ``models/transformer.py:decode_apply`` with the scalar cursor against a
 static-length cache, exactly the step the serving pool runs, so the
 pool's greedy streams can be held against ``generate`` token for token.
-The ``save_lm``/``load_lm`` store verbs wait for the port of the store.
 """
 from __future__ import annotations
 
 import torch
 
+from idunno_tpu_torch.engine.checkpoint import decode_state, encode_state
 from idunno_tpu_torch.models.transformer import TransformerLM, decode_apply
+from idunno_tpu_torch.ops.attention import full_attention
 from idunno_tpu_torch.ops.sampling import categorical, sample_keep_mask
 
 
@@ -188,3 +190,86 @@ def stepwise_logits(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
     outs = [decode_apply(model, cache, tokens[:, i:i + 1], i)[:, 0]
             for i in range(t)]
     return torch.stack(outs, dim=1)
+
+
+# -- LM persistence: a servable (config + weights) unit in the store --------
+#
+# LMs carry their hyperparameters with their weights, so any node can
+# rebuild the module and serve `generate` without out-of-band config. The
+# config fields are the JAX package's (`_LM_CONFIG_FIELDS` plus the two
+# dtypes, by their names); the blob is the port's checkpoint format
+# (`engine/checkpoint.py`: JSON header + state dict) under ``lm.pt/<name>``,
+# one atomic store object, so any historical version pairs its architecture
+# with its own weights. A custom attention is code, not config, and is
+# refused; so is a routed FFN (MoE comes with the parallelism slice).
+
+_LM_CONFIG_FIELDS = ("vocab", "dim", "depth", "num_heads",
+                     "num_kv_heads", "causal", "ffn_every",
+                     "kv_cache_dtype", "remat")
+
+
+def lm_store_name(name: str) -> str:
+    return f"lm.pt/{name}"
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def save_lm(store, name: str, model: TransformerLM) -> int:
+    """Version a TransformerLM (architecture + weights, one atomic object)
+    into the replicated store under ``lm.pt/<name>``; returns the store
+    version. The JAX package's ``save_lm(store, name, model, params)``
+    takes the params apart; the port's model holds its own."""
+    if any(blk.attn.attn_fn is not full_attention for blk in model.blocks):
+        raise ValueError(
+            "save_lm stores models with the default full_attention only "
+            "(a custom attn_fn is code, not serializable config; "
+            "set_attn_fn(full_attention) before saving if it is "
+            "numerically equivalent)")
+    if getattr(model, "ffn_factory", None) is not None:
+        raise ValueError("save_lm stores dense LMs only (a routed FFN is "
+                         "not ported yet: ROADMAP.md)")
+    config = {"vocab": model.vocab, "dim": model.dim, "depth": model.depth,
+              "num_heads": model.num_heads,
+              "num_kv_heads": model.num_kv_heads, "causal": model.causal,
+              "ffn_every": 1, "kv_cache_dtype": model.kv_cache_dtype,
+              "remat": False,
+              "dtype": _dtype_name(model.compute_dtype),
+              "param_dtype": _dtype_name(model.dtype)}
+    return store.put_bytes(lm_store_name(name),
+                           encode_state(model.state_dict(),
+                                        {"lm": config}))
+
+
+def load_lm(store, name: str, version: int | None = None,
+            device: torch.device | str | None = None) -> TransformerLM:
+    """Rebuild a stored LM (latest or one historical version) on
+    ``device`` (the card unless ``device="cpu"``; no card raises), in eval
+    mode with gradients off. Returns the model alone: the JAX package's
+    ``load_lm`` returns ``(model, params)``, but the port's model holds its
+    own weights."""
+    from idunno_tpu_torch.engine.inference import resolve_device
+
+    dev = resolve_device(device)
+    blob, _ = store.get_bytes(lm_store_name(name), version=version)
+    header, state = decode_state(blob)
+    config = header.get("lm")
+    if not isinstance(config, dict):
+        raise ValueError(f"stored object {lm_store_name(name)!r} is not an "
+                         "LM (its header has no 'lm' config)")
+    if config.get("ffn") is not None or int(config.get("ffn_every", 1)) != 1:
+        raise ValueError(f"stored LM {name!r} has a routed FFN, which is "
+                         "not ported yet (ROADMAP.md)")
+    param_dtype = getattr(torch, config["param_dtype"])
+    compute_dtype = getattr(torch, config["dtype"])
+    with torch.device("meta"):
+        model = TransformerLM(
+            vocab=config["vocab"], dim=config["dim"], depth=config["depth"],
+            num_heads=config["num_heads"],
+            num_kv_heads=config["num_kv_heads"], causal=config["causal"],
+            kv_cache_dtype=config["kv_cache_dtype"], dtype=param_dtype,
+            compute_dtype=(None if compute_dtype == param_dtype
+                           else compute_dtype))
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.to(dev).eval().requires_grad_(False)

@@ -73,6 +73,12 @@ from idunno_tpu_torch.ops.sampling import (categorical, draw_sampled,
 # adds, per wrapper, the launches its capture recorded
 _COUNTED = (paged_attention_kernel,)
 
+# the slot default of the serving control plane (`serve/control.py`,
+# `serve/lm_manager.py`), the JAX package's value: the knee of its
+# measured slots-scaling curve on the TPU, not re-measured on a card;
+# callers that want another batch pass `slots` explicitly
+DEFAULT_SLOTS = 16
+
 
 def _later(what: str, where: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: it comes with {where} "
@@ -763,7 +769,7 @@ class DecodeServer:
 
     def _cluster_not_ported(self, *args, **kwargs):
         raise _later("the cluster prefix cache and the KV handoff",
-                     "the control plane, modules items 7-8")
+                     "store/kv_chain.py and serve/cluster_prefix.py")
 
     prefix_probe = prefix_warm = prefix_publish = _cluster_not_ported
     handoff_probe = handoff_export = handoff_adopt = _cluster_not_ported

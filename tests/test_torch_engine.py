@@ -124,7 +124,9 @@ def test_engine_surface(engines):
     assert peng.weights_provenance("resnet") == "random"
     assert peng.weights_provenance("resnet50") == "unknown"
     assert peng.warmup("alexnet") >= 0.0
-    with pytest.raises(NotImplementedError):
+    # a store:// dataset needs the engine's store (tests/test_torch_store.py
+    # serves one through a node's store)
+    with pytest.raises(ValueError, match="store attached"):
         peng.infer("alexnet", 0, 3, dataset_root="store://imagenet")
 
 
