@@ -109,9 +109,29 @@ Phases:
     and TTFT through the RPC beside phases 4 and 8's in-process figures;
     ``generate`` through the verb equals this process's; the f32 depth-2
     pool through the verbs equals an in-process pool token for token;
-    then ``python -m idunno_tpu_torch --host n0 --no-shell`` as a
-    subprocess, without ``--cpu``: ``put`` and greedy ``generate`` equal
-    to this process's, the subprocess seen among the card's compute apps;
+    then (``cluster_kv``, K3) on the same nodes, the stored bf16 LM in
+    pools with the cluster prefix cache and a 512-token bucket: kv1 on n1
+    serves the 48 requests and publishes chains; kv2 on n2 probes them
+    (same namespace, no local and ≥ 3 remote blocks), its first admission
+    prefills one suffix bucket, and the other 47 complete with remote
+    hits; kv3 on n0 warms from the tenant index before any request;
+    ``kv_handoff`` ``ship`` of four 512-token prompts from kv1 to kv2,
+    whose admissions of them prefill one suffix bucket each, with no
+    fallback; blocks, bytes and seconds of each leg, K3 launches > 0; (e)
+    f32 depth 2, for K3 and the plain paged attention: pools fed by remote
+    hits and by adopted handoffs give the greedy streams of pools that
+    prefilled themselves; then (``cluster_train``) a training job of the
+    full-width LM at depth 4 (f32 parameters, bf16 compute, seq 1024 x
+    batch 8, 12 steps, a checkpoint every 4) from a seeded 2M-token corpus
+    in the store: ``train_start`` on n1, ``train_stop`` after its first
+    checkpoint, ``train_start(resume=True)`` on n2 to the end (the loss
+    finite and falling, the LM published), ``generate`` of it through n0
+    equal to this process's; step ms, each checkpoint's bytes and seconds;
+    and a full-depth job, whose 2.62 GB train state is over the store's
+    2 GiB frame, ends in a typed error naming the cap; then ``python -m
+    idunno_tpu_torch --host n0 --no-shell`` as a subprocess, without
+    ``--cpu``: ``put`` and greedy ``generate`` equal to this process's,
+    the subprocess seen among the card's compute apps;
 11. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
@@ -2190,6 +2210,377 @@ def cluster_exactness(port: dict, cfg: dict, root: str):
     return model, path
 
 
+# the cluster KV tier: the served pools add a 512-token bucket for the
+# handoff legs, and blocks for the 512-token chains they ship
+KV_LONG = {"prompts": 4, "len": 512, "max_new": 16}
+KV_POOL_BLOCKS = 256
+
+
+def kv_pool_payload(cfg: dict, buckets) -> dict:
+    """Phase 8's pool (``pool_payload``) of the stored bf16 LM ``lm`` with
+    the cluster prefix cache on, one more prompt bucket for
+    ``KV_LONG["len"]``-token prompts (prompt_len and max_len raised to fit
+    them) and ``KV_POOL_BLOCKS`` KV blocks."""
+    from idunno_tpu_torch.utils.lm_bench import serving_max_new
+
+    spec = pool_payload(cfg, buckets)
+    spec["prompt_buckets"] = sorted(set(spec["prompt_buckets"])
+                                    | {KV_LONG["len"]})
+    spec.update(model="lm", prompt_len=KV_LONG["len"],
+                max_len=max(spec["max_len"],
+                            KV_LONG["len"] + serving_max_new(cfg)),
+                kv_cache_blocks=KV_POOL_BLOCKS,
+                cluster_prefix={"publish_min_hits": 1})
+    return spec
+
+
+def cluster_kv(port: dict, cfg: dict, card: str) -> int:
+    """The cluster KV tier through the RPC on the full-width bf16 LM
+    (``lm``, put by ``cluster_lm``), KV blocks of 16: (a) pool kv1 on n1
+    serves the 48 shared-prefix requests and publishes their chains; (b)
+    pool kv2 on n2 probes them (same namespace, 0 local and ≥ 3 remote
+    blocks), its first admission prefills one suffix bucket, then it
+    serves the other 47 with remote hits; (c) pool kv3 on n0 warms from
+    the tenant index before any request; (d) ``kv_handoff`` ``ship`` of
+    512-token prompts from kv1 to kv2, whose admissions of them then
+    prefill one suffix bucket each, with no fallback. Returns K3's
+    launches over (a)-(d)."""
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    prompts, shared, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    spec = kv_pool_payload(cfg, buckets)
+    suffix_bucket = min(b for b in buckets if b >= cfg["prompt_len"] - shared)
+    out: dict = {"pool": spec}
+    zero_launches()
+    # (a) the publisher
+    t0 = time.perf_counter()
+    rpc(port["n1"], "lm_serve", name="kv1", timeout=600.0, **spec)
+    out["lm_serve_s"] = time.perf_counter() - t0
+    done1, _, wall = serve_via_rpc(port["n1"], "kv1", prompts, max_new,
+                                   clients=2)
+    st1 = rpc(port["n1"], "lm_stats", name="kv1")["stats"]
+    pc1 = st1["prefix_cache"]
+    gen = sum(len(c["tokens"]) - c["prompt_len"] for c in done1.values())
+    out["a"] = {"requests": len(done1), "wall_s": wall,
+                "tokens_per_s": gen / wall, "radix_hits": pc1["hits"],
+                "published_chains": pc1["prefix_published_chains"],
+                "published_blocks": pc1["prefix_published_blocks"],
+                "prefill_tokens": st1["prefill_tokens"]}
+    if pc1["prefix_published_chains"] <= 0:
+        raise AssertionError(f"kv1 published no chain: {pc1}")
+    # (b) the consumer: the same stored LM on another node
+    rpc(port["n2"], "lm_serve", name="kv2", timeout=600.0, **spec)
+    probe1 = rpc(port["n1"], "prefix_probe", name="kv1", tokens=prompts[0])
+    t0 = time.perf_counter()
+    probe2 = rpc(port["n2"], "prefix_probe", name="kv2", tokens=prompts[0])
+    probe_s = time.perf_counter() - t0
+    if (probe2["namespace"] != probe1["namespace"]
+            or probe2["local_blocks"] != 0 or probe2["remote_blocks"] < 3):
+        raise AssertionError(f"kv2 probe {probe2} against kv1's {probe1}")
+    first, _, first_s = serve_via_rpc(port["n2"], "kv2", prompts[:1], max_new)
+    st2 = rpc(port["n2"], "lm_stats", name="kv2")["stats"]
+    first_prefill = st2["prefill_tokens"]
+    if first_prefill != suffix_bucket or \
+            st2["prefix_cache"]["prefix_remote_hits"] != 1:
+        raise AssertionError(
+            f"kv2's first admission prefilled {first_prefill} tokens (want "
+            f"the {suffix_bucket}-token suffix bucket), remote hits "
+            f"{st2['prefix_cache']['prefix_remote_hits']}")
+    rest, _, wall = serve_via_rpc(port["n2"], "kv2", prompts[1:], max_new,
+                                  clients=2)
+    done2 = {**first, **rest}
+    st2 = rpc(port["n2"], "lm_stats", name="kv2")["stats"]
+    pc2 = st2["prefix_cache"]
+    if len(done2) != len(prompts) or pc2["prefix_remote_hits"] <= 0:
+        raise AssertionError(f"kv2: {len(done2)} done, {pc2}")
+    by_prompt1 = {tuple(c["tokens"][:c["prompt_len"]]): c["tokens"]
+                  for c in done1.values()}
+    same = sum(by_prompt1.get(tuple(c["tokens"][:c["prompt_len"]]))
+               == c["tokens"] for c in done2.values())
+    gen = sum(len(c["tokens"]) - c["prompt_len"] for c in rest.values())
+    out["b"] = {"namespace": probe2["namespace"], "probe": probe2,
+                "probe_s": probe_s, "first_request_s": first_s,
+                "first_prefill_tokens": first_prefill,
+                "prompt_len": cfg["prompt_len"],
+                "remote_hits": pc2["prefix_remote_hits"],
+                "fetch_bytes": pc2["prefix_fetch_bytes"],
+                "store_errors": pc2["prefix_store_errors"],
+                "radix_hits": pc2["hits"], "wall_s_47": wall,
+                "tokens_per_s_47": gen / wall,
+                "streams_equal_to_kv1": same, "requests": len(done2)}
+    # (c) warm at spawn from the tenant index
+    rpc(port["n0"], "lm_serve", name="kv3", timeout=600.0, **spec)
+    t0 = time.perf_counter()
+    warm = rpc(port["n0"], "prefix_fetch", name="kv3", tenant="default")
+    out["c"] = dict(warm, seconds=time.perf_counter() - t0)
+    if warm["fetched_blocks"] <= 0:
+        raise AssertionError(f"kv3 warmed nothing: {warm}")
+    # (d) prefill on kv1, ship to kv2, admit there
+    rng = random.Random(11)
+    longs = [[rng.randrange(1, cfg["vocab"]) for _ in range(KV_LONG["len"])]
+             for _ in range(KV_LONG["prompts"])]
+    ships = []
+    for p in longs:
+        t0 = time.perf_counter()
+        shipped = rpc(port["n1"], "kv_handoff", op="ship", name="kv1",
+                      target_host="n2", target_name="kv2", tokens=p,
+                      timeout=600.0)
+        ships.append(dict(shipped, seconds=time.perf_counter() - t0))
+    want = (KV_LONG["len"] - 1) // LM_BLOCK
+    if any(sh["shipped"] != want or sh["target_depth"] != want
+           for sh in ships):
+        raise AssertionError(f"ships {ships}, want {want} blocks each")
+    before = rpc(port["n2"], "lm_stats", name="kv2")["stats"]["prefill_tokens"]
+    done_d, _, _ = serve_via_rpc(port["n2"], "kv2", longs, KV_LONG["max_new"])
+    st2 = rpc(port["n2"], "lm_stats", name="kv2")["stats"]
+    st1 = rpc(port["n1"], "lm_stats", name="kv1")["stats"]
+    d_prefill = st2["prefill_tokens"] - before
+    tail = KV_LONG["len"] - want * LM_BLOCK
+    tail_bucket = min(b for b in spec["prompt_buckets"] if b >= tail)
+    launches = read_launches()["paged_attention"]
+    blocks = sum(sh["shipped"] for sh in ships)
+    nbytes = sum(sh["bytes"] for sh in ships)
+    out["d"] = {"prompts": len(longs), "prompt_len": KV_LONG["len"],
+                "blocks": blocks, "bytes": nbytes,
+                "bytes_per_block": nbytes / blocks,
+                "ship_s": [sh["seconds"] for sh in ships],
+                "ship_mb_per_s": nbytes / sum(sh["seconds"] for sh in ships)
+                / 1e6,
+                "prefill_tokens_after_adopt": d_prefill,
+                "suffix_bucket": tail_bucket,
+                "kv_handoff_requests": st1["kv_handoff_requests"],
+                "kv_handoff_fallbacks": [st1["kv_handoff_fallbacks"],
+                                         st2["kv_handoff_fallbacks"]],
+                "requests": len(done_d)}
+    if d_prefill != len(longs) * tail_bucket:
+        raise AssertionError(f"kv2 prefilled {d_prefill} tokens for "
+                             f"{len(longs)} adopted prompts")
+    if st1["kv_handoff_fallbacks"] or st2["kv_handoff_fallbacks"]:
+        raise AssertionError(f"handoff fallbacks {out['d']}")
+    for name, host in (("kv1", "n1"), ("kv2", "n2"), ("kv3", "n0")):
+        rpc(port[host], "lm_stop", name=name)
+    if launches <= 0:
+        raise AssertionError("K3 launched no time in the cluster KV phase")
+    say("cluster_kv", card=card, paged_launches=launches, **out)
+    return launches
+
+
+def cluster_kv_exactness(nodes: dict, cfg: dict, card: str) -> None:
+    """(e) Full width, depth 2, f32, the shared-prefix workload, for K3
+    (``kernel``) and the plain paged attention: a pool that prefilled
+    itself, a publisher to the store (n0's), a pool fed by remote hits
+    from it (n1's store), and a pool fed by adopted handoffs from it give
+    equal greedy streams; the fed pools hit remotely and prefill only
+    suffixes."""
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.serve.cluster_prefix import ClusterPrefixCache
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_lm(cfg, "f32", depth=2, seed=1)
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    kw = lm_pool_kw(cfg, buckets)
+
+    def run(srv):
+        ids = [srv.submit(p, max_new=max_new) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        return [done[i] for i in ids]
+
+    streams, fed = {}, {}
+    for kernel in ("kernel", "plain"):
+        streams[f"{kernel}/self"], _, _ = serve_streams(
+            model, prompts, max_new, paged_kernel=kernel, **kw)
+        ns = f"chip-smoke-exactness-{kernel}"
+        pub = DecodeServer(model, device="cuda", paged_kernel=kernel, **kw)
+        pub.cluster_prefix = ClusterPrefixCache(nodes["n0"].store, ns,
+                                                LM_BLOCK, publish_min_hits=0)
+        streams[f"{kernel}/publisher"] = run(pub)
+        sub = DecodeServer(model, device="cuda", paged_kernel=kernel, **kw)
+        sub.cluster_prefix = ClusterPrefixCache(nodes["n1"].store, ns,
+                                                LM_BLOCK)
+        streams[f"{kernel}/remote_hit"] = run(sub)
+        dec = DecodeServer(model, device="cuda", paged_kernel=kernel, **kw)
+        adopted = 0
+        for p in prompts:
+            d0 = dec.handoff_probe(p)["depth"]
+            exp = pub.handoff_export(p, from_depth=d0)
+            adopted += dec.handoff_adopt(p, exp["blobs"],
+                                         start_depth=d0)["wrote"]
+        streams[f"{kernel}/adopted"] = run(dec)
+        fed[kernel] = {
+            "remote_hits": sub.prefix_cache_stats()["prefix_remote_hits"],
+            "remote_hit_prefill_tokens": sub.stats()["prefill_tokens"],
+            "adopted_blocks": adopted,
+            "adopted_prefill_tokens": dec.stats()["prefill_tokens"],
+            "self_prefill_tokens": pub.stats()["prefill_tokens"]}
+        del pub, sub, dec
+        torch.cuda.empty_cache()
+    hold_equal("cluster_kv_exactness", streams, card=card, depth=2,
+               dtype="float32", fed=fed)
+    for kernel, f in fed.items():
+        if (f["remote_hits"] <= 0 or f["adopted_blocks"] <= 0
+                or f["adopted_prefill_tokens"] >= f["self_prefill_tokens"]
+                or f["remote_hit_prefill_tokens"]
+                >= f["self_prefill_tokens"]):
+            raise AssertionError(f"{kernel}: pools not fed: {f}")
+    del model
+
+
+# the training job: the LM bench's widths at depth 4 (its f32 train state,
+# 12 B a parameter, stays under the store's 2 GiB frame), f32 parameters
+# and bf16 compute, the train bench's seq and batch
+TRAIN_JOB = {"depth": 4, "seq_len": 1024, "batch_size": 8, "steps": 12,
+             "checkpoint_every": 4, "lr": 1e-3, "corpus_tokens": 2_000_000}
+
+
+def cluster_train(nodes: dict, port: dict, cfg: dict, card: str,
+                  root: str) -> None:
+    """``train_start`` of the full-width LM at depth 4 on n1 from a
+    seeded 2M-token corpus in the store, ``train_stop`` once it has
+    checkpointed, ``train_start(resume=True)`` on n2 to the end, and
+    ``generate`` of the trained LM through n0 equal to this process's
+    ``load_lm`` + ``generate``; then a full-depth job, whose train state is
+    over the store's frame cap, must end in a typed error naming the cap.
+    Step and checkpoint times come from wrappers of the job's step and
+    ``save_train_state`` in this process (the nodes run in it)."""
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.engine import checkpoint, train_lm
+    from idunno_tpu_torch.engine.generate import generate, load_lm
+
+    rng = np.random.default_rng(23)
+    # Zipf-distributed tokens: a corpus whose unigram statistics a few
+    # steps can learn, so a falling loss means the job trained
+    corpus = np.minimum(rng.zipf(1.3, TRAIN_JOB["corpus_tokens"]),
+                        cfg["vocab"] - 1).astype(np.int32)
+    path = os.path.join(root, "corpus.bin")
+    corpus.tofile(path)
+    rpc(port["n0"], "put", local=path, name="corpus/chip")
+    model = {"vocab": cfg["vocab"], "dim": cfg["dim"],
+             "depth": TRAIN_JOB["depth"], "num_heads": cfg["heads"],
+             "dtype": "bfloat16", "param_dtype": "float32"}
+    job = {k: TRAIN_JOB[k] for k in ("seq_len", "batch_size",
+                                     "checkpoint_every", "lr")}
+    steps_ms, saves = [], []
+    real_save, real_make = (checkpoint.save_train_state,
+                            train_lm.make_lm_train_step)
+
+    def timed_save(store, name, state):
+        t0 = time.perf_counter()
+        version = real_save(store, name, state)
+        dt = time.perf_counter() - t0
+        size = next((os.path.getsize(p) for p in (
+            n.store.local._path(checkpoint.train_state_name(name), version)
+            for n in nodes.values()) if os.path.exists(p)), None)
+        saves.append({"job": name, "step": int(state.step),
+                      "version": version, "seconds": dt, "bytes": size})
+        return version
+
+    def timed_make(model_, optimizer, **kw):
+        step = real_make(model_, optimizer, **kw)
+
+        def timed(state, tokens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, tokens)
+            float(metrics["loss"])
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            return metrics
+        return timed
+
+    def wait(host, name, until, seconds):
+        deadline = time.monotonic() + seconds
+        while True:
+            st = rpc(port[host], "train_status", name=name)
+            if until(st):
+                return st
+            if st["error"] and not until(st):
+                raise AssertionError(f"job {name}: {st['error']}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"job {name} after {seconds} s: {st}")
+            time.sleep(0.05)
+
+    checkpoint.save_train_state = timed_save
+    train_lm.make_lm_train_step = timed_make
+    t_job = time.perf_counter()
+    try:
+        rpc(port["n1"], "train_start", name="trained", corpus="corpus/chip",
+            model=model, steps=TRAIN_JOB["steps"], **job)
+        wait("n1", "trained",
+             lambda st: st["checkpoint_version"] is not None, 600)
+        if not rpc(port["n1"], "train_stop", name="trained",
+                   timeout=600.0)["stopped"]:
+            raise AssertionError("train_stop found no job")
+        # the stopped job writes its last checkpoint before it reports
+        stopped = wait("n1", "trained", lambda s: s["stopped"] or s["done"],
+                       600)
+        if not stopped["stopped"]:
+            raise AssertionError(f"the job finished before its stop: "
+                                 f"{stopped}")
+        rpc(port["n2"], "train_start", name="trained", corpus="corpus/chip",
+            model=model, steps=TRAIN_JOB["steps"], resume=True, **job)
+        st = wait("n2", "trained", lambda s: s["done"], 900)
+        job_s = time.perf_counter() - t_job
+    finally:
+        checkpoint.save_train_state = real_save
+        train_lm.make_lm_train_step = real_make
+    if not (st["start_step"] >= TRAIN_JOB["checkpoint_every"]
+            and st["step"] == TRAIN_JOB["steps"]
+            and st["served_version"] is not None
+            and math.isfinite(st["loss"]) and st["loss"] < st["first_loss"]):
+        raise AssertionError(f"resumed job: {st}")
+    few = [[int(t) for t in corpus[i * 64:(i + 1) * 64]]
+           for i in range(CLUSTER_GEN["prompts"])]
+    got = rpc(port["n0"], "generate", name="trained", prompt=few,
+              max_new=CLUSTER_GEN["max_new"], timeout=600.0)["tokens"]
+    trained = load_lm(nodes["n0"].store, "trained")
+    ref = generate(trained, torch.tensor(few), len(few[0]),
+                   CLUSTER_GEN["max_new"]).tolist()
+    if got != ref:
+        raise AssertionError("generate of the trained LM through the RPC "
+                             "differs from this process's")
+    n_params = sum(p.numel() for p in trained.parameters())
+    del trained
+    torch.cuda.empty_cache()
+    steady = sorted(steps_ms[1:])
+    say("cluster_train", card=card, model=model, job=job,
+        reduced={"depth": f"{TRAIN_JOB['depth']} of {cfg['depth']}: the "
+                 "f32 train state (parameters and two Adam moments, 12 B a "
+                 "parameter) must fit one store frame of 2 GiB "
+                 "(comm/net.py:_MAX_FRAME); at full depth it is 2.62 GB"},
+        n_params=n_params, corpus_tokens=TRAIN_JOB["corpus_tokens"],
+        stopped_at=stopped["step"], start_step=st["start_step"],
+        steps=st["step"], first_loss=st["first_loss"], loss=st["loss"],
+        stopped_first_loss=stopped["first_loss"],
+        step_ms=steps_ms, step_ms_median=steady[len(steady) // 2],
+        tokens_per_s=TRAIN_JOB["batch_size"] * TRAIN_JOB["seq_len"]
+        / (steady[len(steady) // 2] / 1e3),
+        checkpoints=saves, job_wall_s=job_s,
+        served_version=st["served_version"], generate_equal=True)
+
+    # the full-depth job fails typed at its first checkpoint, and nothing
+    # hangs: the status names the cap within the timeout
+    full = dict(model, depth=cfg["depth"])
+    t0 = time.perf_counter()
+    rpc(port["n1"], "train_start", name="full_depth", corpus="corpus/chip",
+        model=full, steps=2, **dict(job, checkpoint_every=1))
+    st = wait("n1", "full_depth", lambda s: s["error"] is not None, 600)
+    err_s = time.perf_counter() - t0
+    say("cluster_train_full_depth", card=card, model=full, error=st["error"],
+        step=st["step"], seconds_to_error=err_s, timeout_s=600)
+    if not (st["error"].startswith("ValueError")
+            and "comm/net.py:_MAX_FRAME" in st["error"] and not st["done"]):
+        raise AssertionError(f"full-depth job: {st}")
+    torch.cuda.empty_cache()
+
+
 def cluster_entry_point(model, blob: str, cfg: dict, card: str) -> dict:
     """``python -m idunno_tpu_torch --host n0 --config <one host>
     --no-shell`` as a subprocess, without ``--cpu``: the f32 depth-2 LM
@@ -2311,6 +2702,12 @@ def phase_cluster(cfg: dict, card: str) -> dict:
                                                  root)
         torch.cuda.empty_cache()
         model, blob = cluster_exactness(port, cfg, root)
+        torch.cuda.empty_cache()
+        launches["paged_attention"] += cluster_kv(port, cfg, card)
+        torch.cuda.empty_cache()
+        cluster_kv_exactness(nodes, cfg, card)
+        torch.cuda.empty_cache()
+        cluster_train(nodes, port, cfg, card, root)
     finally:
         for node in nodes.values():
             node.stop()

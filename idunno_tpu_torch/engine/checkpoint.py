@@ -102,3 +102,115 @@ def restore_version(store: FileStoreService, model: str, template: nn.Module,
     blob, _ = store.get_bytes(checkpoint_name(model), version=version)
     template.load_state_dict(decode_state(blob)[1], strict=True)
     return template
+
+
+# -- full training-state checkpoint/resume ---------------------------------
+#
+# Resuming TRAINING needs more than weights: the optimizer's moments and
+# the step counter too, or adam restarts cold and the loss curve jumps. A
+# train-state blob is one ``encode_state`` of the model's state dict (keys
+# ``model/<name>``) and the optimizer's per-parameter state (keys
+# ``opt/<index>/<name>``), with ``step`` and the optimizer's parameter
+# groups in the header, under ``ckpt.pt/train/<job>``; trainers resume
+# bit-exactly on any node holding a replica.
+
+_TRAIN = "train"
+# the store moves a blob as ONE transport frame (`comm/net.py:_MAX_FRAME`);
+# the frame also carries the message's JSON header
+_FRAME_HEADROOM = 1 << 16
+
+
+def train_state_name(job: str) -> str:
+    return checkpoint_name(f"train/{job}")
+
+
+def _frame_cap() -> int:
+    from idunno_tpu_torch.comm import net
+    return net._MAX_FRAME
+
+
+def save_train_state(store: FileStoreService, job: str, state) -> int:
+    """Store a full train state (``engine/train.py:TrainState``: step,
+    model, optimizer); returns the new version. A blob the store's
+    transport cannot carry in one frame raises a ValueError naming its
+    size and the cap, before anything is sent."""
+    flat = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer.state_dict()
+    for idx, entry in opt["state"].items():
+        for k, v in entry.items():
+            if not isinstance(v, torch.Tensor):
+                raise ValueError(f"optimizer state {idx}/{k} is not a "
+                                 f"tensor ({type(v).__name__})")
+            flat[f"opt/{idx}/{k}"] = v
+    groups = [{"n_params": len(g["params"])} for g in opt["param_groups"]]
+    blob = encode_state(flat, {_TRAIN: {"job": job, "step": int(state.step),
+                                        "param_groups": groups}})
+    cap = _frame_cap() - _FRAME_HEADROOM
+    if len(blob) > cap:
+        raise ValueError(
+            f"train state of job {job!r} is {len(blob):,} B, over the "
+            f"{cap:,} B a store object may have (comm/net.py:_MAX_FRAME = "
+            f"{_frame_cap():,} B, less {_FRAME_HEADROOM:,} B of message "
+            "header): the store moves a blob in one frame")
+    return store.put_bytes(train_state_name(job), blob)
+
+
+def restore_train_state(store: FileStoreService, job: str, template):
+    """Load the latest train state into ``template`` (a freshly made
+    ``TrainState`` with the same model and optimizer), in place and
+    strictly: every parameter key and shape, every moment's shape
+    against its parameter and the parameter-group count must match, or
+    ``OptStateLayoutMismatch`` is raised before anything is loaded.
+    Returns (template, version)."""
+    from idunno_tpu_torch.engine.train_job import OptStateLayoutMismatch
+
+    blob, version = store.get_bytes(train_state_name(job))
+    header, flat = decode_state(blob)
+    meta = header.get(_TRAIN)
+    if not isinstance(meta, dict):
+        raise OptStateLayoutMismatch(
+            f"{train_state_name(job)!r} holds no train state (its header "
+            "has no 'train' entry)")
+    model_sd = {k[len("model/"):]: v for k, v in flat.items()
+                if k.startswith("model/")}
+    want = template.model.state_dict()
+    if set(model_sd) != set(want):
+        raise OptStateLayoutMismatch(
+            f"train state keys differ from the model's: missing "
+            f"{sorted(set(want) - set(model_sd))[:5]}, unexpected "
+            f"{sorted(set(model_sd) - set(want))[:5]}")
+    for k, v in want.items():
+        if tuple(model_sd[k].shape) != tuple(v.shape):
+            raise OptStateLayoutMismatch(
+                f"train state {k!r} has shape {tuple(model_sd[k].shape)}, "
+                f"the model {tuple(v.shape)}")
+    tmpl = template.optimizer.state_dict()
+    groups = meta.get("param_groups", [])
+    if len(groups) != len(tmpl["param_groups"]) or any(
+            g.get("n_params") != len(t["params"])
+            for g, t in zip(groups, tmpl["param_groups"])):
+        raise OptStateLayoutMismatch(
+            f"train state has {len(groups)} parameter groups "
+            f"{[g.get('n_params') for g in groups]}, the optimizer "
+            f"{len(tmpl['param_groups'])} "
+            f"{[len(t['params']) for t in tmpl['param_groups']]}")
+    params = [p for g in template.optimizer.param_groups for p in g["params"]]
+    opt_state: dict[int, dict[str, torch.Tensor]] = {}
+    for k, v in flat.items():
+        if not k.startswith("opt/"):
+            continue
+        idx, name = k[len("opt/"):].split("/", 1)
+        i = int(idx)
+        if not 0 <= i < len(params):
+            raise OptStateLayoutMismatch(
+                f"optimizer state for parameter {i} of {len(params)}")
+        if v.dim() and tuple(v.shape) != tuple(params[i].shape):
+            raise OptStateLayoutMismatch(
+                f"optimizer moment {i}/{name} has shape {tuple(v.shape)}, "
+                f"its parameter {tuple(params[i].shape)}")
+        opt_state.setdefault(i, {})[name] = v
+    template.model.load_state_dict(model_sd, strict=True)
+    template.optimizer.load_state_dict(
+        {"state": opt_state, "param_groups": tmpl["param_groups"]})
+    template.step = int(meta["step"])
+    return template, version

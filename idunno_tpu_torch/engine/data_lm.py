@@ -12,8 +12,8 @@ int32 (inputs = [:, :-1], targets = [:, 1:] — or feed the full block to
 `train_lm`'s roll-based loss); the ragged tail of an epoch is dropped so
 jit never sees a new shape.
 
-(Copied from ``idunno_tpu/engine/data_lm.py``, numpy only. ``save_corpus``
-and ``load_corpus`` wait for the port of the replicated store.)
+(Copied from ``idunno_tpu/engine/data_lm.py``, numpy only; the corpus
+lives in the port's replicated store under the JAX package's names.)
 """
 from __future__ import annotations
 
@@ -21,7 +21,23 @@ from collections.abc import Iterator
 
 import numpy as np
 
+from idunno_tpu_torch.store.sdfs import FileStoreService
+
 _DTYPE = np.int32
+
+
+def save_corpus(store: FileStoreService, name: str,
+                tokens: np.ndarray) -> int:
+    """Version a tokenized corpus (1-D int array) into the replicated
+    store; returns the store version."""
+    arr = np.ascontiguousarray(tokens, dtype=_DTYPE)
+    return store.put_bytes(name, arr.tobytes())
+
+
+def load_corpus(store: FileStoreService, name: str) -> np.ndarray:
+    """Fetch the latest corpus version from any node."""
+    blob, _ = store.get_bytes(name)
+    return np.frombuffer(blob, dtype=_DTYPE)
 
 
 class TokenDataset:

@@ -216,6 +216,18 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def lm_config(model: TransformerLM) -> dict:
+    """The architecture `save_lm` stores beside the weights: the JAX
+    package's config fields plus the two dtypes, by their names."""
+    return {"vocab": model.vocab, "dim": model.dim, "depth": model.depth,
+            "num_heads": model.num_heads,
+            "num_kv_heads": model.num_kv_heads, "causal": model.causal,
+            "ffn_every": 1, "kv_cache_dtype": model.kv_cache_dtype,
+            "remat": False,
+            "dtype": _dtype_name(model.compute_dtype),
+            "param_dtype": _dtype_name(model.dtype)}
+
+
 def save_lm(store, name: str, model: TransformerLM) -> int:
     """Version a TransformerLM (architecture + weights, one atomic object)
     into the replicated store under ``lm.pt/<name>``; returns the store
@@ -230,16 +242,9 @@ def save_lm(store, name: str, model: TransformerLM) -> int:
     if getattr(model, "ffn_factory", None) is not None:
         raise ValueError("save_lm stores dense LMs only (a routed FFN is "
                          "not ported yet: ROADMAP.md)")
-    config = {"vocab": model.vocab, "dim": model.dim, "depth": model.depth,
-              "num_heads": model.num_heads,
-              "num_kv_heads": model.num_kv_heads, "causal": model.causal,
-              "ffn_every": 1, "kv_cache_dtype": model.kv_cache_dtype,
-              "remat": False,
-              "dtype": _dtype_name(model.compute_dtype),
-              "param_dtype": _dtype_name(model.dtype)}
     return store.put_bytes(lm_store_name(name),
                            encode_state(model.state_dict(),
-                                        {"lm": config}))
+                                        {"lm": lm_config(model)}))
 
 
 def load_lm(store, name: str, version: int | None = None,

@@ -136,18 +136,22 @@ class KVBlockPool:
             chunk = row_cache[name][:, 0, offset:offset + self.block_size]
             store[:, bid].copy_(chunk)
 
-    def read_block(self, bid: int) -> dict[str, Any]:
-        """One block's raw per-leaf content as host numpy arrays
-        (``[L, bs, ...]``), keyed by leaf name."""
+    def read_block(self, bid: int) -> dict[str, torch.Tensor]:
+        """One block's raw per-leaf content as CPU tensors (``[L, bs,
+        ...]``) in the store's own dtype (bf16 included: numpy has no
+        bf16), keyed by leaf name — the payload of a cluster prefix-cache
+        publish and of a KV handoff export (`store/kv_chain.py`)."""
         if bid not in self._refs:
             raise ValueError(f"block {bid} is not allocated")
-        return {name: store[:, bid].cpu().numpy()
+        return {name: store[:, bid].to("cpu", copy=True)
                 for name, store in self._stores.items()}
 
     def write_raw_block(self, bid: int, arrays: dict[str, Any]) -> None:
-        """Inverse of `read_block`. Every store leaf must be present with
-        its exact per-block shape — a partial or mis-shaped payload raises
-        before any store is touched."""
+        """Inverse of `read_block`: install raw slivers (torch tensors or
+        numpy arrays) into block ``bid``. Every store leaf must be present
+        with its exact per-block shape and the store's dtype (a cast would
+        change the KV a hit attends) — a partial, mis-shaped or mistyped
+        payload raises before any store is touched."""
         if bid not in self._refs:
             raise ValueError(f"block {bid} is not allocated")
         staged = {}
@@ -158,10 +162,15 @@ class KVBlockPool:
                 raise ValueError(f"write_raw_block missing leaf {name!r}")
             if tuple(arr.shape) != tuple(want):
                 raise ValueError(
-                    f"write_raw_block leaf {name!r} shape {arr.shape} != "
-                    f"store block shape {tuple(want)}")
-            staged[name] = torch.as_tensor(np.asarray(arr)).to(
-                store.device, store.dtype)
+                    f"write_raw_block leaf {name!r} shape {tuple(arr.shape)}"
+                    f" != store block shape {tuple(want)}")
+            t = (arr if isinstance(arr, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(arr)))
+            if t.dtype != store.dtype:
+                raise ValueError(
+                    f"write_raw_block leaf {name!r} dtype {t.dtype} != "
+                    f"store dtype {store.dtype}")
+            staged[name] = t.to(store.device)
         for name, store in self._stores.items():
             store[:, bid].copy_(staged[name])
 

@@ -40,9 +40,17 @@ per-channel scales, dequantized inside each forward: ``ops/quantize.py``),
 quantized layer by layer as the JAX package does; the caller's model stays
 as it is, and so does the draft.
 
+The cluster KV tier: with ``cluster_prefix`` set (a
+``serve/cluster_prefix.py:ClusterPrefixCache``), an admission whose local
+radix hit is short probes the store for a longer published chain, fetches
+the missing blocks and grafts them into the radix tree, and an inserted
+chain is published; the ``handoff_*`` legs export a prompt's blocks from a
+prefill pool and adopt them into a decode pool (``store/kv_chain.py``
+blobs). A fetched or adopted chain is a plain radix hit afterwards: on a
+paged pool the suffix prefill and every decode step attend it through K3.
+
 What waits for later slices raises a ValueError naming ROADMAP.md: tensor
-parallelism (``mesh``, ``n_model > 1``) and the cluster-prefix and
-KV-handoff verbs.
+parallelism (``mesh``, ``n_model > 1``).
 """
 from __future__ import annotations
 
@@ -432,8 +440,8 @@ class DecodeServer:
         # optional per-node span recorder (utils/spans.py), set by the
         # serving layer after construction; None = tracing off, zero cost
         self.spans = None
-        # the cluster prefix cache is not ported; kept for the serving
-        # loop, which reads it
+        # optional cluster prefix cache (serve/cluster_prefix.py), set by
+        # the serving layer after warmup; None = the local radix tier only
         self.cluster_prefix = None
         self.prefix = list(prefix) if prefix else None
         self._prefix_cache = None
@@ -541,7 +549,9 @@ class DecodeServer:
                        # padded suffix tokens computed by admission
                        # prefills — the work the prefix cache shrinks
                        "prefill_tokens": 0,
-                       "prefill_chunks": 0, "kv_gather_bytes_saved": 0}
+                       "prefill_chunks": 0, "kv_gather_bytes_saved": 0,
+                       "kv_handoff_requests": 0, "kv_handoff_bytes": 0,
+                       "kv_handoff_fallbacks": 0}
         self._pc_lookups = self._pc_hits = self._pc_tokens_saved = 0
         self._dispatched_ever = False
 
@@ -750,8 +760,10 @@ class DecodeServer:
     def prefix_cache_stats(self) -> dict:
         """Radix prefix-cache gauges (kv_block_size pools): hit rate over
         admissions, prompt tokens whose prefill was skipped, block-pool
-        occupancy, tree churn counters."""
-        return {
+        occupancy, tree churn counters, plus the cluster prefix-cache
+        counters (zeros when the cluster tier is off, so dashboards see a
+        stable gauge set)."""
+        out = {
             "prefix_hit_rate": (self._pc_hits / self._pc_lookups
                                 if self._pc_lookups else 0.0),
             "lookups": self._pc_lookups,
@@ -763,17 +775,315 @@ class DecodeServer:
             "insert_skips": self._radix.insert_skips,
             "inserted_blocks": self._radix.inserted_blocks,
             "nodes": self._radix.num_nodes(),
+            "prefix_remote_hits": 0,
+            "prefix_published_chains": 0,
+            "prefix_warm_blocks": 0,
+            "prefix_fetch_bytes": 0,
         }
+        if self.cluster_prefix is not None:
+            out.update(self.cluster_prefix.stats())
+        return out
 
-    # -- cluster prefix cache and KV handoff: not ported yet ---------------
+    # -- cluster prefix cache (serve/cluster_prefix.py) -------------------
 
-    def _cluster_not_ported(self, *args, **kwargs):
-        raise _later("the cluster prefix cache and the KV handoff",
-                     "store/kv_chain.py and serve/cluster_prefix.py")
+    def _cluster_fetch(self, per_req: list, local: int, want: int) -> int:
+        """Probe the ring for a chain longer than the ``local`` radix
+        depth, fetch the missing depths [local, found) and graft them.
+        Returns new blocks grafted (0 = miss/failure — the admission
+        proceeds on its local hit)."""
+        cp = self.cluster_prefix
+        bs = self.kv_block_size
+        depth = cp.probe(per_req[:want * bs], start_depth=local)
+        if depth <= local:
+            return 0
+        fetched = cp.fetch(per_req, local, depth)
+        if not fetched:
+            return 0
+        wrote = self._radix.graft(per_req, fetched, local)
+        if wrote:
+            cp.remote_hits += 1
+        return wrote
 
-    prefix_probe = prefix_warm = prefix_publish = _cluster_not_ported
-    handoff_probe = handoff_export = handoff_adopt = _cluster_not_ported
-    handoff_fallback = _cluster_not_ported
+    def prefix_probe(self, tokens: list[int]) -> dict:
+        """`prefix_probe` verb: local radix depth vs the deepest
+        published depth for this prompt. Pure read (the lookup only
+        touches LRU stamps)."""
+        cp = self._require_cluster()
+        local = len(self._radix.lookup(list(tokens)))
+        remote = cp.probe(list(tokens))
+        return {"local_blocks": local, "remote_blocks": remote,
+                "namespace": cp.namespace,
+                "block_size": self.kv_block_size}
+
+    def prefix_warm(self, tokens: list[int] | None = None,
+                    tenant: str | None = None) -> dict:
+        """`prefix_fetch` verb: pull published chains into the radix
+        tree WITHOUT an admission — the warm-at-spawn primitive. With
+        ``tenant`` (and no tokens) the per-tenant warm index names the
+        prefixes to pull. Fetched blocks count as ``warm_blocks``;
+        grafting reuses chunks already present, so a replayed warm
+        converges."""
+        cp = self._require_cluster()
+        targets = []
+        if tokens is not None:
+            targets.append([int(t) for t in tokens])
+        elif tenant is not None:
+            targets = [e.get("tokens", []) for e in
+                       cp.tenant_entries(str(tenant))]
+        else:
+            raise ValueError("prefix_fetch needs tokens or tenant")
+        fetched_blocks = 0
+        for toks in targets:
+            want = len(toks) // self.kv_block_size
+            if want < 1:
+                continue
+            local = len(self._radix.lookup(toks))
+            if local >= want:
+                continue
+            depth = cp.probe(toks[:want * self.kv_block_size],
+                             start_depth=local)
+            if depth <= local:
+                continue
+            blobs = cp.fetch(toks, local, depth)
+            if blobs:
+                fetched_blocks += self._radix.graft(toks, blobs, local)
+        cp.warm_blocks += fetched_blocks
+        return {"fetched_blocks": fetched_blocks,
+                "targets": len(targets), "bytes": cp.fetch_bytes}
+
+    def prefix_publish(self, tokens: list[int] | None = None,
+                       tenant: str | None = None) -> dict:
+        """`prefix_publish` verb: push cached chains to the ring. With
+        ``tokens``, the longest local chain for that prompt; without,
+        every root-to-leaf path in the radix tree (min-hits policy
+        bypassed — an explicit publish is an operator decision)."""
+        cp = self._require_cluster()
+        chains = []
+        if tokens is not None:
+            chain = self._radix.lookup([int(t) for t in tokens])
+            if chain:
+                chains.append(chain)
+        else:
+            stack = [[nd] for nd in self._radix._root.children.values()]
+            while stack:
+                path = stack.pop()
+                kids = path[-1].children
+                if not kids:
+                    chains.append(path)
+                    continue
+                for nd in kids.values():
+                    stack.append(path + [nd])
+        published = blocks = 0
+        for chain in chains:
+            toks = [t for nd in chain for t in nd.chunk]
+            out = cp.publish(
+                toks, len(chain),
+                (lambda ch: lambda j: self._block_pool.read_block(
+                    ch[j].block))(chain),
+                tenant=tenant, force=True)
+            published += out["published"]
+            blocks += out["blocks"]
+        return {"published_blocks": published, "chains": len(chains),
+                "blocks": blocks}
+
+    def _require_cluster(self):
+        if self.cluster_prefix is None or self._radix is None:
+            raise ValueError("pool has no cluster prefix cache "
+                             "(serve with cluster_prefix= and "
+                             "kv_block_size > 0)")
+        return self.cluster_prefix
+
+    # -- KV handoff (prefill replica → decode replica) ----------------------
+    #
+    # A prefill-role replica fills the block-aligned head of a long prompt,
+    # encodes the populated blocks as KVC1 blobs, and the decode replica
+    # grafts them into its own radix tree — point-to-point over the
+    # transport, no store round trip. The handoff state machine lives in
+    # `serve/lm_manager.py`; these legs are its pool-local half and need
+    # only the radix tier (kv_block_size > 0), not the cluster cache.
+
+    def _require_handoff(self) -> None:
+        if self._radix is None:
+            raise ValueError("pool has no KV block tier "
+                             "(serve with kv_block_size > 0)")
+
+    def handoff_probe(self, tokens: list[int]) -> dict:
+        """`kv_handoff` probe leg: the local radix depth for ``tokens``
+        plus the pool's block geometry, so a prefill replica ships only
+        the block suffix this replica does not hold yet. Pure read (the
+        lookup only touches LRU stamps)."""
+        self._require_handoff()
+        toks = [int(t) for t in tokens]
+        bs = self.kv_block_size
+        return {"depth": len(self._radix.lookup(toks)),
+                "want": max(0, (len(toks) - 1) // bs),
+                "block_size": bs}
+
+    @torch.no_grad()
+    def _prefill_head(self, head: list[int], hit_chain: list) -> list:
+        """Prefill the missing block-aligned suffix of ``head`` (the
+        handoff export's fill leg) and insert the chain — `_admit`'s
+        one-shot prefill branches with the block head in place of the
+        full prompt, so paged (K3 on a card), gathered and prefix pools
+        fill through their own machinery. Returns the ACQUIRED chain for
+        ``head`` (the caller releases it)."""
+        pl = len(self.prefix) if self.prefix else 0
+        bs = self.kv_block_size
+        dev = self.device
+        hit = len(hit_chain) * bs
+        head_true = len(head)
+        while True:
+            rest = head_true - hit
+            bucket = next(
+                (b for b in self.prompt_buckets
+                 if b >= rest and pl + hit + b <= self.max_len), None)
+            if bucket is not None:
+                break
+            if hit <= 0:
+                raise ValueError(
+                    f"no prompt bucket fits a {head_true}-token "
+                    "handoff head")
+            hit -= bs
+        hit_chain = hit_chain[:hit // bs]
+        if hit_chain:
+            self._radix.acquire(hit_chain)
+        try:
+            suffix = torch.zeros((1, bucket), dtype=torch.int64)
+            suffix[0, :head_true - hit] = torch.tensor(head[hit:])
+            suffix = suffix.to(dev)
+            self._stats["prefill_tokens"] += bucket
+            if self._paged and hit:
+                tab = torch.tensor([[nd.block for nd in hit_chain]],
+                                   dtype=torch.int32, device=dev)
+                plen = torch.tensor([hit], dtype=torch.int32, device=dev)
+                row_cache, _ = _prefill_suffix_paged(
+                    self.model, self._prefix_cache, suffix, head_true - hit,
+                    pl + hit, bucket, tab, plen,
+                    self._block_pool.kv_pages(), start=pl,
+                    kernel=self.paged_kernel)
+            elif hit:
+                gathered = self._block_pool.gather(
+                    [nd.block for nd in hit_chain])
+                pre = (concat_kv_prefix(self._prefix_cache, gathered)
+                       if self.prefix else gathered)
+                row_cache, _ = _prefill_suffix(
+                    self.model, pre, suffix, head_true - hit, pl + hit,
+                    bucket)
+            elif self.prefix:
+                row_cache, _ = _prefill_suffix(
+                    self.model, self._prefix_cache, suffix, head_true, pl,
+                    bucket)
+            else:
+                row_cache, _ = _prefill(self.model, suffix, head_true,
+                                        bucket)
+            return self._radix.insert(head, row_cache, pl)
+        finally:
+            if hit_chain:
+                self._radix.release(hit_chain)
+
+    def handoff_export(self, tokens: list[int], from_depth: int = 0,
+                       trace: tuple | None = None) -> dict:
+        """`kv_handoff` export leg (prefill replica): ensure the radix
+        tree holds the full usable block chain for ``tokens`` —
+        prefilling the missing block-aligned region if needed — then
+        encode depths [``from_depth``, want) as KVC1 blobs. ``want``
+        always leaves ≥ 1 suffix token for the decode side's own
+        admission prefill (the same cap `_admit` applies), so the first
+        generated token's logits are computed there, token-exactly."""
+        from idunno_tpu_torch.store.kv_chain import encode_block
+
+        self._require_handoff()
+        toks = [int(t) for t in tokens]
+        bs = self.kv_block_size
+        want = max(0, (len(toks) - 1) // bs)
+        from_depth = max(0, int(from_depth))
+        if want <= from_depth:
+            return {"blobs": [], "depth": from_depth, "blocks": 0,
+                    "bytes": 0, "block_size": bs}
+        t0 = (self.spans.clock()
+              if self.spans is not None and trace else None)
+        head = toks[:want * bs]
+        chain = self._radix.lookup(head)
+        if len(chain) < want:
+            chain = self._prefill_head(head, chain)
+        else:
+            self._radix.acquire(chain)
+        try:
+            if len(chain) < want:
+                raise ValueError(
+                    f"handoff export covered {len(chain)} of {want} "
+                    "blocks (block pool exhausted; ship refused)")
+            blobs, nbytes = [], 0
+            for j in range(from_depth, want):
+                chunk = head[j * bs:(j + 1) * bs]
+                blob = encode_block(
+                    {"tokens": chunk, "depth": j, "block_size": bs},
+                    self._block_pool.read_block(chain[j].block))
+                blobs.append(blob)
+                nbytes += len(blob)
+        finally:
+            self._radix.release(chain)
+        self._stats["kv_handoff_requests"] += 1
+        self._stats["kv_handoff_bytes"] += nbytes
+        if t0 is not None:
+            self.spans.record(
+                "lm.handoff_export", trace=trace[0], parent=trace[1],
+                t_start=t0, attrs={"blocks": want - from_depth,
+                                   "from_depth": from_depth,
+                                   "bytes": nbytes})
+        return {"blobs": blobs, "depth": from_depth,
+                "blocks": want - from_depth, "bytes": nbytes,
+                "block_size": bs}
+
+    def handoff_adopt(self, tokens: list[int], blobs: list[bytes],
+                      start_depth: int = 0,
+                      trace: tuple | None = None) -> dict:
+        """`kv_handoff` adopt leg (decode replica): decode each KVC1
+        blob against the expected token chunk — ``expect_tokens=`` makes
+        a stale/wrong-content blob a typed refusal, never a graft — and
+        splice the verified blocks via `RadixPrefixCache.graft`, which
+        REUSES chunks already held. A duplicated/replayed adopt therefore
+        converges on the same block-pool state, and the next admission's
+        radix lookup turns the shipped range into a prefix hit: zero
+        re-prefill for shipped blocks, structurally."""
+        from idunno_tpu_torch.store.kv_chain import decode_block
+
+        self._require_handoff()
+        toks = [int(t) for t in tokens]
+        bs = self.kv_block_size
+        start_depth = max(0, int(start_depth))
+        t0 = (self.spans.clock()
+              if self.spans is not None and trace else None)
+        fetched, nbytes = [], 0
+        for i, blob in enumerate(blobs):
+            j = start_depth + i
+            chunk = toks[j * bs:(j + 1) * bs]
+            if len(chunk) < bs:
+                raise ValueError(
+                    f"handoff blob at depth {j} extends past the "
+                    "prompt's full blocks")
+            _, arrays = decode_block(blob, expect_tokens=chunk)
+            fetched.append((chunk, arrays))
+            nbytes += len(blob)
+        wrote = self._radix.graft(toks, fetched, start_depth)
+        self._stats["kv_handoff_bytes"] += nbytes
+        depth = len(self._radix.lookup(toks))
+        if t0 is not None:
+            self.spans.record(
+                "lm.handoff_adopt", trace=trace[0], parent=trace[1],
+                t_start=t0, attrs={"blocks": len(fetched), "wrote": wrote,
+                                   "start_depth": start_depth,
+                                   "bytes": nbytes, "depth": depth})
+        return {"adopted": len(fetched), "wrote": wrote,
+                "depth": depth, "bytes": nbytes}
+
+    def handoff_fallback(self) -> dict:
+        """Count a ship that degraded to decode-side prefill (the
+        manager's fallback transition); the request itself is unharmed —
+        it forwards through the normal path and re-prefills there."""
+        self._require_handoff()
+        self._stats["kv_handoff_fallbacks"] += 1
+        return {"fallbacks": self._stats["kv_handoff_fallbacks"]}
 
     # -- serving loop -----------------------------------------------------
 
@@ -842,6 +1152,17 @@ class DecodeServer:
                 self._pc_lookups += 1
                 hit_chain = self._radix.lookup(per_req)
                 bs = self.kv_block_size
+                want = (suffix_true - 1) // bs   # usable depth in blocks
+                # cluster prefix cache: a local miss (or shorter local
+                # hit) probes the store for a longer published chain and
+                # grafts ONLY the missing block suffix into the radix
+                # tree; the re-lookup then extends the hit so the prefill
+                # covers just the remainder. Degrades to the local hit on
+                # any store or transport failure.
+                if (self.cluster_prefix is not None
+                        and len(hit_chain) < want):
+                    if self._cluster_fetch(per_req, len(hit_chain), want):
+                        hit_chain = self._radix.lookup(per_req)
                 hit = min(len(hit_chain) * bs,
                           ((suffix_true - 1) // bs) * bs)
             while True:
@@ -990,6 +1311,17 @@ class DecodeServer:
                 self._radix.release(hit_chain)
             if chain:
                 self._held[req.id] = chain
+            cp = self.cluster_prefix
+            if (cp is not None and chain
+                    and hit // self.kv_block_size >= cp.publish_min_hits):
+                # publish the request's full chain: a local hit of at
+                # least `publish_min_hits` blocks proved the prompt head
+                # is shared (0 = publish every inserted chain). Content-
+                # addressed names make a replayed publish converge, and
+                # every failure degrades to a skip (cp.errors).
+                cp.publish(per_req, len(chain),
+                           lambda j: self._block_pool.read_block(
+                               chain[j].block))
         if self._paged:
             nb = hit // self.kv_block_size
             tab = torch.zeros((self._max_chain,), dtype=torch.int32)
@@ -1349,4 +1681,6 @@ class DecodeServer:
         for k in self._stats:
             self._stats[k] = 0
         self._pc_lookups = self._pc_hits = self._pc_tokens_saved = 0
+        if self.cluster_prefix is not None:
+            self.cluster_prefix.reset_counters()
         return warm_s

@@ -1,14 +1,12 @@
 """Remote control/status RPC — drive a node from OUTSIDE its process.
 
 A port of ``idunno_tpu/serve/control.py``: every verb is the JAX
-package's, except that ``generate`` and ``lm_serve`` run the port's
-``load_lm``, ``generate``/``beam_search`` and ``DecodeServer`` on the
-node's device (``node.device``: the card unless the node was built for the
-CPU), and the verbs of modules not ported yet raise a ValueError naming
-ROADMAP.md: ``cluster_prefix`` in ``lm_serve``, ``prefix_publish``/
-``prefix_probe``/``prefix_fetch``, ``kv_handoff`` (and a replica group
-whose policy would hand KV blocks off), ``train_start``/``train_status``/
-``train_stop``, ``profile`` and ``n_model > 1``.
+package's, except that ``generate``, ``lm_serve``, the cluster prefix and
+KV-handoff verbs and ``train_start`` run the port's ``load_lm``,
+``generate``/``beam_search``, ``DecodeServer``, ``ClusterPrefixCache`` and
+``LMTrainJob`` on the node's device (``node.device``: the card unless the
+node was built for the CPU), and the verbs of modules not ported yet raise
+a ValueError naming ROADMAP.md: ``profile`` and ``n_model > 1``.
 
 The reference is driven only by a human typing into each VM's interactive
 shell (`mp4_machinelearning.py:1111-1229`); there is no way to script the
@@ -35,6 +33,14 @@ remote CLI can run the shell's commands against any node:
                                scaling decisions)
   lm_autoscale               — replica-group scaling policy get/set
                                (serve/autoscaler.py; acting master)
+  prefix_publish/prefix_probe/prefix_fetch
+                             — the cluster prefix cache of a pool
+                               (serve/cluster_prefix.py)
+  kv_handoff                 — prefill → decode KV block handoff legs
+  train_start/train_status/train_stop
+                             — background cluster training jobs
+                               (engine/train_job.py; checkpoints + servable
+                               LM published into the replicated store)
 
 One request/one reply on the existing node transport; `comm.net.oneshot_call`
 is the matching client side (no listener needed).
@@ -52,7 +58,7 @@ from idunno_tpu_torch.membership.epoch import (ScopeOwnerRedirect,
                                                check_payload, check_scoped,
                                                observe_payload, place_scope,
                                                pool_scope)
-from idunno_tpu_torch.utils.spans import trace_from_payload
+from idunno_tpu_torch.utils.spans import stamp_trace, trace_from_payload
 from idunno_tpu_torch.utils.types import MessageType
 
 if TYPE_CHECKING:                                    # pragma: no cover
@@ -75,14 +81,7 @@ class RelayedError(Exception):
 
 # verbs of modules not ported yet → where ROADMAP.md queues them
 _UNPORTED = {
-    "train_start": "engine/train_job.py, the next slice",
-    "train_status": "engine/train_job.py, the next slice",
-    "train_stop": "engine/train_job.py, the next slice",
-    "prefix_publish": "store/kv_chain.py and serve/cluster_prefix.py",
-    "prefix_probe": "store/kv_chain.py and serve/cluster_prefix.py",
-    "prefix_fetch": "store/kv_chain.py and serve/cluster_prefix.py",
-    "kv_handoff": "store/kv_chain.py and the KV-handoff legs",
-    "profile": "utils/tracing.py over torch.profiler",
+    "profile": "utils/tracing.py over torch.profiler, the next slice",
 }
 
 
@@ -92,22 +91,9 @@ def _refuse_unported(verb: str, p: dict) -> None:
     or built: nothing quietly drops such a key."""
     if verb in _UNPORTED:
         raise _later(f"the {verb!r} verb", _UNPORTED[verb])
-    if verb != "lm_serve":
-        return
-    if p.get("cluster_prefix"):
-        raise _later("lm_serve's cluster_prefix",
-                     "store/kv_chain.py and serve/cluster_prefix.py")
-    if int(p.get("n_model", 1)) > 1:
+    if verb == "lm_serve" and int(p.get("n_model", 1)) > 1:
         raise _later("lm_serve's n_model > 1 (tensor parallelism)",
                      "the parallelism slice, modules item 10")
-    policy = p.get("autoscale")
-    if (isinstance(policy, dict) and int(p.get("kv_block_size", 0))
-            and int(policy.get("prefill_len_threshold", 0)) > 0):
-        # a group with a prefill replica and a KV block pool routes
-        # prefill-heavy requests through the KV-handoff legs
-        raise _later("a replica group that hands KV blocks from its "
-                     "prefill replica to its decode replicas",
-                     "store/kv_chain.py and the KV-handoff legs")
 
 
 class _Starting:
@@ -122,6 +108,7 @@ class ControlService:
         self.node = node
         self._lms: dict = {}          # name -> TransformerLM, loaded once
         self._lm_loops: dict = {}     # name -> LMServingLoop (continuous)
+        self._train_jobs: dict = {}   # name -> LMTrainJob
         # (name, idem key) -> node-local row id: dedupes a manager's
         # RE-forward of an lm_submit whose ACK was lost, so the retried
         # request decodes exactly once on this node. Purged per name on
@@ -130,8 +117,8 @@ class ControlService:
         # unrelated rows
         self._lm_idem: dict = {}
         # transports run one handler thread per connection: registry
-        # check-then-act must be atomic or two concurrent lm_serve calls
-        # each spawn a loop and one leaks unjoinable
+        # check-then-act must be atomic or two concurrent lm_serve/
+        # train_start calls each spawn a loop and one leaks unjoinable
         self._reg_lock = threading.Lock()
         node.transport.serve(SERVICE, self._handle)
 
@@ -139,9 +126,13 @@ class ControlService:
         with self._reg_lock:
             loops = list(self._lm_loops.values())
             self._lm_loops.clear()
+            jobs = list(self._train_jobs.values())
+            self._train_jobs.clear()
         for loop in loops:
             if not isinstance(loop, _Starting):
                 loop.stop()
+        for job in jobs:
+            job.stop()
 
     def _handle(self, service: str, msg: Message) -> Message:
         # epoch fence (membership/epoch.py): control verbs stamped by a
@@ -358,6 +349,16 @@ class ControlService:
                 # on a reload must not stop the live loop
                 from idunno_tpu_torch.serve.gateway import AdmissionGateway
                 gw_spec = AdmissionGateway.validate_spec(gw_spec)
+            cp_spec = p.get("cluster_prefix") or None
+            if cp_spec is not None:
+                # the cluster prefix cache rides the journaled spec like
+                # the block-pool keys; it REQUIRES the radix tier
+                # (content is addressed per kv block)
+                if not int(p.get("kv_block_size", 0)):
+                    raise ValueError(
+                        "cluster_prefix needs kv_block_size > 0")
+                cp_spec = (dict(cp_spec) if isinstance(cp_spec, dict)
+                           else {"on": True})
             placeholder = _Starting()
             with self._reg_lock:
                 old = self._lm_loops.get(name)
@@ -431,6 +432,24 @@ class ControlService:
                     # (the fair-share scheduler's signal,
                     # serve/metrics.py) measures steady-state work
                     server.warmup()
+                if cp_spec is not None:
+                    # attach AFTER warmup: the throwaway warm request
+                    # must not publish its chain to the ring. Replicas
+                    # of one group (and re-serves of one pool) derive
+                    # the SAME namespace from the same model/weights/
+                    # prefix, so their published chains dedupe; an
+                    # explicit "namespace" key pins cross-pool sharing
+                    # or isolation by hand.
+                    from idunno_tpu_torch.serve.cluster_prefix import (
+                        ClusterPrefixCache, pool_namespace)
+                    ns = cp_spec.get("namespace") or pool_namespace(
+                        server.model, server.prefix, server.quantize,
+                        server.kv_block_size,
+                        extra=str(p.get("model") or ""))
+                    server.cluster_prefix = ClusterPrefixCache(
+                        node.store, ns, server.kv_block_size,
+                        publish_min_hits=int(
+                            cp_spec.get("publish_min_hits", 1)))
                 gateway = None
                 if gw_spec is not None:
                     # QoS front door (serve/gateway.py): per-tenant
@@ -557,6 +576,26 @@ class ControlService:
             # the pool runs without a gateway)
             gw = self._lm_loop(p["name"]).gateway
             return {"qos": gw.stats() if gw is not None else None}
+        if verb in ("prefix_publish", "prefix_probe", "prefix_fetch"):
+            # cluster prefix cache: publish pushes cached chains to the
+            # store's ring, probe reports local-vs-published depth (pure
+            # read), fetch (the warm-at-spawn primitive) grafts published
+            # chains into the pool's radix tree. All three are fenced and
+            # scope-stamped like any pool verb (the _handle preamble) and
+            # idempotent by content addressing.
+            loop = self._lm_loop(p["name"])
+            op = verb.split("_", 1)[1]
+            kw: dict = {}
+            if p.get("tokens") is not None:
+                kw["tokens"] = [int(t) for t in p["tokens"]]
+            if op != "probe" and p.get("tenant") is not None:
+                kw["tenant"] = str(p["tenant"])
+            return loop.prefix_op(op, **kw)
+        if verb == "kv_handoff":
+            # prefill → decode block handoff: fenced and scope-stamped by
+            # the _handle preamble like every pool verb, idempotent by
+            # radix-graft reuse
+            return self._kv_handoff(p)
         if verb == "lm_stats":
             loop = self._lm_loop(p["name"])
             stats = loop.stats()
@@ -623,6 +662,50 @@ class ControlService:
             # popping a _Starting reservation makes the building call's final
             # registry compare fail, so it stops its fresh loop itself
             return {"stopped": loop is not None}
+        if verb == "train_start":
+            # cluster training job: corpus from the replicated store,
+            # periodic train-state checkpoints back into it, final servable
+            # LM published for lm_serve/generate (engine/train_job.py), on
+            # the node's device
+            from idunno_tpu_torch.engine.train_job import LMTrainJob
+
+            name = p["name"]
+            with self._reg_lock:
+                existing = self._train_jobs.get(name)
+                if existing is not None:
+                    st = existing.status()
+                    if not (st["done"] or st["stopped"] or st["error"]):
+                        raise ValueError(f"training job {name!r} already "
+                                         "running (train_stop it first)")
+                self._train_jobs[name] = LMTrainJob(
+                    node.store, name,
+                    corpus=p["corpus"],
+                    model_config=dict(p["model"]),
+                    steps=int(p["steps"]),
+                    batch_size=int(p.get("batch_size", 8)),
+                    seq_len=int(p.get("seq_len", 32)),
+                    lr=float(p.get("lr", 1e-2)),
+                    checkpoint_every=int(p.get("checkpoint_every", 50)),
+                    seed=int(p.get("seed", 0)),
+                    resume=bool(p.get("resume", False)),
+                    device=node.device)
+            return {"started": True}
+        if verb == "train_status":
+            with self._reg_lock:
+                job = self._train_jobs.get(p["name"])
+            if job is None:
+                raise ValueError(f"no training job {p['name']!r}")
+            return job.status()
+        if verb == "train_stop":
+            with self._reg_lock:
+                job = self._train_jobs.get(p["name"])
+            if job is None:
+                return {"stopped": False}
+            job.stop()
+            # "stopped" = the stop verb found+stopped a job; the job's own
+            # lifecycle flags live under "status" (its 'stopped' field is
+            # False when the job had already finished)
+            return {"stopped": True, "status": job.status()}
         if verb == "spans_dump":
             # node-local span window (utils/spans.py); the cluster-wide
             # view is the `trace` verb below
@@ -752,9 +835,124 @@ class ControlService:
         merged.sort(key=lambda s: (s.get("t_start", 0.0), s["span_id"]))
         return {"trace_id": tid, "spans": merged, "nodes": nodes}
 
+    def _kv_handoff(self, p: dict) -> dict:
+        """DistServe KV-block handoff. Node-local ops ("probe"
+        | "export" | "adopt" | "fallback") marshal onto the named pool's
+        loop thread; op="ship" ORCHESTRATES from the prefill pool's node:
+        probe the decode target for its already-held depth, export only
+        the missing block suffix as KVC1 blobs (`store/kv_chain.py`
+        codec), and push them point-to-point to the target's adopt — no
+        SDFS round-trip on the critical path. KVC1 blobs ride the RPC
+        payload as latin-1 strings (the `put_bytes` idiom). Any failure
+        after the ship starts bumps the fallback counter on THIS pool and
+        re-raises: the caller (lm_manager._handoff_ship) falls back to
+        decode-side prefill — a handoff is only ever an optimization,
+        never a correctness dependency. Idempotent end to end: export
+        reads cached blocks, adopt grafts with reuse-on-existing
+        semantics, so a replayed ship converges on the same tree."""
+        node = self.node
+        op = p.get("op", "")
+        loop = self._lm_loop(p["name"])
+        toks = ([int(t) for t in p["tokens"]]
+                if p.get("tokens") is not None else None)
+        spans = getattr(node, "spans", None)
+        tctx = trace_from_payload(p)
+        tr = tctx if spans is not None else None
+        if op == "probe":
+            return loop.handoff_op("probe", tokens=toks)
+        if op == "export":
+            out = loop.handoff_op("export", tokens=toks,
+                                  from_depth=int(p.get("from_depth", 0)),
+                                  trace=tr)
+            out["blobs"] = [b.decode("latin-1") for b in out["blobs"]]
+            return out
+        if op == "adopt":
+            return loop.handoff_op(
+                "adopt", tokens=toks,
+                blobs=[b.encode("latin-1") for b in p["blobs"]],
+                start_depth=int(p.get("start_depth", 0)), trace=tr)
+        if op == "fallback":
+            return loop.handoff_op("fallback")
+        if op != "ship":
+            raise ValueError(f"unknown kv_handoff op {op!r}")
+        target_host = p["target_host"]
+        target_name = p.get("target_name") or p["name"]
+        if target_host == node.host and target_name == p["name"]:
+            raise ValueError("kv_handoff ship: target is the source pool")
+        sp = None
+        if spans is not None:
+            sp = spans.start("lm.handoff",
+                             trace=tctx[0] if tctx else None,
+                             parent=tctx[1] if tctx else None,
+                             attrs={"pool": p["name"],
+                                    "target": target_host,
+                                    "target_pool": target_name})
+        ctx = sp.ctx if sp is not None else None
+
+        def _call(payload: dict) -> dict:
+            # child hops chain under the ship span and carry this node's
+            # fence view (the stamp checker's send-site rule)
+            stamp_trace(payload, ctx)
+            payload["epoch"] = list(node.membership.epoch.view())
+            out = node.transport.call(
+                target_host, SERVICE,
+                Message(MessageType.INFERENCE, node.host, payload),
+                timeout=float(p.get("timeout", 30.0)))
+            if out is None:
+                raise TransportError(
+                    f"kv_handoff: {target_host} gave no reply",
+                    reason="timeout")
+            observe_payload(node.membership.epoch, out.payload)
+            if out.type is not MessageType.ACK:
+                raise ValueError(str(
+                    (out.payload or {}).get("error", "kv_handoff failed")))
+            return dict(out.payload or {})
+
+        try:
+            probe = _call({"verb": "kv_handoff", "op": "probe",
+                           "name": target_name, "tokens": list(toks),
+                           "local": True})
+            depth = int(probe["depth"])
+            export = loop.handoff_op("export", tokens=toks,
+                                     from_depth=depth, trace=ctx)
+            if export["blocks"] == 0:
+                # the target already holds every shippable block — the
+                # delta is empty, decode admits with a pure local hit
+                if sp is not None:
+                    spans.finish(sp, blocks=0, bytes=0, held_depth=depth)
+                return {"shipped": 0, "bytes": 0, "depth": depth,
+                        "already": True}
+            adopt = _call({
+                "verb": "kv_handoff", "op": "adopt", "name": target_name,
+                "tokens": list(toks),
+                "blobs": [b.decode("latin-1") for b in export["blobs"]],
+                "start_depth": depth, "local": True})
+        except Exception:
+            # count the abandoned ship on the PREFILL pool (its blocks
+            # were exported for nothing) and on the node tracker for
+            # metrics_export; the request itself survives via the
+            # caller's decode-side-prefill fallback
+            try:
+                loop.handoff_op("fallback")
+            except Exception:  # noqa: BLE001 - counter must not mask
+                pass
+            node.metrics.record_counter("kv_handoff_fallbacks")
+            if sp is not None:
+                spans.finish(sp, error=True)
+            raise
+        if sp is not None:
+            spans.finish(sp, blocks=export["blocks"],
+                         bytes=export["bytes"],
+                         adopted_depth=adopt.get("depth"))
+        return {"shipped": export["blocks"], "bytes": export["bytes"],
+                "depth": depth, "adopted": adopt.get("adopted", 0),
+                "target_depth": adopt.get("depth")}
+
     # pool-directed verbs that route by scope owner
     _POOL_VERBS = ("lm_submit", "lm_poll", "lm_stats", "lm_stop",
-                   "lm_cancel", "lm_partial", "lm_qos", "lm_autoscale")
+                   "lm_cancel", "lm_partial", "lm_qos", "lm_autoscale",
+                   "prefix_publish", "prefix_probe", "prefix_fetch",
+                   "kv_handoff")
 
     def _forward_scope_owner(self, p: dict, name: str, owner: str) -> dict:
         """Owner-aware routing: this node does not hold the
@@ -805,7 +1003,8 @@ class ControlService:
             # re-forward (assign is a single hop); a replayed assign finds
             # the named pool and absorbs as already=True
             return mgr.serve(p, assigned=True)
-        placed = p.get("placement") == "auto" and verb == "lm_serve"
+        placed = (p.get("placement") == "auto"
+                  and verb in ("lm_serve", "train_start"))
         if placed:
             master = self.node.membership.acting_master()
             if master != self.node.host \
@@ -813,7 +1012,8 @@ class ControlService:
                 raise ValueError(
                     f"placement=auto must go to the acting master "
                     f"({master}), not {self.node.host}")
-            return mgr.serve(p)
+            return (mgr.serve(p) if verb == "lm_serve"
+                    else mgr.train(p))
         name = p.get("name")
         if verb in self._POOL_VERBS and not mgr.has_pool(name):
             # not held here: forward one hop to the scope's claimed owner.
@@ -917,7 +1117,21 @@ class ControlService:
                 if p.get("policy"):
                     return mgr.autoscale_set(name, dict(p["policy"]))
                 return mgr.autoscale_get(name)
+            if verb in ("prefix_publish", "prefix_probe",
+                        "prefix_fetch"):
+                # managed pools: relay to the pool's node (or fan over a
+                # group's replicas) — prefix state lives on the serving
+                # node, the journal only knows the spec
+                return mgr.prefix_op(verb, name, p)
+            if verb == "kv_handoff":
+                # managed pools: relay to the pool's serving node — a
+                # ship must orchestrate FROM the prefill replica's own
+                # host (its loop owns the exported blocks)
+                return mgr.kv_handoff(name, p)
             return mgr.stop(name)
+        if verb in ("train_status", "train_stop") and mgr.has_job(name):
+            return (mgr.train_status(name) if verb == "train_status"
+                    else mgr.train_stop(name))
         return None
 
     def _lm_loop(self, name: str):

@@ -9,7 +9,10 @@ check cannot tell: an interpreter may import JAX at start-up on its own):
   ``idunno_tpu_torch`` in its imports, docstrings aside, and the same text
   outside comments and docstrings. The port's copies drop the JAX modules'
   citations of tracker numbers from their comments and docstrings, so
-  those may differ.
+  those may differ;
+- a module the port copies in part (``PARTIAL_COPIES``) has the JAX
+  module's code, docstrings aside, in each of the named top-level
+  functions and assignments.
 """
 import ast
 import difflib
@@ -49,6 +52,17 @@ COPIES = [
     "utils/__init__.py", "utils/logging.py", "utils/ring.py",
     "utils/spans.py", "utils/types.py",
 ]
+
+
+# modules of the port that keep some of a JAX module's definitions as they
+# are (path under each package → top-level names): the KVC1 codec keeps
+# the JAX names, hashes and constants; its encode and decode take and give
+# torch tensors
+PARTIAL_COPIES = {
+    "store/kv_chain.py": ["MAGIC", "BLOB_PREFIX", "TENANT_PREFIX",
+                          "namespace_key", "rolling_hashes", "chain_names",
+                          "tenant_index_name"],
+}
 
 
 def imported_modules(tree: ast.AST) -> list[str]:
@@ -143,3 +157,34 @@ def test_copy_keeps_the_jax_modules_code(rel):
             f"idunno_tpu_torch/{rel}:{j1 + 1} differs from idunno_tpu/"
             f"{rel}:{i1 + 1} outside comments and docstrings:\n"
             + "\n".join(a[i1:i2] + ["---"] + b[j1:j2]))
+
+
+def _top_level(text: str) -> dict[str, str]:
+    """Each top-level function and assignment of a module by name, as a
+    syntax-tree dump without docstrings."""
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = ast.dump(node.value)
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PARTIAL_COPIES))
+def test_partial_copy_keeps_the_jax_definitions(rel):
+    with open(os.path.join(REPO, "idunno_tpu", rel)) as f:
+        ref = _top_level(f.read())
+    with open(os.path.join(PORT, rel)) as f:
+        got = _top_level(f.read())
+    for name in PARTIAL_COPIES[rel]:
+        assert name in ref and name in got, name
+        assert got[name] == ref[name], (
+            f"idunno_tpu_torch/{rel}:{name} differs from idunno_tpu/{rel}")

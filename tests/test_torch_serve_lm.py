@@ -238,12 +238,20 @@ def test_unported_options_raise_naming_the_roadmap(lm):
     for extra in (dict(n_model=2), dict(mesh=object())):
         with pytest.raises(ValueError, match="ROADMAP"):
             DecodeServer(tm, **base, **extra)
+    # the cluster KV tier is ported: its legs refuse, typed, a pool that
+    # lacks what they need (a cluster cache; a KV block tier)
     srv = DecodeServer(tm, kv_block_size=BS, **base)
-    for verb in ("prefix_probe", "prefix_warm", "prefix_publish",
-                 "handoff_probe", "handoff_export", "handoff_adopt",
-                 "handoff_fallback"):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    for verb in ("prefix_probe", "prefix_warm", "prefix_publish"):
+        with pytest.raises(ValueError, match="no cluster prefix cache"):
             getattr(srv, verb)([1, 2])
+    plain = DecodeServer(tm, **base)
+    for verb in ("handoff_probe", "handoff_export"):
+        with pytest.raises(ValueError, match="no KV block tier"):
+            getattr(plain, verb)([1, 2])
+    with pytest.raises(ValueError, match="no KV block tier"):
+        plain.handoff_adopt([1, 2], [])
+    with pytest.raises(ValueError, match="no KV block tier"):
+        plain.handoff_fallback()
     with pytest.raises(ValueError):
         DecodeServer(tm, paged_kernel="pallas", kv_block_size=BS, **base)
 
