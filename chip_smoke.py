@@ -35,7 +35,12 @@ through the control RPC:
   flash forward K2 and the flash backward kernels K4 (dQ) and K5 (dK, dV)
   joined in one ``torch.autograd.Function``; then the train bench
   (``utils/train_bench.py``: the LM, gradient-accumulation and ResNet-18
-  points).
+  points);
+- the bench and the profiler: ``python -m idunno_tpu_torch.bench`` (the
+  ``lm`` and ``lm_prefix`` suites of ``utils/lm_bench.py``) at full
+  width through K2-K5, ``utils/tracing.py``'s ``device_timed`` on
+  replayed decode dispatches, and the cluster's ``profile`` verb tracing
+  a node while its LM pool serves.
 
 Phases:
 
@@ -77,7 +82,10 @@ Phases:
    launches (zeroed just before; a replay adds the launches its capture
    recorded) > 0, dispatches replayed, no loop errors; tokens/s, TTFT,
    ms a model step, and one dispatch under ``torch.profiler`` (host
-   launch calls, device busy share); the same prompts eagerly beside it;
+   launch calls, device busy share); replayed dispatches timed by
+   ``utils/tracing.py:device_timed`` within 20% of CUDA events around the
+   same calls (the first call flagged not warm); the same prompts
+   eagerly beside it;
    then 32 of them with int8 weights (``quantize="int8"``), with the
    resident weight bytes against the bf16 pool's; then (b) speculative
    serving with the JAX bench's draft (dim 256, depth 2, 4 heads,
@@ -87,7 +95,15 @@ Phases:
    tokens/s beside the plain pool's; beam search: width 1 equals greedy
    ``generate`` (f32, depth 2), the full-width time for batch 4, width
    4, 32 new tokens;
-9. LM token exactness: the same workload at full width, depth 2, f32,
+9. the bench (``bench``): ``python -m idunno_tpu_torch.bench`` as a
+   subprocess for ``BENCH_SUITE=lm`` (compact: prefill through K2, the
+   flash backward through K4 and K5, steady decode of 128-step replayed
+   dispatches through K3) and ``lm_prefix`` (radix cache on and off) at
+   full width: each exits 0 with one JSON line, a value, no error,
+   provenance naming this card, K3 launches > 0 (K2 > 0 for ``lm``), and a
+   prefill-token ratio below 1 for ``lm_prefix``; their launches count
+   on the ``kernels`` line;
+10. LM token exactness: the same workload at full width, depth 2, f32,
    with dense and with int8 weights: paged pools with K3 replayed, K3
    eager and the plain paged attention eager, and a contiguous pool
    replayed and eager: equal greedy streams within each; (a) speculative
@@ -95,7 +111,7 @@ Phases:
    draft) against the plain pool: equal streams; then the default-size
    model (dim 128, 4 heads: head_dim 32) on a ``kernel`` and a
    ``plain`` pool: equal streams, K3 launches > 0;
-10. the cluster (``cluster``): nodes n0, n1, n2 built as ``python -m
+11. the cluster (``cluster``): nodes n0, n1, n2 built as ``python -m
     idunno_tpu_torch`` builds them (``__main__.build_node``: a
     ``NetTransport`` on free local ports, engines at batch 256, 224², on
     the card), driven through ``comm.net.oneshot_call`` only: n0
@@ -107,6 +123,8 @@ Phases:
     requests from two client threads through ``lm_submit``/``lm_poll``
     complete, K3 launches > 0, radix hits, dispatches replayed; tokens/s
     and TTFT through the RPC beside phases 4 and 8's in-process figures;
+    the ``profile`` verb traces n0 for 2 s while the pool serves the
+    requests again, and its Chrome trace must hold K3 kernels;
     ``generate`` through the verb equals this process's; the f32 depth-2
     pool through the verbs equals an in-process pool token for token;
     then (``cluster_kv``, K3) on the same nodes, the stored bf16 LM in
@@ -132,16 +150,16 @@ Phases:
     idunno_tpu_torch --host n0 --no-shell`` as a subprocess, without
     ``--cpu``: ``put`` and greedy ``generate`` equal to this process's,
     the subprocess seen among the card's compute apps;
-11. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+12. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
     ten steps on that batch with finite, falling loss, K2, K4 and K5
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-12. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+13. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-13. the last line, ``{"ok": true, "device": {...}}``.
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -298,26 +316,14 @@ def ptxas_summary(report: str) -> str:
     return "\n".join(lines)
 
 
-def kernel_wrappers() -> dict:
-    """Kernel name → its wrapper, which carries the ``launches`` count."""
-    from idunno_tpu_torch.ops import flash_attention as fa
-    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
-    from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
-
-    return {"preprocess": preprocess_batch_kernel,
-            "flash_attention": fa.flash_attention_kernel,
-            "paged_attention": paged_attention_kernel,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq_kernel,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv_kernel}
-
-
 def zero_launches() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    from idunno_tpu_torch.ops.launches import zero_launches as zero
+    zero()
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    from idunno_tpu_torch.ops.launches import read_launches as read
+    return read()
 
 
 def phase_kernel_vs_plain() -> float:
@@ -981,6 +987,116 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
         prefill_tokens=stats["prefill_tokens"],
         kv_gather_bytes_saved=stats["kv_gather_bytes_saved"])
     profile_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
+    if graph["mode"] == "graph" and quantize == "none" and draft is None:
+        time_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
+    return launches
+
+
+def time_dispatch(srv, prompts, max_new: int, card: str) -> None:
+    """Replayed decode dispatches (every slot live) timed in turns by
+    CUDA events around ``srv.step()`` and by ``utils/tracing.py:
+    device_timed(srv.step)``: the first timed call must be flagged not
+    warm, the later ones warm, every dispatch replayed, and the warm
+    figures' median within 20% of the events' median."""
+    import statistics
+
+    import torch
+
+    from idunno_tpu_torch.utils.tracing import device_timed
+
+    for p in prompts:
+        srv.submit(p, max_new=max_new)
+    srv.step()                             # admissions + one dispatch
+    replays0 = srv.graph_stats()["replayed"]
+    timed = device_timed(srv.step)
+    _, first = timed()
+    warm, events = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        srv.step()
+        end.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(end) / 1e3)
+        _, t = timed()
+        if not t.compiled:
+            raise AssertionError("device_timed flagged a repeated call of "
+                                 "the same step as not warm")
+        warm.append(t.seconds)
+    replayed = srv.graph_stats()["replayed"] - replays0
+    srv.run_until_drained()
+    ratio = statistics.median(warm) / statistics.median(events)
+    say("lm_device_timed", card=card, first_call_warm=first.compiled,
+        first_call_s=first.seconds, warm_s=warm, cuda_event_s=events,
+        warm_over_events=ratio, dispatches_replayed=replayed,
+        tolerance=0.2)
+    if first.compiled or replayed != 7 or not abs(ratio - 1) <= 0.2:
+        raise AssertionError(f"device_timed: first call warm "
+                             f"{first.compiled}, {replayed} of 7 "
+                             f"dispatches replayed, warm/events {ratio}")
+
+
+# the bench runs of the `bench` phase: (BENCH_SUITE, extra environment)
+BENCH_RUNS = (("lm", {"BENCH_LM_COMPACT": "1"}), ("lm_prefix", {}))
+
+
+def phase_bench(card: str) -> dict:
+    """``python -m idunno_tpu_torch.bench`` as a subprocess for each of
+    ``BENCH_RUNS`` at full width: each must exit 0 with exactly one JSON
+    line on stdout, a non-null value, no ``error`` anywhere, provenance
+    naming this card, K3 launches > 0 (K2 > 0 for ``lm``) and, for
+    ``lm_prefix``, a radix prefill-token ratio below 1. Returns the
+    kernels' launches summed over the runs."""
+    import torch
+
+    from idunno_tpu_torch.bench import find_errors
+
+    launches = dict.fromkeys(KERNELS, 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    for suite, extra in BENCH_RUNS:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_")}
+        env.update(BENCH_SUITE=suite, **extra)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "idunno_tpu_torch.bench"], cwd=root,
+            env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(
+                f"bench {suite}: exit {proc.returncode}, {len(lines)} "
+                f"stdout lines: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        rec = json.loads(lines[0])
+        details = rec.get("details", {})
+        errors = find_errors(details) + ([rec["error"]] if "error" in rec
+                                         else [])
+        prov = details.get("provenance", {})
+        if (rec["value"] is None or errors
+                or prov.get("device_name") != torch.cuda.get_device_name(0)
+                or prov.get("nvidia_smi") != card):
+            raise AssertionError(f"bench {suite}: value {rec['value']}, "
+                                 f"errors {errors}, provenance {prov}")
+        got = details["launches"]
+        want = ["paged_attention"] + (["flash_attention"] if suite == "lm"
+                                      else [])
+        if any(got[k] <= 0 for k in want):
+            raise AssertionError(f"bench {suite}: launches {got}")
+        if suite == "lm_prefix" and not details["prefill_tokens_ratio"] < 1:
+            raise AssertionError(f"bench lm_prefix: prefill token ratio "
+                                 f"{details['prefill_tokens_ratio']}")
+        for name, n in got.items():
+            launches[name] += n
+        fields = ({"decode": details["decode"],
+                   "prefill": details["prefill"],
+                   "flash_bwd": details["flash_bwd"]} if suite == "lm" else
+                  {k: details[k] for k in ("cache_on", "cache_off",
+                                           "speedup_vs_off",
+                                           "prefill_tokens_ratio")})
+        say("bench", card=card, suite=suite, metric=rec["metric"],
+            value=rec["value"], unit=rec["unit"], seconds=seconds,
+            wall_s=details["wall_s"], launches=got, **fields)
     return launches
 
 
@@ -991,28 +1107,33 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def device_profile(fn, host: dict | None = None):
-    """``fn`` once under ``torch.profiler``, after a synchronize: (its wall
-    ms, a Counter of device ms by kernel name, the number of kernels the
-    profiler recorded). The counter is empty where it records none. User
+    """``fn`` once under ``torch.profiler`` (through ``utils/tracing.py:
+    trace``, so no other trace of the process may overlap it), after a
+    synchronize: (its wall ms, a Counter of device ms by kernel name, the
+    number of kernels the profiler recorded). The counter is empty where it records none. User
     annotations on the device timeline (the optimizer's
     ``Optimizer.step#...`` range) span kernels already counted and are
     left out. ``host``, where given, receives ``launch_calls``: the
     host's kernel and graph launch calls (``LAUNCH_CALLS``) the profiler
     recorded, and ``kernel_counts``: a Counter of the kernels it recorded
-    by full name (those inside a replayed graph included)."""
+    by full name (those inside a replayed graph included), and
+    ``last_kernel_end_before_sync_us``: how long before the synchronize
+    after ``fn`` returned its last kernel ended, on the profiler's clock
+    (the margin the profiling window had before ``trace`` padded it)."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from idunno_tpu_torch.utils.tracing import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        synced_ns = time.time_ns()
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -1024,6 +1145,10 @@ def device_profile(fn, host: dict | None = None):
             e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS
             for e in events)
         host["kernel_counts"] = collections.Counter(e.name for e in kernels)
+        ends = [e.end_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA]
+        host["last_kernel_end_before_sync_us"] = (
+            (synced_ns - max(ends)) / 1e3 if ends else "not measured")
     return wall_ms, by_name, len(kernels)
 
 
@@ -1077,6 +1202,8 @@ def profile_dispatch(srv, prompts, max_new: int, card: str) -> dict:
         device_busy_ms=busy_ms if n else "not measured",
         device_busy_share=busy_ms / wall_ms if n else "not measured",
         k3_launches_counted=k3_counted, k3_kernels_traced=k3_traced,
+        last_kernel_end_before_sync_us=host[
+            "last_kernel_end_before_sync_us"],
         tokens_committed=committed,
         tokens_per_row_per_step=committed / (len(prompts) * steps),
         top_kernels_ms=dict(by_name.most_common(8)))
@@ -2145,6 +2272,7 @@ def cluster_lm(nodes: dict, port: dict, cfg: dict, card: str,
     def pct(xs, q):
         return xs[min(len(xs) - 1, int(q * len(xs)))]
 
+    profile = profile_via_rpc(port["n0"], prompts, max_new, root)
     rpc(port["n0"], "lm_stop", name="lm")
     # greedy `generate` through the verb against this process's model
     few = prompts[:CLUSTER_GEN["prompts"]]
@@ -2171,9 +2299,55 @@ def cluster_lm(nodes: dict, port: dict, cfg: dict, card: str,
         paged_launches=launches, radix_hits=hits,
         dispatches=stats["dispatches"], decode_graph=graph,
         generate_prompts=len(few), generate_s=generate_s,
-        generate_equal=True)
+        generate_equal=True, profile=profile)
     del model
     return launches
+
+
+PROFILE_S = 2.0                  # the `profile` verb's window in `cluster_lm`
+
+
+def profile_via_rpc(port: int, prompts, max_new: int, root: str) -> dict:
+    """The ``profile`` verb on the node at ``port`` for ``PROFILE_S``
+    seconds, started while its pool ``lm`` serves ``prompts`` again from
+    two client threads; the Chrome trace it writes must hold the pool's
+    K3 (``paged_fwd``) kernels. Returns what the trace holds."""
+    import glob
+    import gzip
+
+    log_dir = os.path.join(root, "profile")
+    reply: dict = {}
+
+    def verb():
+        try:
+            reply.update(rpc(port, "profile", seconds=PROFILE_S,
+                             log_dir=log_dir))
+        except Exception as e:  # noqa: BLE001 - reported below
+            reply["error"] = f"{type(e).__name__}: {e}"
+
+    th = threading.Thread(target=verb)
+    th.start()
+    time.sleep(0.2)                        # the trace starts first
+    serve_via_rpc(port, "lm", prompts, max_new, clients=2)
+    th.join(120)
+    if th.is_alive() or reply != {"log_dir": log_dir, "seconds": PROFILE_S}:
+        raise AssertionError(f"profile verb: {reply}")
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json.gz"))
+    if len(files) != 1:
+        raise AssertionError(f"profile verb wrote {files}")
+    with gzip.open(files[0], "rt") as f:
+        events = json.load(f)["traceEvents"]
+    k3 = [e for e in events if e.get("cat") == "kernel"
+          and "paged_fwd" in e.get("name", "")]
+    out = {"trace_bytes": os.path.getsize(files[0]), "events": len(events),
+           "k3_kernels": len(k3),
+           "kernels": sum(e.get("cat") == "kernel" for e in events),
+           "cpu_op_threads": len({e.get("tid") for e in events
+                                  if e.get("cat") == "cpu_op"})}
+    if not k3:
+        raise AssertionError(f"the profile verb's trace holds no K3 kernel: "
+                             f"{out}")
+    return out
 
 
 def cluster_exactness(port: dict, cfg: dict, root: str):
@@ -2789,6 +2963,8 @@ def main() -> int:
     phase_beam(lm, lm_cfg, smi)
     del lm
     torch.cuda.empty_cache()
+    for name, n in phase_bench(smi).items():
+        launches[name] += n
     phase_lm_exactness(lm_cfg)
     phase_lm_exactness(lm_cfg, quantize="int8")
     phase_spec_exactness(lm_cfg)                              # (a)

@@ -5,8 +5,10 @@ package's, except that ``generate``, ``lm_serve``, the cluster prefix and
 KV-handoff verbs and ``train_start`` run the port's ``load_lm``,
 ``generate``/``beam_search``, ``DecodeServer``, ``ClusterPrefixCache`` and
 ``LMTrainJob`` on the node's device (``node.device``: the card unless the
-node was built for the CPU), and the verbs of modules not ported yet raise
-a ValueError naming ROADMAP.md: ``profile`` and ``n_model > 1``.
+node was built for the CPU), ``profile`` traces through
+``utils/tracing.py`` (``torch.profiler``), and ``lm_serve``'s ``n_model >
+1``, whose module is not ported yet, raises a ValueError naming
+ROADMAP.md.
 
 The reference is driven only by a human typing into each VM's interactive
 shell (`mp4_machinelearning.py:1111-1229`); there is no way to script the
@@ -37,6 +39,8 @@ remote CLI can run the shell's commands against any node:
                              — the cluster prefix cache of a pool
                                (serve/cluster_prefix.py)
   kv_handoff                 — prefill → decode KV block handoff legs
+  profile                    — a torch.profiler trace of the node for a
+                               window of seconds (utils/tracing.py)
   train_start/train_status/train_stop
                              — background cluster training jobs
                                (engine/train_job.py; checkpoints + servable
@@ -79,18 +83,10 @@ class RelayedError(Exception):
         self.payload = dict(payload)
 
 
-# verbs of modules not ported yet → where ROADMAP.md queues them
-_UNPORTED = {
-    "profile": "utils/tracing.py over torch.profiler, the next slice",
-}
-
-
 def _refuse_unported(verb: str, p: dict) -> None:
-    """Raise (naming ROADMAP.md) for a verb, or a key of ``lm_serve``, that
-    needs a module the port does not have yet, before anything is routed
-    or built: nothing quietly drops such a key."""
-    if verb in _UNPORTED:
-        raise _later(f"the {verb!r} verb", _UNPORTED[verb])
+    """Raise (naming ROADMAP.md) for a key of ``lm_serve`` that needs a
+    module the port does not have yet, before anything is routed or
+    built: nothing quietly drops such a key."""
     if verb == "lm_serve" and int(p.get("n_model", 1)) > 1:
         raise _later("lm_serve's n_model > 1 (tensor parallelism)",
                      "the parallelism slice, modules item 10")
@@ -690,6 +686,25 @@ class ControlService:
                     resume=bool(p.get("resume", False)),
                     device=node.device)
             return {"started": True}
+        if verb == "profile":
+            # capture a torch.profiler trace of whatever this node executes
+            # during the window (worker jobs, decode pools: their threads'
+            # operators and the card's kernels) — remote, on-demand
+            # observability the reference never had (its only timing is
+            # host wall-clock prints, `alexnet_resnet.py:91-92`)
+            import time as _time
+
+            from idunno_tpu_torch.utils.tracing import trace
+
+            seconds = float(p.get("seconds", 3.0))
+            if not 0.0 < seconds <= 60.0:
+                raise ValueError(f"seconds={seconds}: want (0, 60]")
+            log_dir = p.get("log_dir") or os.path.join(
+                node.store.local.data_dir, "profiles",
+                _time.strftime("%Y%m%d-%H%M%S"))
+            with trace(log_dir):
+                _time.sleep(seconds)
+            return {"log_dir": log_dir, "seconds": seconds}
         if verb == "train_status":
             with self._reg_lock:
                 job = self._train_jobs.get(p["name"])

@@ -60,10 +60,14 @@ def lm_flops_per_token(n_params: int, cfg: dict) -> float:
     return 6.0 * n_params + 12.0 * cfg["seq"] * cfg["dim"] * cfg["depth"]
 
 
-def _timed_steps(step_fn, state, args: tuple, iters: int):
+def _timed_steps(step_fn, state, args: tuple, iters: int,
+                 trace_name: str | None = None):
     """One untimed first step (it builds the kernels and warms cuBLAS),
     then ``iters`` timed steps, each ending in a read of the loss (a
-    synchronize). Returns (median step s, first step s, last loss)."""
+    synchronize). Returns (median step s, first step s, last loss). With
+    ``trace_name`` and BENCH_TRACE=1 one extra step runs after the timed
+    ones under the profiler into ``.trace/<trace_name>`` at the root of
+    the repository."""
     t0 = time.perf_counter()
     loss = float(step_fn(state, *args)["loss"])
     first_s = time.perf_counter() - t0
@@ -72,6 +76,11 @@ def _timed_steps(step_fn, state, args: tuple, iters: int):
         t0 = time.perf_counter()
         loss = float(step_fn(state, *args)["loss"])
         times.append(time.perf_counter() - t0)
+    if trace_name and os.environ.get("BENCH_TRACE") == "1":
+        from idunno_tpu_torch.utils.lm_bench import trace_dir
+        from idunno_tpu_torch.utils.tracing import trace
+        with trace(trace_dir(trace_name)):
+            float(step_fn(state, *args)["loss"])
     return statistics.median(times), first_s, loss
 
 
@@ -116,8 +125,9 @@ def run_train_bench(*, device: str | torch.device | None = None) -> dict:
         out["n_params"] = n_params
         tokens = torch.ones((batch, seq), dtype=torch.int64, device=dev)
         step = make_lm_train_step(state.model, state.optimizer)
-        per_step, first_s, loss = _timed_steps(step, state, (tokens,),
-                                               cfg["iters"])
+        per_step, first_s, loss = _timed_steps(
+            step, state, (tokens,), cfg["iters"],
+            trace_name="train_lm" if card else None)
         tok_s = batch * seq / per_step
         flops_tok = lm_flops_per_token(n_params, cfg)
         out["lm"] = {
@@ -159,9 +169,9 @@ def run_train_bench(*, device: str | torch.device | None = None) -> dict:
             memory_format=torch.channels_last)
         labels = torch.zeros((cb,), dtype=torch.int64, device=dev)
         cstep = make_train_step(cstate.model, cstate.optimizer)
-        perc, firstc, closs = _timed_steps(cstep, cstate,
-                                           (images, labels),
-                                           cfg["iters"])
+        perc, firstc, closs = _timed_steps(
+            cstep, cstate, (images, labels), cfg["iters"],
+            trace_name="train_cnn" if card else None)
         out["cnn"] = {
             "model": "resnet18", "images_per_s": cb / perc,
             "batch": cb, "image_size": size, "step_s": perc,

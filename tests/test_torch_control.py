@@ -24,6 +24,7 @@ port's engines instead of a stub, held against the JAX package:
 Small models, f32: ResNet-18 at 64² images, batch 8; the LM at dim 32,
 depth 2, vocab 61, KV blocks of 2.
 """
+import os
 import time
 
 import jax
@@ -220,7 +221,6 @@ def test_lm_pool_verbs_match_jax(cluster, lm):
 
 
 UNPORTED = [
-    ("profile", {"seconds": 0.1}),
     ("lm_serve", {"n_model": 2}),
     ("lm_serve", {"placement": "auto", "n_model": 2}),
 ]
@@ -233,6 +233,24 @@ def test_unported_verbs_name_roadmap(cluster, verb, extra):
     kw = dict({"name": "chat", "prompt_len": 8, "max_len": 24}, **extra)
     err = control("n0", verb, ok=False, **kw)["error"]
     assert "ValueError" in err and "ROADMAP.md" in err, err
+
+
+def test_profile_verb_through_the_node(cluster, tmp_path):
+    """The ``profile`` verb over the node's transport: a trace of the
+    window under the caller's directory, or under the node's data dir
+    (``profiles/<stamp>``); a window outside (0, 60] is a typed error."""
+    nodes, control = cluster
+    log_dir = str(tmp_path / "prof")
+    assert control("n0", "profile", seconds=0.2, log_dir=log_dir) == {
+        "log_dir": log_dir, "seconds": 0.2}
+    assert any(f.endswith(".pt.trace.json.gz") for f in os.listdir(log_dir))
+    out = control("n1", "profile", seconds=0.1)
+    assert out["log_dir"].startswith(os.path.join(
+        nodes["n1"].store.local.data_dir, "profiles"))
+    assert os.listdir(out["log_dir"])
+    for bad in (0, 61):
+        err = control("n0", "profile", ok=False, seconds=bad)["error"]
+        assert "ValueError" in err and "seconds" in err, err
 
 
 def test_shell_drives_the_port_node(cluster, lm, tmp_path):

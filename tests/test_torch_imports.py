@@ -12,7 +12,10 @@ check cannot tell: an interpreter may import JAX at start-up on its own):
   those may differ;
 - a module the port copies in part (``PARTIAL_COPIES``) has the JAX
   module's code, docstrings aside, in each of the named top-level
-  functions and assignments.
+  functions and assignments;
+- the port's bench keeps the repository ``bench.py``'s FLOP counters byte
+  for byte, and ``utils/loadgen.py`` the load tools' definitions it
+  copies (``LOADGEN_COPIES``).
 """
 import ast
 import difflib
@@ -188,3 +191,51 @@ def test_partial_copy_keeps_the_jax_definitions(rel):
         assert name in ref and name in got, name
         assert got[name] == ref[name], (
             f"idunno_tpu_torch/{rel}:{name} differs from idunno_tpu/{rel}")
+
+
+def _source_of(text: str, name: str) -> str:
+    """The exact source text of top-level definition ``name``."""
+    for node in ast.parse(text).body:
+        if getattr(node, "name", None) == name or (
+                isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == name
+                        for t in node.targets)):
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"no top-level {name}")
+
+
+@pytest.mark.parametrize("name", ["resnet_forward_flops",
+                                  "alexnet_forward_flops",
+                                  "vit_forward_flops"])
+def test_bench_flop_counters_are_byte_equal_copies(name):
+    """The port's bench keeps the repository bench's analytic FLOP
+    counters byte for byte: the MFU denominators of both are one text."""
+    with open(os.path.join(REPO, "bench.py")) as f:
+        ref = f.read()
+    with open(os.path.join(PORT, "bench.py")) as f:
+        got = f.read()
+    assert _source_of(got, name) == _source_of(ref, name)
+
+
+# utils/loadgen.py: the definitions it copies from the load tools (path
+# under the repository → names); PolicyProbe is left out, the port's copy
+# repairs its manager surface (its docstring says how)
+LOADGEN_COPIES = {
+    "tools/gateway_load.py": ["DEFAULT_MIX", "poisson_schedule",
+                              "run_open_loop"],
+    "tools/autoscale_load.py": ["PHASES", "ReplicaRouter", "probe_decisions",
+                                "interactive_p95", "run_phases",
+                                "summarize"],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(LOADGEN_COPIES))
+def test_loadgen_keeps_the_load_tools_code(tool):
+    with open(os.path.join(REPO, tool)) as f:
+        ref = f.read()
+    with open(os.path.join(PORT, "utils", "loadgen.py")) as f:
+        got = f.read()
+    for name in LOADGEN_COPIES[tool]:
+        mine = _code_tree(_source_of(got, name), rename=False)
+        theirs = _code_tree(_source_of(ref, name), rename=True)
+        assert mine == theirs, f"utils/loadgen.py:{name} differs from {tool}"

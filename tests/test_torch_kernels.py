@@ -461,10 +461,9 @@ def test_replay_runs_the_k3_launches_it_counts(cuda_device):
     """One replayed paged dispatch runs on the card, under the profiler,
     as many K3 kernels as its capture recorded, which is what the server
     adds to K3's launch count for it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
     from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    from idunno_tpu_torch.utils.tracing import trace
     model = _small_lm(cuda_device, dim=128, heads=4, seed=3)
     rng = np.random.default_rng(6)
     srv = DecodeServer(model, decode_graph="graph", slots=4, prompt_len=16,
@@ -478,7 +477,7 @@ def test_replay_runs_the_k3_launches_it_counts(cuda_device):
     torch.cuda.synchronize()
     before = paged_attention_kernel.launches
     replayed = srv.graph_stats()["replayed"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace(None) as prof:
         srv.step()
         torch.cuda.synchronize()
     g = srv.graph_stats()
@@ -524,3 +523,85 @@ def test_failed_capture_raises(cuda_device):
     with pytest.raises(RuntimeError):
         srv.run_until_drained()
     assert srv.graph_stats()["replayed"] == 0
+
+
+@pytest.mark.gpu
+def test_device_timed_waits_for_the_card(cuda_device):
+    """``device_timed`` covers the card's work on its result, not the
+    enqueue: a chain of matmuls timed by it takes at least the CUDA-event
+    time of the same chain (and a step returning no tensor waits too)."""
+    from idunno_tpu_torch.utils.tracing import device_timed
+
+    # drawn on the CPU: a failed capture earlier in the process
+    # (test_failed_capture_raises) leaves the card's generators unusable
+    x = torch.randn(4096, 4096,
+                    generator=torch.Generator().manual_seed(0)).to(cuda_device)
+
+    def chain(a):
+        for _ in range(20):
+            a = a @ x / 64.0
+        return {"out": [a]}
+
+    timed = device_timed(chain)
+    _, first = timed(x)
+    assert not first.compiled
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    chain(x)
+    end.record()
+    torch.cuda.synchronize()
+    event_s = start.elapsed_time(end) / 1e3
+    _, warm = timed(x)
+    assert warm.compiled and warm.seconds >= 0.9 * event_s > 0
+    _, none = device_timed(lambda: chain(x) and None)()
+    assert none.seconds >= 0.9 * event_s
+
+
+@pytest.mark.gpu
+def test_trace_holds_k3_kernels_of_another_thread(cuda_device, tmp_path):
+    """A ``trace`` started on one thread records the K3 kernels a paged
+    pool launches from another (CUPTI is process-wide) into its Chrome
+    trace. The pool runs eagerly: a failed capture earlier in the process
+    (test_failed_capture_raises) leaves the card's generators in capture
+    state; the replayed kernels in a trace are the other tests' and
+    ``chip_smoke.py``'s."""
+    import gzip
+    import json
+    import threading
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.transformer import TransformerLM
+    from idunno_tpu_torch.utils.tracing import trace
+    # seeded on the CPU, as in test_device_timed_waits_for_the_card
+    model = TransformerLM(vocab=257, dim=128, depth=2, num_heads=4)
+    init_like_flax(model, torch.Generator().manual_seed(4))
+    model = model.to(cuda_device).eval().requires_grad_(False)
+    srv = DecodeServer(model, slots=4, prompt_len=16, max_len=64,
+                       decode_steps=4, kv_block_size=4, paged_kernel="kernel",
+                       decode_graph="eager", device="cuda")
+    rng = np.random.default_rng(8)
+    for _ in range(4):
+        srv.submit([int(t) for t in rng.integers(1, 257, 16)], max_new=40)
+    started, done = threading.Event(), threading.Event()
+
+    def serve():
+        started.wait(30)
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        done.set()
+
+    th = threading.Thread(target=serve)
+    th.start()
+    with trace(str(tmp_path)):
+        started.set()
+        assert done.wait(120)
+    th.join(30)
+    assert not th.is_alive()
+    (path,) = list(tmp_path.glob("*.pt.trace.json.gz"))
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "paged_fwd" in e.get("name", "")
+               for e in events)
