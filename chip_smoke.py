@@ -40,7 +40,11 @@ through the control RPC:
   ``lm`` and ``lm_prefix`` suites of ``utils/lm_bench.py``) at full
   width through K2-K5, ``utils/tracing.py``'s ``device_timed`` on
   replayed decode dispatches, and the cluster's ``profile`` verb tracing
-  a node while its LM pool serves.
+  a node while its LM pool serves;
+- the routed FFN (switch MoE): the same LM widths with a switch FFN of 8
+  experts on every other block (570,884,144 parameters, seeded): its
+  prefill through K2, its training through K2, K4 and K5 (``remat`` held
+  to none), and its serving from a gathered block pool, replayed.
 
 Phases:
 
@@ -98,10 +102,14 @@ Phases:
 9. the bench (``bench``): ``python -m idunno_tpu_torch.bench`` as a
    subprocess for ``BENCH_SUITE=lm`` (compact: prefill through K2, the
    flash backward through K4 and K5, steady decode of 128-step replayed
-   dispatches through K3) and ``lm_prefix`` (radix cache on and off) at
+   dispatches from the contiguous cache and, in its ``paged_k3`` arm,
+   through K3) and ``lm_prefix`` (radix cache on and off, and on through
+   K3) at
    full width: each exits 0 with one JSON line, a value, no error,
-   provenance naming this card, K3 launches > 0 (K2 > 0 for ``lm``), and a
-   prefill-token ratio below 1 for ``lm_prefix``; their launches count
+   provenance naming this card, K3 launches > 0 (K2 > 0 for ``lm``), a
+   ``paged_k3`` arm beside the headline (which serves from the JAX
+   suite's pool: contiguous for ``lm``, gathered for ``lm_prefix``), and
+   a prefill-token ratio below 1 for ``lm_prefix``; their launches count
    on the ``kernels`` line;
 10. LM token exactness: the same workload at full width, depth 2, f32,
    with dense and with int8 weights: paged pools with K3 replayed, K3
@@ -157,9 +165,28 @@ Phases:
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-13. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+13. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
+    full-width routed forward on [4, 1024] tokens, bf16, through
+    ``make_attn_fn("auto")``: K2 launches (zeroed just before) equal
+    depth × forwards, logits within 2% of the ``full`` forward's largest,
+    the share of routing decisions the two take differently, tokens/s;
+    ``moe_train``, f32 parameters, bf16 compute, seq 1024 × batch 8: at
+    depth 2 flash and ``full`` gradients agree (cosine ≥ 0.999, f32) and
+    ``remat=True`` gives the same loss and gradients within 1e-5 of the
+    largest (K2 twice a block: forward and recompute); at full width
+    ``MOE_TRAIN_STEPS`` steps on one batch with finite, falling loss, a
+    finite balance loss, K2/K4/K5 launches of depth × steps, step ms,
+    tokens/s, MFU over the active parameters, and the dispatch einsums'
+    share of the step's device time; ``moe_serving``, bf16, 16 slots, a
+    gathered block pool: a ``paged_kernel`` pool raises, replayed and
+    eager pools give equal greedy streams, then the 48 shared-prefix
+    prompts from two threads: tokens/s, TTFT p50/p95;
+14. ``failed_capture``: after a provoked failed CUDA-graph capture the
+    pool serves a sampled request equal to an eager pool's, and a random
+    draw on the card succeeds;
+15. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-14. the last line, ``{"ok": true, "device": {...}}``.
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -167,6 +194,7 @@ is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -200,6 +228,15 @@ LM_DRAFT_LEN = 4                 # proposals a speculative round
 # the JAX LM bench's draft (``idunno_tpu/utils/lm_bench.py:75-77``)
 LM_DRAFT = {"dim": 256, "depth": 2, "heads": 4}
 BEAM = {"batch": 4, "width": 4, "max_new": 32}
+# the routed FFN of the MoE phases: Switch-Base-8's eight experts on every
+# other block (the Switch-Transformer interleave, idunno_tpu/models/
+# moe.py:14-15), capacity factor 2, top-1, hidden 4 x dim
+MOE = {"n_experts": 8, "capacity_factor": 2.0, "hidden_ratio": 4, "k": 1,
+       "moe_every": 2}
+# the full-width routed LM: the dense 218,298,368 plus, on each of the six
+# routed blocks, 8 experts and a router in place of one dense MLP
+MOE_PARAMS = 218_298_368 + 6 * (67_158_024 - 8_393_728)
+MOE_TRAIN_STEPS = 6              # routed train steps on one batch
 CLUSTER_HOSTS = ("n0", "n1", "n2")
 CLUSTER_GEN = {"prompts": 4, "max_new": 16}   # the cluster's `generate`
 # the in-process serving figures of phases 4 and 8, printed beside the
@@ -874,10 +911,8 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     rounds a dispatch); returns K3's launches."""
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
     from idunno_tpu_torch.ops.quantize import quantized_bytes
-    from idunno_tpu_torch.serve.lm_pool import LMServingLoop
     from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
                                                  serving_max_new)
-    from idunno_tpu_torch.utils.spans import SpanStore
 
     prompts, shared, buckets = prefix_bench_workload(cfg, LM_BLOCK)
     prompts = prompts[:n_requests]
@@ -891,66 +926,10 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
     resident = (quantized_bytes(srv.model)[0] if quantize == "int8"
                 else dense_bytes)
     warm_s = srv.warmup()
-    spans = SpanStore("chip")
-    loop = LMServingLoop(srv, name="lm", spans=spans)
-    traces: dict[int, str] = {}
-    errors: list[str] = []
-    lock = threading.Lock()
-
-    def client(ps):
-        try:
-            for p in ps:
-                tid = spans.new_trace()
-                rid = loop.submit(p, max_new=max_new, trace=(tid, None))
-                with lock:
-                    traces[rid] = tid
-        except Exception as e:  # noqa: BLE001 - reported below
-            errors.append(f"{type(e).__name__}: {e}")
-
-    done = {}
-    try:
-        zero_launches()
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(prompts[i::2],))
-                   for i in range(2)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        deadline = time.monotonic() + 600
-        while len(done) < len(prompts) and time.monotonic() < deadline:
-            for c in loop.poll():
-                done[c.id] = c
-            errors.extend(loop.errors())
-            if errors:
-                break
-            time.sleep(0.005)
-        wall = time.perf_counter() - t0
-        launches = read_launches()["paged_attention"]
-        stats = loop.stats()
-    finally:
-        loop.stop()
-    errors.extend(loop.errors())
-    if errors:
-        raise AssertionError(f"serving loop reported errors: {errors[:5]}")
-    if sorted(done) != sorted(traces) or len(done) != len(prompts):
-        raise AssertionError(f"{len(done)} of {len(prompts)} requests done")
-    want_len = cfg["prompt_len"] + max_new
-    for c in done.values():
-        if (len(c.tokens) != want_len or c.cancelled
-                or not all(0 <= x < cfg["vocab"] for x in c.tokens)):
-            raise AssertionError(f"request {c.id}: {len(c.tokens)} tokens, "
-                                 f"want {want_len} in the vocab")
-    hits = stats["prefix_cache"]["hits"]
+    run, stats = loop_serve(srv, prompts, max_new, cfg)
+    launches, hits = run["paged_launches"], run["radix_hits"]
     if hits <= 0 or launches <= 0:
         raise AssertionError(f"radix hits {hits}, K3 launches {launches}")
-    ttft = []
-    wire = spans.dump()
-    for tid in traces.values():
-        mine = {s["name"]: s for s in wire if s["trace_id"] == tid}
-        ttft.append(mine["lm.prefill"]["t_end"] - mine["lm.admit"]["t_start"])
-    ttft.sort()
-    gen = sum(len(c.tokens) - c.prompt_len for c in done.values())
     steps = stats["dispatches"] * LM_DECODE_STEPS
     # every radix-hit prefill attends its hit through K3 once per layer
     prefill_launches = hits * model.depth
@@ -959,11 +938,9 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
         raise AssertionError(f"no dispatch was replayed: {graph}")
     if (quantize, draft, decode_graph, n_requests) == ("none", None, "auto",
                                                       None):
-        IN_PROCESS.update(tokens_per_s=gen / wall,
-                          ttft_p50_s=ttft[len(ttft) // 2],
-                          ttft_p95_s=ttft[min(len(ttft) - 1,
-                                              int(0.95 * len(ttft)))])
-    say("lm_serving", card=card, quantize=quantize, requests=len(done),
+        IN_PROCESS.update({k: run[k] for k in ("tokens_per_s", "ttft_p50_s",
+                                               "ttft_p95_s")})
+    say("lm_serving", card=card, quantize=quantize, requests=run["requests"],
         decode_graph=graph["mode"],
         speculative_draft_len=srv.stats()["config"]["speculative_draft_len"],
         dispatches_replayed=graph["replayed"],
@@ -975,17 +952,13 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
         dense_weight_bytes=dense_bytes,
         dense_weight_dtype=str(next(model.parameters()).dtype),
         decode_steps_per_dispatch=LM_DECODE_STEPS, warmup_s=warm_s,
-        wall_s=wall, tokens_generated=gen, tokens_per_s=gen / wall,
-        ttft_p50_s=ttft[len(ttft) // 2],
-        ttft_p95_s=ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
-        dispatches=stats["dispatches"], decode_model_steps=steps,
-        wall_ms_per_model_step=wall * 1e3 / steps,
-        radix_hits=hits, radix_lookups=stats["prefix_cache"]["lookups"],
-        paged_launches=launches,
+        **{k: v for k, v in run.items() if k != "requests"},
+        decode_model_steps=steps,
+        wall_ms_per_model_step=run["wall_s"] * 1e3 / steps,
+        radix_lookups=stats["prefix_cache"]["lookups"],
         paged_launches_in_hit_prefills=prefill_launches,
         paged_launches_per_decode_step=(launches - prefill_launches) / steps,
-        prefill_tokens=stats["prefill_tokens"],
-        kv_gather_bytes_saved=stats["kv_gather_bytes_saved"])
+        prefill_tokens=stats["prefill_tokens"])
     profile_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
     if graph["mode"] == "graph" and quantize == "none" and draft is None:
         time_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
@@ -1086,14 +1059,20 @@ def phase_bench(card: str) -> dict:
         if suite == "lm_prefix" and not details["prefill_tokens_ratio"] < 1:
             raise AssertionError(f"bench lm_prefix: prefill token ratio "
                                  f"{details['prefill_tokens_ratio']}")
+        # the headline on the JAX suite's pool, K3 in its own arm
+        if "tokens_per_s" not in details.get("paged_k3", {}):
+            raise AssertionError(f"bench {suite}: no K3 arm: "
+                                 f"{details.get('paged_k3')}")
         for name, n in got.items():
             launches[name] += n
         fields = ({"decode": details["decode"],
                    "prefill": details["prefill"],
-                   "flash_bwd": details["flash_bwd"]} if suite == "lm" else
+                   "flash_bwd": details["flash_bwd"],
+                   "paged_k3": details["paged_k3"]} if suite == "lm" else
                   {k: details[k] for k in ("cache_on", "cache_off",
                                            "speedup_vs_off",
-                                           "prefill_tokens_ratio")})
+                                           "prefill_tokens_ratio",
+                                           "paged_k3")})
         say("bench", card=card, suite=suite, metric=rec["metric"],
             value=rec["value"], unit=rec["unit"], seconds=seconds,
             wall_s=details["wall_s"], launches=got, **fields)
@@ -1106,7 +1085,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 
-def device_profile(fn, host: dict | None = None):
+def device_profile(fn, host: dict | None = None, labels: tuple = ()):
     """``fn`` once under ``torch.profiler`` (through ``utils/tracing.py:
     trace``, so no other trace of the process may overlap it), after a
     synchronize: (its wall ms, a Counter of device ms by kernel name, the
@@ -1119,7 +1098,11 @@ def device_profile(fn, host: dict | None = None):
     by full name (those inside a replayed graph included), and
     ``last_kernel_end_before_sync_us``: how long before the synchronize
     after ``fn`` returned its last kernel ended, on the profiler's clock
-    (the margin the profiling window had before ``trace`` padded it)."""
+    (the margin the profiling window had before ``trace`` padded it), and
+    ``labelled_ms``: for each of ``labels``, the device ms of the kernels
+    launched inside its ``record_function`` ranges (``forward``) and of
+    those the autograd engine launched for the nodes the ops inside them
+    recorded (``backward``, matched by sequence number)."""
     import collections
 
     import torch
@@ -1149,7 +1132,39 @@ def device_profile(fn, host: dict | None = None):
                 if e.device_type() == DeviceType.CUDA]
         host["last_kernel_end_before_sync_us"] = (
             (synced_ns - max(ends)) / 1e3 if ends else "not measured")
+        host["labelled_ms"] = {label: labelled_device_ms(events, label)
+                               for label in labels}
     return wall_ms, by_name, len(kernels)
+
+
+def labelled_device_ms(events, label: str) -> dict:
+    """Device ms of the kernels that the ops inside the ``label`` ranges
+    of ``events`` launched, and of those that the autograd engine
+    launched evaluating the backward nodes of the same ops."""
+    from torch.autograd import DeviceType
+
+    def below(roots) -> list:
+        out, stack = [], list(roots)
+        while stack:
+            e = stack.pop()
+            out.append(e)
+            stack.extend(e.cpu_children)
+        return out
+
+    def ms(ops) -> float:
+        # a kernel is listed under the operator that launched it; the
+        # labelled range itself lists its span on the device timeline
+        return sum(k.duration for e in ops
+                   if not getattr(e, "is_user_annotation", False)
+                   for k in e.kernels) / 1e3
+
+    forward = below(e for e in events if e.name == label
+                    and e.device_type == DeviceType.CPU)
+    seqs = {e.sequence_nr for e in forward if e.sequence_nr >= 0}
+    backward = below(
+        e for e in events if e.sequence_nr in seqs
+        and e.name.startswith("autograd::engine::evaluate_function"))
+    return {"forward": ms(forward), "backward": ms(backward)}
 
 
 def profile_dispatch(srv, prompts, max_new: int, card: str) -> dict:
@@ -1605,21 +1620,54 @@ def phase_flash_bwd_timing() -> dict:
     return timing
 
 
-def grad_agreement(model, tokens) -> dict:
-    """Every parameter's gradient of one batch's loss through flash
-    (K2, K4, K5) and through ``full`` attention, before any update:
-    the smallest cosine and the largest relative difference in norm."""
+@contextlib.contextmanager
+def pinned_routing(chosen: list):
+    """Inside the block every routed FFN takes the experts in ``chosen``:
+    an empty list records the top-k picks of the forwards run inside, in
+    order; a filled one forces them on the same forwards, gating with the
+    router's probabilities at the forced experts."""
+    from idunno_tpu_torch.models import moe
+
+    real, record, forced = moe.top_k, not chosen, iter(list(chosen))
+
+    def top_k(probs, k):
+        if record:
+            values, idx = real(probs, k)
+            chosen.append(idx)
+            return values, idx
+        idx = next(forced)
+        return probs.gather(-1, idx), idx
+
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = real
+
+
+def grad_agreement(model, tokens, pin_routing: bool = False) -> dict:
+    """Every parameter's gradient of one batch's loss (cross-entropy plus
+    0.01 × the routed blocks' balance loss, as the train step weighs it)
+    through flash (K2, K4, K5) and through ``full`` attention, before any
+    update: the smallest cosine and the largest relative difference in
+    norm. ``pin_routing``: the ``full`` pass routes every token as the
+    flash pass did, so that a near-tie that the two attentions' roundings
+    break apart cannot move the comparison."""
     import torch
 
     from idunno_tpu_torch.engine.train_lm import next_token_loss
+    from idunno_tpu_torch.models.moe import moe_aux_loss
     from idunno_tpu_torch.models.transformer import make_attn_fn
 
-    grads = {}
+    grads, chosen = {}, []
     for kind in ("flash", "full"):
         model.set_attn_fn(make_attn_fn(kind))
         model.zero_grad(set_to_none=True)
-        ce, _ = next_token_loss(model(tokens), tokens)
-        ce.backward()
+        with (pinned_routing(chosen) if pin_routing
+              else contextlib.nullcontext()):
+            ce, _ = next_token_loss(model(tokens), tokens)
+            loss = ce + 0.01 * moe_aux_loss(model)
+        loss.backward()
         grads[kind] = {n: p.grad.detach().clone()
                        for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
@@ -1724,6 +1772,493 @@ def phase_lm_train(card: str) -> dict:
         raise AssertionError(f"train bench points failed or missing: {failed}")
     torch.cuda.empty_cache()
     return launches
+
+
+# -- the routed FFN (switch MoE) on the card ------------------------------
+
+
+def build_moe_lm(cfg: dict, depth: int, seed: int, *, attn: str = "full",
+                 remat: bool = False, compute_dtype=None):
+    """The routed LM (``MOE``: the JAX bench's widths with a switch FFN of
+    8 experts on every other block) on the card, f32 parameters seeded
+    with flax's initialisers."""
+    import torch
+
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.moe import MoETransformerLM
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+
+    with torch.device("cuda"):
+        model = MoETransformerLM(
+            vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
+            num_heads=cfg["heads"], attn_fn=make_attn_fn(attn), remat=remat,
+            dtype=torch.float32, compute_dtype=compute_dtype, **MOE)
+    init_like_flax(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def routed_blocks(model) -> int:
+    return sum(blk.ffn is not None for blk in model.blocks)
+
+
+def active_params(model) -> int:
+    """Parameters a token runs through: every expert FFN counts k of its
+    E experts (the router and the rest count in full)."""
+    n = sum(p.numel() for p in model.parameters())
+    for blk in model.blocks:
+        if blk.ffn is not None:
+            per_expert = sum(p[0].numel() for p in (blk.ffn.w1, blk.ffn.b1,
+                                                    blk.ffn.w2, blk.ffn.b2))
+            n -= (blk.ffn.n_experts - blk.ffn.k) * per_expert
+    return n
+
+
+def router_picks(model) -> tuple[list, list]:
+    """Forward hooks on every routed block's router recording each token's
+    top-1 expert; returns (the picks list, the hook handles)."""
+    picks, hooks = [], []
+    for blk in model.blocks:
+        if blk.ffn is not None:
+            hooks.append(blk.ffn.router.register_forward_hook(
+                lambda mod, args, out: picks.append(out.argmax(-1))))
+    return picks, hooks
+
+
+def phase_moe_prefill(cfg: dict, card: str) -> int:
+    """The routed LM's full forward at [4, 1024], bf16, through
+    ``make_attn_fn("auto")`` (K2 on the card) against ``full`` attention:
+    K2 launches equal depth × forwards, the logits within 2% of the
+    ``full`` forward's largest, the share of routing decisions the two
+    forwards take differently, tokens/s; returns K2's launches."""
+    import torch
+
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+
+    model = build_moe_lm(cfg, cfg["depth"], seed=6).to(
+        torch.bfloat16).eval().requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"routed LM has {n_params} parameters, want "
+                             f"{MOE_PARAMS}")
+    b, t = cfg["prefill_batch"], cfg["prefill_seq"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(1, cfg["vocab"], (b, t), generator=g, device="cuda")
+    rates, logits, picks = {}, {}, {}
+    with torch.no_grad():
+        for kind in ("full", "auto"):
+            model.set_attn_fn(make_attn_fn(kind))
+            seen, hooks = router_picks(model)
+            model(toks)                                   # warm
+            for h in hooks:
+                h.remove()
+            picks[kind] = torch.stack(seen)
+            torch.cuda.synchronize()
+            if kind == "auto":
+                zero_launches()
+            t0 = time.perf_counter()
+            for _ in range(LM_FORWARDS):
+                out = model(toks)
+            torch.cuda.synchronize()
+            rates[kind] = LM_FORWARDS * b * t / (time.perf_counter() - t0)
+            if kind == "auto":
+                launches = read_launches()["flash_attention"]
+            logits[kind] = out
+    ref, got = logits["full"], logits["auto"]
+    if got.shape != (b, t, cfg["vocab"]) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"routed prefill logits bad: {tuple(got.shape)}")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    flips = float((picks["auto"] != picks["full"]).float().mean())
+    say("moe_prefill", card=card, batch=b, seq=t, depth=model.depth,
+        routed_blocks=routed_blocks(model), n_params=n_params,
+        active_params=active_params(model), forwards=LM_FORWARDS,
+        flash_tokens_per_s=rates["auto"], full_tokens_per_s=rates["full"],
+        flash_launches=launches, flash_vs_full_max_rel_err=rel,
+        tolerance=2e-2, routing_decisions_differing=flips)
+    if launches != model.depth * LM_FORWARDS:
+        raise AssertionError(f"K2 launched {launches} times in "
+                             f"{LM_FORWARDS} routed forwards of depth "
+                             f"{model.depth}")
+    if not rel <= 2e-2:
+        raise AssertionError(f"routed flash forward off the full forward by "
+                             f"{rel} ({flips} of the routing decisions differ)")
+    model.set_attn_fn(make_attn_fn("auto"))
+    with torch.no_grad():
+        wall_ms, by_name, n = device_profile(lambda: model(toks))
+    busy_ms = sum(by_name.values())
+    say("moe_prefill_profile", card=card, wall_ms=wall_ms,
+        kernel_launches=n,
+        device_busy_ms=busy_ms if n else "not measured",
+        device_busy_share=busy_ms / wall_ms if n else "not measured",
+        top_kernels_ms=dict(by_name.most_common(8)))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_train(card: str) -> dict:
+    """The routed LM trained on the card through K2, K4 and K5 (f32
+    parameters, bf16 compute, seq 1024 × batch 8, fused AdamW): at depth
+    2, flash and ``full`` gradients agree (cosine ≥ 0.999, norms within
+    2%) in f32 and in bf16 compute with the ``full`` pass routed as the
+    flash pass was, and ``remat=True`` gives the same loss and gradients
+    within 1e-5 of the largest (its recompute runs K2 a second time a
+    block); at full width, ``MOE_TRAIN_STEPS`` steps on one batch with
+    finite, falling loss and a finite balance loss, K2/K4/K5 launches of
+    depth × steps, step ms, tokens/s, MFU over the active parameters, and
+    the dispatch and combine einsums' share of the step's device time,
+    read from the step's trace. Returns the launches of the counted steps
+    and of the remat check."""
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.engine.data_lm import TokenDataset
+    from idunno_tpu_torch.engine.train import adamw, flat_tx
+    from idunno_tpu_torch.engine.train_lm import (create_lm_train_state,
+                                                  make_lm_train_step,
+                                                  next_token_loss)
+    from idunno_tpu_torch.models.moe import (COMBINE_SPAN, DISPATCH_SPAN,
+                                             moe_aux_loss)
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+    from idunno_tpu_torch.utils.train_bench import (H100_BF16_FLOPS,
+                                                    lm_flops_per_token,
+                                                    train_bench_config)
+
+    cfg = train_bench_config("cuda")
+    b, t = cfg["batch"], cfg["seq"]
+    corpus = np.random.default_rng(1).integers(0, cfg["vocab"],
+                                               4 * b * (t + 1))
+    block = next(TokenDataset(corpus, t, seed=0).batches(b))
+    tokens = torch.from_numpy(block[:, :t]).to("cuda", torch.int64)
+    lm_cfg = dict(cfg, heads=cfg["heads"])
+    launches = {}
+
+    # depth 2 (block 1 routed): flash against full, held in f32 (K2, K4 and
+    # K5's f32 variants, where the two attentions agree to rounding and
+    # route alike) and in the bf16 compute the step trains in. Routing is
+    # a step function of the activations: in bf16 a token whose two best
+    # experts are near a tie may route apart under the two attentions'
+    # roundings, so there the full pass is held to the flash pass's
+    # experts (the share that would route apart is printed)
+    gate = {"min_cosine": 0.999, "max_norm_rel_diff": 0.02}
+    for dtype in (None, torch.bfloat16):
+        model = build_moe_lm(lm_cfg, 2, seed=7, attn="flash",
+                             compute_dtype=dtype)
+        picks = {}
+        for kind in ("flash", "full"):
+            model.set_attn_fn(make_attn_fn(kind))
+            seen, hooks = router_picks(model)
+            with torch.no_grad():
+                model(tokens)
+            for h in hooks:
+                h.remove()
+            picks[kind] = torch.stack(seen)
+        agree = grad_agreement(model, tokens, pin_routing=dtype is not None)
+        say("moe_train_grads", card=card, depth=2, compare="flash_vs_full",
+            dtype=("bfloat16 compute, float32 parameters, routing pinned"
+                   if dtype else "float32"),
+            routing_decisions_differing_unpinned=float(
+                (picks["flash"] != picks["full"]).float().mean()),
+            **agree, tolerance=gate)
+        if not (agree["min_cosine"] >= gate["min_cosine"]
+                and agree["max_norm_rel_diff"] <= gate["max_norm_rel_diff"]):
+            raise AssertionError(f"routed flash and full gradients disagree "
+                                 f"({dtype or torch.float32}): {agree}")
+        if dtype is None:
+            del model
+    small = model
+    grads, losses = {}, {}
+    for remat in (False, True):
+        small.remat = remat
+        small.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        zero_launches()
+        ce, _ = next_token_loss(small(tokens), tokens)
+        loss = ce + 0.01 * moe_aux_loss(small)
+        loss.backward()
+        torch.cuda.synchronize()
+        counted = read_launches()
+        losses[remat] = float(loss.detach())
+        grads[remat] = {n: p.grad.detach().clone()
+                        for n, p in small.named_parameters()}
+        if remat:
+            for name, n in counted.items():
+                launches[name] = launches.get(name, 0) + n
+            remat_launches = counted
+    worst = max(float((grads[True][n] - g).abs().max()
+                      / max(float(g.abs().max()), 1e-30))
+                for n, g in grads[False].items())
+    say("moe_train_remat", card=card, depth=2, loss=losses[False],
+        remat_loss=losses[True], max_grad_diff_rel=worst, tolerance=1e-5,
+        remat_launches=remat_launches)
+    if losses[True] != losses[False] or not worst <= 1e-5:
+        raise AssertionError(f"remat changes the step: losses {losses}, "
+                             f"largest gradient difference {worst}")
+    if (remat_launches["flash_attention"] != 2 * 2
+            or remat_launches["flash_attention_bwd_dq"] != 2):
+        raise AssertionError(f"remat launches {remat_launches}: want K2 "
+                             "twice a block (forward and recompute)")
+    del small, grads
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_moe_lm(lm_cfg, cfg["depth"], seed=8, attn="flash",
+                         compute_dtype=torch.bfloat16)
+    state = create_lm_train_state(
+        model, torch.Generator(device="cuda").manual_seed(8),
+        flat_tx(adamw(3e-4)))
+    step = make_lm_train_step(model, state.optimizer)
+    float(step(state, tokens)["loss"])                    # builds, warms
+    torch.cuda.synchronize()
+    zero_launches()
+    losses, auxes, times = [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+        auxes.append(float(metrics["aux"]))
+    counted = read_launches()
+    for name, n in counted.items():
+        launches[name] = launches.get(name, 0) + n
+    step_s = sorted(times)[len(times) // 2]
+    n_params = sum(p.numel() for p in model.parameters())
+    active = active_params(model)
+    tok_s = b * t / step_s
+    flops_tok = lm_flops_per_token(active, cfg)
+    mfu = tok_s * flops_tok / H100_BF16_FLOPS
+    state_bytes = sum(p.numel() * p.element_size() * 3
+                      for p in model.parameters())
+    say("moe_train", card=card, batch=b, seq=t, depth=cfg["depth"],
+        routed_blocks=routed_blocks(model), experts=MOE["n_experts"],
+        n_params=n_params, active_params=active, steps=MOE_TRAIN_STEPS,
+        losses=losses, aux=auxes, step_ms_median=step_s * 1e3,
+        step_ms=[x * 1e3 for x in times], tokens_per_s=tok_s, mfu=mfu,
+        mfu_formula=("tokens/s x (6 x active params + 12 x seq x dim x "
+                     "depth) / 989e12 (H100 SXM bf16 dense); active params"
+                     " count k=1 of the 8 experts of a routed block"),
+        params_and_adam_state_bytes=state_bytes,
+        peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+        launches=counted)
+    if (not all(math.isfinite(x) for x in losses + auxes)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"routed training loss not finite and falling: "
+                             f"{losses}, aux {auxes}")
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        if counted[name] != cfg["depth"] * MOE_TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {counted[name]} times in "
+                                 f"{MOE_TRAIN_STEPS} routed steps")
+
+    host = {}
+    wall_ms, by_name, n = device_profile(lambda: step(state, tokens), host,
+                                         labels=(DISPATCH_SPAN, COMBINE_SPAN))
+    busy_ms = sum(by_name.values())
+    flash_ms = sum(v for k, v in by_name.items()
+                   if "flash_fwd" in k or "flash_bwd" in k)
+    spans = host["labelled_ms"]
+    einsum_ms = sum(sum(v.values()) for v in spans.values())
+    del model, state, step
+    say("moe_train_profile", card=card, wall_ms=wall_ms, kernel_launches=n,
+        device_busy_ms=busy_ms if n else "not measured",
+        device_busy_share=busy_ms / wall_ms if n else "not measured",
+        flash_device_ms=flash_ms if n else "not measured",
+        dispatch_combine_device_ms=spans if n else "not measured",
+        dispatch_einsums_share_of_device=(einsum_ms / busy_ms if n
+                                          else "not measured"),
+        share_formula=("device ms of the kernels under SwitchFFN's "
+                       f"{DISPATCH_SPAN!r} and {COMBINE_SPAN!r} ranges and "
+                       "of their backward nodes, every routed block, / the "
+                       "step's device ms"),
+        top_kernels_ms=dict(by_name.most_common(10)))
+    if n and not 0 < einsum_ms < busy_ms:
+        raise AssertionError(f"dispatch/combine device ms {spans} outside "
+                             f"the step's {busy_ms} ms")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def loop_serve(srv, prompts, max_new: int, cfg: dict) -> tuple[dict, dict]:
+    """``prompts`` submitted to a warmed ``srv`` from two threads through
+    an LMServingLoop, with a span trace each, every stream checked for
+    its length and vocab: (served tokens/s, TTFT p50/p95 from
+    ``lm.admit`` start to ``lm.prefill`` end, the K3 launches of the run
+    and the like; the loop's stats)."""
+    from idunno_tpu_torch.serve.lm_pool import LMServingLoop
+    from idunno_tpu_torch.utils.spans import SpanStore
+
+    spans = SpanStore("chip")
+    loop = LMServingLoop(srv, name="lm", spans=spans)
+    traces: dict[int, str] = {}
+    errors: list[str] = []
+    lock = threading.Lock()
+
+    def client(ps):
+        try:
+            for p in ps:
+                tid = spans.new_trace()
+                rid = loop.submit(p, max_new=max_new, trace=(tid, None))
+                with lock:
+                    traces[rid] = tid
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    done = {}
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(prompts[i::2],))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        deadline = time.monotonic() + 600
+        while len(done) < len(prompts) and time.monotonic() < deadline:
+            for c in loop.poll():
+                done[c.id] = c
+            errors.extend(loop.errors())
+            if errors:
+                break
+            time.sleep(0.005)
+        wall = time.perf_counter() - t0
+        launches = read_launches()["paged_attention"]
+        stats = loop.stats()
+    finally:
+        loop.stop()
+    errors.extend(loop.errors())
+    if errors:
+        raise AssertionError(f"serving loop reported errors: {errors[:5]}")
+    if sorted(done) != sorted(traces) or len(done) != len(prompts):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests done")
+    want_len = cfg["prompt_len"] + max_new
+    for c in done.values():
+        if (len(c.tokens) != want_len or c.cancelled
+                or not all(0 <= x < cfg["vocab"] for x in c.tokens)):
+            raise AssertionError(f"request {c.id}: {len(c.tokens)} tokens, "
+                                 f"want {want_len} in the vocab")
+    ttft = []
+    wire = spans.dump()
+    for tid in traces.values():
+        mine = {s["name"]: s for s in wire if s["trace_id"] == tid}
+        ttft.append(mine["lm.prefill"]["t_end"] - mine["lm.admit"]["t_start"])
+    ttft.sort()
+    gen = sum(len(c.tokens) - c.prompt_len for c in done.values())
+    return {"requests": len(done), "wall_s": wall, "tokens_generated": gen,
+            "tokens_per_s": gen / wall, "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_p95_s": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+            "dispatches": stats["dispatches"],
+            "radix_hits": stats["prefix_cache"]["hits"],
+            "kv_gather_bytes_saved": stats["kv_gather_bytes_saved"],
+            "paged_launches": launches}, stats
+
+
+def phase_moe_serving(cfg: dict, card: str) -> None:
+    """The routed LM (bf16, full width) served from a gathered KV block
+    pool (``kv_block_size`` without ``paged_kernel``: the JAX package's
+    MoE pools), 16 slots, the shared-prefix prompts: a replayed and an
+    eager pool give equal greedy streams (all prompts submitted at once:
+    a routed row's output depends on the rows beside it); the replayed
+    pool then serves the prompts from two threads through an
+    LMServingLoop (tokens/s, TTFT p50/p95), and so does the dense LM of
+    the same widths on the same kind of pool; a routed pool with
+    ``paged_kernel="auto"`` raises."""
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    model = build_moe_lm(cfg, cfg["depth"], seed=6).to(
+        torch.bfloat16).eval().requires_grad_(False)
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    max_new = serving_max_new(cfg)
+    pool = lm_pool_kw(cfg, buckets)
+    try:
+        DecodeServer(model, paged_kernel="auto", device="cuda", **pool)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a routed pool took paged_kernel='auto'")
+    streams, hits, graphs = {}, {}, {}
+    for mode in ("graph", "eager"):
+        streams[mode], hits[mode], graphs[mode] = serve_streams(
+            model, prompts, max_new, decode_graph=mode, **pool)
+    hold_equal("moe_exactness", streams, depth=cfg["depth"],
+               dtype="bfloat16", pool="gathered", radix_hits=hits,
+               replayed={k: g["replayed"] for k, g in graphs.items()})
+    if hits["graph"] <= 0 or graphs["graph"]["replayed"] <= 0:
+        raise AssertionError(f"routed pool: radix hits {hits}, graphs "
+                             f"{graphs}")
+
+    served = {}
+    for arm in ("routed", "dense"):
+        if arm == "dense":
+            model = build_lm(cfg, "bf16", cfg["depth"], seed=6)
+        srv = DecodeServer(model, device="cuda", **pool)
+        warm_s = srv.warmup()
+        served[arm] = dict(loop_serve(srv, prompts, max_new, cfg)[0],
+                           warmup_s=warm_s, graphs=srv.graph_stats())
+        del srv, model
+        torch.cuda.empty_cache()
+    graph = served["routed"].pop("graphs")
+    say("moe_serving", card=card, slots=cfg["slots"],
+        pool="gathered block pool (kv_block_size 16, no paged_kernel)",
+        decode_graph=graph["mode"], dispatches_replayed=graph["replayed"],
+        dispatches_eager=graph["eager"], max_new=max_new,
+        **served["routed"], dense_same_pool=served["dense"],
+        routed_over_dense_tokens_per_s=(served["routed"]["tokens_per_s"]
+                                        / served["dense"]["tokens_per_s"]),
+        paged_kernel_refusal=refusal)
+    if graph["replayed"] <= 0:
+        raise AssertionError(f"no routed dispatch was replayed: {graph}")
+
+
+def phase_failed_capture(card: str) -> None:
+    """After a provoked failed CUDA-graph capture (a dispatch that reads
+    the card back, as ``tests/test_torch_kernels.py::
+    test_failed_capture_raises`` provokes it), the same pool serves a
+    sampled request, equal to an eager pool's stream from the same seed,
+    and a random draw on the card succeeds in the same process."""
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.transformer import TransformerLM
+
+    with torch.device("cuda"):
+        model = TransformerLM(vocab=257, dim=64, depth=2, num_heads=2)
+    init_like_flax(model, torch.Generator(device="cuda").manual_seed(1))
+    model.eval().requires_grad_(False)
+    srv = DecodeServer(model, slots=2, prompt_len=8, max_len=48,
+                       decode_graph="graph", device="cuda")
+    dispatch = srv._dispatch
+
+    def syncing(sampled):
+        dispatch(sampled)
+        return float(srv._cursors.sum())          # a host read
+
+    srv._dispatch = syncing
+    srv.submit([1, 2, 3], max_new=8)
+    try:
+        srv.run_until_drained()
+    except RuntimeError as e:
+        failure = f"{type(e).__name__}: {str(e)[:200]}"
+    else:
+        raise AssertionError("a syncing dispatch was captured")
+    rid = srv.submit([4, 5, 6, 7], max_new=24, temperature=0.9, seed=11)
+    got = {c.id: c.tokens for c in srv.run_until_drained()}[rid]
+    ref = DecodeServer(model, slots=2, prompt_len=8, max_len=48,
+                       decode_graph="eager", device="cuda")
+    ref_id = ref.submit([4, 5, 6, 7], max_new=24, temperature=0.9, seed=11)
+    want = {c.id: c.tokens for c in ref.run_until_drained()}[ref_id]
+    draw = torch.randn(1024, device="cuda")
+    say("failed_capture", card=card, failure=failure,
+        sampled_tokens=len(got) - 4, sampled_equals_eager_pool=got == want,
+        cuda_randn_finite=bool(torch.isfinite(draw).all()),
+        replayed=srv.graph_stats()["replayed"])
+    if got != want or not bool(torch.isfinite(draw).all()):
+        raise AssertionError("after a failed capture the pool's sampled "
+                             f"stream {got} differs from {want}")
 
 
 def phase_cnn_int8_s2d(dense, card: str) -> int:
@@ -2977,6 +3512,14 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         launches[name] += train[name]
+    # the routed FFN: prefill through K2, training through K2/K4/K5, served
+    launches["flash_attention"] += phase_moe_prefill(lm_cfg, smi)
+    moe = phase_moe_train(smi)
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        launches[name] += moe[name]
+    phase_moe_serving(lm_cfg, smi)
+    phase_failed_capture(smi)
 
     replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",
                 "flash_attention": "idunno_tpu/ops/flash_attention.py:71",

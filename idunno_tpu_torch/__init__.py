@@ -29,7 +29,12 @@ imports nothing of it and nothing of JAX. What is here so far:
   own format, ``store://`` datasets, the control RPC (``serve/control.py``:
   ``inference``, ``generate``, ``lm_serve``/``lm_submit``/``lm_poll``, ...),
   failover, the LM pool manager and autoscaler, the log grep and the
-  shell.
+  shell;
+- slice 11, the routed FFN: ``models/moe.py`` (``SwitchFFN``,
+  ``MoETransformerLM``, the balance loss) over the single-device
+  ``parallel/expert.py:switch_dispatch``, trained (``remat`` per block)
+  and served from the contiguous cache or a gathered block pool; the
+  CNNs' compute dtype beside their parameters' dtype.
 
 Every kernel runs on a CUDA tensor and falls to its plain PyTorch version
 only for a CPU tensor. ROADMAP.md lists what is still to port.
@@ -40,8 +45,10 @@ Package layout:
     comm        — transports (in-process, real sockets) + typed
                   control-plane messages
     membership  — join/heartbeat/failure detector
-    models      — ResNet / AlexNet, the folded stem, TransformerLM, the
-                  weight carry from flax
+    models      — ResNet / AlexNet, the folded stem, TransformerLM and
+                  its switch-MoE family, the weight carry from flax
+    parallel    — the single-device switch dispatch (meshes come with
+                  the parallelism slice)
     ops         — preprocessing, classification, attention (plain, flash,
                   paged), sampling
     engine      — batched CNN inference, LM generation, the KV block
@@ -67,6 +74,7 @@ _LAZY_API = {
     "ClusterConfig": ("idunno_tpu_torch.config", "ClusterConfig"),
     "EngineConfig": ("idunno_tpu_torch.config", "EngineConfig"),
     "TransformerLM": ("idunno_tpu_torch.models.transformer", "TransformerLM"),
+    "MoETransformerLM": ("idunno_tpu_torch.models.moe", "MoETransformerLM"),
     "DecodeServer": ("idunno_tpu_torch.engine.serve_lm", "DecodeServer"),
     "LMServingLoop": ("idunno_tpu_torch.serve.lm_pool", "LMServingLoop"),
     "generate": ("idunno_tpu_torch.engine.generate", "generate"),

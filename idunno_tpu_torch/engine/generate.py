@@ -200,8 +200,10 @@ def stepwise_logits(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
 # dtypes, by their names); the blob is the port's checkpoint format
 # (`engine/checkpoint.py`: JSON header + state dict) under ``lm.pt/<name>``,
 # one atomic store object, so any historical version pairs its architecture
-# with its own weights. A custom attention is code, not config, and is
-# refused; so is a routed FFN (MoE comes with the parallelism slice).
+# with its own weights. Dense and switch-MoE architectures persist (the MoE
+# factory publishes a declarative twin, `models/moe.py:switch_ffn_factory(
+# ...).lm_store_ffn`, stored as ``ffn``); a custom attention or a custom
+# ``ffn_factory`` is code, not config, and is refused.
 
 _LM_CONFIG_FIELDS = ("vocab", "dim", "depth", "num_heads",
                      "num_kv_heads", "causal", "ffn_every",
@@ -218,14 +220,16 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def lm_config(model: TransformerLM) -> dict:
     """The architecture `save_lm` stores beside the weights: the JAX
-    package's config fields plus the two dtypes, by their names."""
-    return {"vocab": model.vocab, "dim": model.dim, "depth": model.depth,
-            "num_heads": model.num_heads,
-            "num_kv_heads": model.num_kv_heads, "causal": model.causal,
-            "ffn_every": 1, "kv_cache_dtype": model.kv_cache_dtype,
-            "remat": False,
-            "dtype": _dtype_name(model.compute_dtype),
-            "param_dtype": _dtype_name(model.dtype)}
+    package's config fields, the routed FFN's declarative twin as ``ffn``
+    (a factory without one gives ``None``, which `save_lm` refuses), and
+    the two dtypes, by their names."""
+    config = {f: getattr(model, f) for f in _LM_CONFIG_FIELDS}
+    if model.ffn_factory is not None:
+        ffn = getattr(model.ffn_factory, "lm_store_ffn", None)
+        config["ffn"] = None if ffn is None else dict(ffn)
+    config["dtype"] = _dtype_name(model.compute_dtype)
+    config["param_dtype"] = _dtype_name(model.dtype)
+    return config
 
 
 def save_lm(store, name: str, model: TransformerLM) -> int:
@@ -239,12 +243,13 @@ def save_lm(store, name: str, model: TransformerLM) -> int:
             "(a custom attn_fn is code, not serializable config; "
             "set_attn_fn(full_attention) before saving if it is "
             "numerically equivalent)")
-    if getattr(model, "ffn_factory", None) is not None:
-        raise ValueError("save_lm stores dense LMs only (a routed FFN is "
-                         "not ported yet: ROADMAP.md)")
+    config = lm_config(model)
+    if model.ffn_factory is not None and config["ffn"] is None:
+        raise ValueError(
+            "save_lm stores dense or switch-MoE LMs only (this custom "
+            "ffn_factory is code, not serializable config)")
     return store.put_bytes(lm_store_name(name),
-                           encode_state(model.state_dict(),
-                                        {"lm": lm_config(model)}))
+                           encode_state(model.state_dict(), {"lm": config}))
 
 
 def load_lm(store, name: str, version: int | None = None,
@@ -263,9 +268,19 @@ def load_lm(store, name: str, version: int | None = None,
     if not isinstance(config, dict):
         raise ValueError(f"stored object {lm_store_name(name)!r} is not an "
                          "LM (its header has no 'lm' config)")
-    if config.get("ffn") is not None or int(config.get("ffn_every", 1)) != 1:
-        raise ValueError(f"stored LM {name!r} has a routed FFN, which is "
-                         "not ported yet (ROADMAP.md)")
+    ffn_factory = None
+    ffn = config.get("ffn")
+    if ffn is not None:
+        ffn = dict(ffn)
+        kind = ffn.pop("kind", None)
+        if kind != "switch":
+            raise ValueError(f"stored LM {name!r} uses unknown ffn kind "
+                             f"{kind!r}")
+        from idunno_tpu_torch.models.moe import switch_ffn_factory
+        ffn_factory = switch_ffn_factory(
+            n_experts=int(ffn["n_experts"]),
+            capacity_factor=float(ffn["capacity_factor"]),
+            hidden_ratio=int(ffn["hidden_ratio"]), k=int(ffn["k"]))
     param_dtype = getattr(torch, config["param_dtype"])
     compute_dtype = getattr(torch, config["dtype"])
     with torch.device("meta"):
@@ -273,7 +288,10 @@ def load_lm(store, name: str, version: int | None = None,
             vocab=config["vocab"], dim=config["dim"], depth=config["depth"],
             num_heads=config["num_heads"],
             num_kv_heads=config["num_kv_heads"], causal=config["causal"],
-            kv_cache_dtype=config["kv_cache_dtype"], dtype=param_dtype,
+            ffn_factory=ffn_factory,
+            ffn_every=int(config.get("ffn_every", 1)),
+            kv_cache_dtype=config["kv_cache_dtype"],
+            remat=bool(config.get("remat", False)), dtype=param_dtype,
             compute_dtype=(None if compute_dtype == param_dtype
                            else compute_dtype))
     model.load_state_dict(state, strict=True, assign=True)

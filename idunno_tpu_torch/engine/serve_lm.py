@@ -49,6 +49,13 @@ prefill pool and adopt them into a decode pool (``store/kv_chain.py``
 blobs). A fetched or adopted chain is a plain radix hit afterwards: on a
 paged pool the suffix prefill and every decode step attend it through K3.
 
+A routed model (``models/moe.py``: a ``ffn_factory`` on some blocks)
+serves as the JAX server serves it: from the contiguous cache or a
+gathered block pool, every row of a decode step (idle ones too) routed
+together, so a row's expert capacity depends on the batch as it does
+there; ``paged_kernel`` and a speculative pool over a routed target raise
+as they do there.
+
 What waits for later slices raises a ValueError naming ROADMAP.md: tensor
 parallelism (``mesh``, ``n_model > 1``).
 """
@@ -135,6 +142,29 @@ class Completion:
     rejected: str | None = None
     # admitted before the pool's first-ever decode dispatch
     cold_start: bool = False
+
+
+def _abandon_capture(dev: torch.device, pool, stream) -> None:
+    """Undo what a failed ``torch.cuda.graph`` capture leaves behind, so
+    the process keeps drawing on the card: when the recorded body raises,
+    ``capture_end`` raises too, and three things stay as the capture set
+    them. The graph's side stream stays current (its stream context is
+    never exited): ``stream``, current before, is made current again.
+    The caching allocator keeps ``pool`` among its captures under way
+    (and so never recycles cross-stream blocks): it is ended, where
+    ``capture_end`` did not get to end it. And the card's default
+    generator stays in capture mode, so every later random draw on the
+    card raises: it is given a fresh state with the same seed and offset."""
+    torch.cuda.set_stream(stream)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(idx, pool)
+    except RuntimeError:
+        pass                    # capture_end had ended it
+    gen = torch.cuda.default_generators[idx]
+    fresh = torch.Generator(device=dev)
+    fresh.set_state(gen.get_state())
+    gen.graphsafe_set_state(fresh)
 
 
 def _splice_prefix(cache: dict, prefix_cache: dict) -> dict:
@@ -425,6 +455,13 @@ class DecodeServer:
             raise ValueError("kv_cache_blocks needs kv_block_size > 0")
         if paged_kernel is not None and not self.kv_block_size:
             raise ValueError("paged_kernel needs kv_block_size > 0")
+        if paged_kernel is not None and getattr(model, "ffn_factory",
+                                                None) is not None:
+            # the JAX package threads the paged context through its
+            # scanned decode layout only, which routed blocks do not
+            # take: MoE pools keep the gathered path
+            raise ValueError("paged_kernel requires the scanned decode "
+                             "layout (dense scan-compatible blocks)")
         self.device = resolve_device(device)
         self.decode_graph = resolve_decode_graph(decode_graph, self.device)
         self.paged_kernel = (None if paged_kernel is None else
@@ -1469,17 +1506,28 @@ class DecodeServer:
     def _capture(self) -> _Replay:
         """Record the all-greedy dispatch as one CUDA graph (nothing runs:
         the state is untouched). The counted wrappers' launches made while
-        recording are taken back and added on each replay instead."""
+        recording are taken back and added on each replay instead. A body
+        that fails to record (one that syncs the host, say) raises, after
+        `_abandon_capture` has put the process back out of capture."""
         dev = self.device
         before = {fn: fn.launches for fn in _COUNTED}
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.current_stream(dev)
         # thread_local: the serving loop's other threads may touch the
         # card while this one records
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._dispatch(())
+        try:
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self._dispatch(())
+        except BaseException:
+            for fn in _COUNTED:
+                fn.launches = before[fn]
+            _abandon_capture(dev, pool, stream)
+            raise
         launches = {}
         for fn in _COUNTED:
             launches[fn] = fn.launches - before[fn]

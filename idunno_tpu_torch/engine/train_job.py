@@ -34,11 +34,10 @@ class OptStateLayoutMismatch(ValueError):
 
 
 # the JAX TransformerLM fields a job's model_config may carry (those
-# `save_lm` stores), with the one value the port supports for the two it
-# has no counterpart for
-_FIXED = {"ffn_every": 1, "remat": False}
+# `save_lm` stores); as in the JAX job, ``ffn_every`` without an FFN
+# factory leaves every block dense
 _FREE = ("vocab", "dim", "depth", "num_heads", "num_kv_heads", "causal",
-         "kv_cache_dtype", "dtype", "param_dtype")
+         "ffn_every", "kv_cache_dtype", "remat", "dtype", "param_dtype")
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -50,15 +49,11 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 def model_kwargs(model_config: dict[str, Any]) -> dict[str, Any]:
     """The port's ``TransformerLM`` keyword arguments for a JAX-style
-    ``model_config`` (the ``train_start`` wire form). Unknown fields, and
-    fields the port has no counterpart for at a non-default value, raise."""
+    ``model_config`` (the ``train_start`` wire form). Unknown fields
+    raise."""
     kw: dict[str, Any] = {}
     for key, value in model_config.items():
-        if key in _FIXED:
-            if value != _FIXED[key]:
-                raise ValueError(f"model_config {key}={value!r} is not "
-                                 "ported (ROADMAP.md)")
-        elif key not in _FREE:
+        if key not in _FREE:
             raise ValueError(f"model_config has no field {key!r}")
         elif key == "dtype":
             kw["compute_dtype"] = _torch_dtype(value)

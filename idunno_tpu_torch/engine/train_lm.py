@@ -2,9 +2,9 @@
 
 Next-token cross-entropy over a ``TransformerLM``, backward (through the
 flash kernels K2, K4 and K5 when the model attends with ``flash`` on a
-card), and one optimizer update, in place (``engine/train.py``). The MoE
-auxiliary loss waits for the MoE blocks: ``aux`` is 0 for the dense
-model. ``jit_lm_train_step`` has no counterpart: its mesh is slice 4.
+card), and one optimizer update, in place (``engine/train.py``). The
+routed FFN's balance loss (``models/moe.py:moe_aux_loss``) is added with a
+coefficient; it is 0 for the dense model. ``jit_lm_train_step`` has no counterpart: its mesh is slice 4.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from idunno_tpu_torch.engine.train import (TrainState, check_state,
                                            create_train_state)
+from idunno_tpu_torch.models.moe import moe_aux_loss
 from idunno_tpu_torch.models.transformer import TransformerLM
 
 # The LM's state is made as the CNN's: ``model`` on ``device`` (``None``:
@@ -52,14 +53,17 @@ def make_lm_train_step(model: TransformerLM,
     equal chunks, run one after another, their gradients summed and
     divided by ``accum_steps``, then ONE update: for the dense model the
     same gradients as the full batch (equal chunk means) up to f32
-    rounding, at 1 / ``accum_steps`` of the activation memory."""
+    rounding, at 1 / ``accum_steps`` of the activation memory. For a
+    routed model the balance loss is computed per chunk and averaged, as
+    the JAX step does: not the full batch's routing statistics."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps}: must be >= 1")
 
     def loss_fn(tokens):
         ce, acc = next_token_loss(model(tokens), tokens)
-        aux = torch.zeros((), device=tokens.device)
-        return ce + aux_coef * aux, torch.stack([ce.detach(), aux, acc])
+        aux = moe_aux_loss(model)
+        return ce + aux_coef * aux, torch.stack([ce.detach(), aux.detach(),
+                                                 acc])
 
     def train_step(state: TrainState, tokens: torch.Tensor) -> dict:
         check_state(state, model, optimizer)

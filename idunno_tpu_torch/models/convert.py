@@ -15,7 +15,8 @@ inverse of ``idunno_tpu/models/convert.py:convert_resnet/convert_alexnet``
   back to CHW order.
 - Transformer blocks (the LM's and ViT's): DenseGeneral q/k/v kernels
   [dim, H, hd] and the output kernel [H, hd, dim] flatten to the port's
-  Linear over H·hd (`_block_state_dict`).
+  Linear over H·hd (`_block_state_dict`); a routed block's ``ffn``
+  (``block{i}/ffn/router``, ``ffn/{w1,b1,w2,b2}``) comes across too.
 """
 from __future__ import annotations
 
@@ -159,6 +160,13 @@ def _block_state_dict(bp: dict, tp: str) -> dict[str, torch.Tensor]:
     kern = np.asarray(bp["attn"]["out"]["kernel"])         # [H, hd, dim]
     sd[f"{tp}.attn.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
     sd[f"{tp}.attn.out.bias"] = _t(bp["attn"]["out"]["bias"])
+    if "ffn" in bp:                     # a routed FFN (models/moe.py)
+        ffn = bp["ffn"]
+        sd[f"{tp}.ffn.router.weight"] = _dense(ffn["router"]["kernel"])
+        sd[f"{tp}.ffn.router.bias"] = _t(ffn["router"]["bias"])
+        for name in ("w1", "b1", "w2", "b2"):     # the JAX layout as it is
+            sd[f"{tp}.ffn.{name}"] = _t(ffn[name])
+        return sd
     for name in ("mlp_up", "mlp_down"):
         sd[f"{tp}.{name}.weight"] = _dense(bp[name]["kernel"])
         sd[f"{tp}.{name}.bias"] = _t(bp[name]["bias"])
@@ -171,7 +179,9 @@ def lm_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     ``head``). DenseGeneral q/k/v kernels are [dim, H, hd] and the output
     kernel [H, hd, dim]; they flatten to the port's Linear over H·hd.
     Dense kernels are (in, out) and transpose; LayerNorm ``scale`` is the
-    torch ``weight``. Tensors come out f32; ``load_state_dict`` casts them
+    torch ``weight``. A routed block's ``ffn`` carries its router (a
+    Dense) and its expert kernels ``w1``/``b1``/``w2``/``b2``, which keep
+    the JAX layout. Tensors come out f32; ``load_state_dict`` casts them
     to the model's dtype."""
     p = params.get("params", params)
     sd: dict[str, torch.Tensor] = {

@@ -18,21 +18,25 @@ from torch import nn
 from idunno_tpu_torch.models.stem_fold import FoldedStemConv
 
 # std of a standard normal truncated to [-2, 2]
-_TRUNC_STD = 0.87962566103423978
+TRUNC_STD = 0.87962566103423978
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     fan_in = w[0].numel()               # OIHW conv or (out, in) linear
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                  generator=generator)
 
 
 @torch.no_grad()
 def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-initialise every conv, linear and BatchNorm of ``module``."""
+    """Re-initialise every conv, linear and BatchNorm of ``module``, and
+    every submodule with its own ``reset_like_flax(generator)`` (the
+    routed FFN's expert kernels, ``models/moe.py``) by that."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear, FoldedStemConv)):
+        if hasattr(m, "reset_like_flax"):
+            m.reset_like_flax(generator)
+        elif isinstance(m, (nn.Conv2d, nn.Linear, FoldedStemConv)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

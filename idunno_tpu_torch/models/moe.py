@@ -1,0 +1,224 @@
+"""Mixture-of-experts model family (switch-routed FFN), a port of
+``idunno_tpu/models/moe.py``.
+
+A learned router picks the top-k experts per token (k=1 the Switch layer,
+k=2 the GShard configuration). Every expert FFN lives on the one device:
+this is the JAX module's dense path (``mesh=None``), which that package
+also keeps as the exact ground truth for its expert-parallel path. Expert
+parallelism (``mesh=``) raises until it is ported (ROADMAP.md §1, step
+3e).
+
+``MoETransformerLM`` is `models/transformer.py:TransformerLM` with the
+switch FFN plugged in through ``ffn_factory``: by default on every block;
+``moe_every=2`` gives the Switch-Transformer every-other-block layout.
+
+Numerics follow the JAX module op for op: the router is an f32 Dense over
+the f32 input, then a softmax; top-k takes the lowest index among equal
+probabilities, as ``jax.lax.top_k`` does (a stable descending sort:
+``torch.topk`` promises no order among ties); the dispatch and combine
+contractions run in f32; the expert FFN casts its tokens and kernels to
+the compute dtype, and its f32 biases promote the hidden layer to f32 as
+JAX's type promotion does.
+
+Training: top-1 routing collapses without pressure toward balance, so each
+layer keeps the Switch-Transformer auxiliary load-balancing loss
+(E · Σ_e frac_routed_e · mean_prob_e) of its last forward in ``aux``;
+``moe_aux_loss(model)`` sums them for adding to the task loss (the JAX
+module sows it into flax's ``"losses"`` collection).
+
+Nothing here reads a value back to the host or takes a shape from the
+data, so an all-greedy routed decode dispatch is recorded as one CUDA
+graph like a dense one.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from idunno_tpu_torch.models.init import TRUNC_STD
+from idunno_tpu_torch.models.transformer import AttnFn, Dense, TransformerLM
+from idunno_tpu_torch.ops.attention import full_attention
+from idunno_tpu_torch.parallel.expert import (expert_parallel_apply,
+                                              switch_dispatch)
+from idunno_tpu_torch.utils.tracing import annotate
+
+# profiler ranges around the [n, E, C] dispatch (building the tensors and
+# packing the expert buffers) and the combine: the kernels launched inside
+# each, and the backward of the ops recorded there, are its device time
+DISPATCH_SPAN, COMBINE_SPAN = "moe.dispatch", "moe.combine"
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    indices, the lower index first among equal values."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+class SwitchFFN(nn.Module):
+    """Top-k routed expert FFN. Input/output [B, T, dim].
+
+    ``k=1`` is the Switch-Transformer layer (gate = raw top prob); ``k>1``
+    is GShard-style top-k routing: each token is sent to its k best experts
+    with gates renormalised over the chosen k. Each (token, choice) pair is
+    its own routing unit, so capacity accounts for all k streams.
+
+    The compute dtype is the input's (the block hands over its activations
+    in the model's compute dtype); the expert weights keep the JAX
+    layout: ``w1`` [E, dim, hidden], ``b1`` [E, hidden], ``w2`` [E,
+    hidden, dim], ``b2`` [E, dim]."""
+
+    # int8 serving (ops/quantize.py) reads these back in f32: the JAX
+    # package's dequantize returns f32, and these are the tensors its
+    # module consumes without a cast to the compute dtype
+    int8_dtypes = {"b1": torch.float32, "b2": torch.float32}
+
+    def __init__(self, dim: int, hidden: int, n_experts: int, k: int = 1,
+                 capacity_factor: float = 2.0, mesh=None) -> None:
+        super().__init__()
+        if mesh is not None:
+            expert_parallel_apply()
+        if not 1 <= k <= n_experts:
+            raise ValueError(f"k={k}: want 1..{n_experts}")
+        self.dim, self.hidden, self.n_experts = dim, hidden, n_experts
+        self.k, self.capacity_factor = k, capacity_factor
+        self.router = Dense(dim, n_experts)
+        self.router.int8_dtypes = {"weight": torch.float32}
+        e = n_experts
+        self.w1 = nn.Parameter(torch.empty(e, dim, hidden))
+        self.b1 = nn.Parameter(torch.zeros(e, hidden))
+        self.w2 = nn.Parameter(torch.empty(e, hidden, dim))
+        self.b2 = nn.Parameter(torch.zeros(e, dim))
+        # the balance loss of the last forward (see moe_aux_loss)
+        self.aux: torch.Tensor | None = None
+
+    def __getstate__(self):
+        # a copy (``copy.deepcopy`` of a served model) leaves the last
+        # forward's loss behind: a tensor inside an autograd graph cannot
+        # be deep-copied
+        return {**self.__dict__, "aux": None}
+
+    @torch.no_grad()
+    def reset_like_flax(self, generator: torch.Generator) -> None:
+        """flax's ``lecun_normal`` on the [E, in, out] kernels (fan_in is
+        in × E there: the expert axis counts as receptive field), zero
+        biases; the router is a Dense and is seeded as one."""
+        for w in (self.w1, self.w2):
+            std = math.sqrt(1.0 / (w.shape[0] * w.shape[1])) / TRUNC_STD
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+        nn.init.zeros_(self.b1)
+        nn.init.zeros_(self.b2)
+
+    def capacity(self, tokens_per_shard: int) -> int:
+        # floor at k: one token's k choices can all land on one expert, and
+        # for tiny token counts (single-token decode steps) the proportional
+        # capacity would otherwise guarantee dropped streams
+        return max(self.k, int(self.capacity_factor * tokens_per_shard
+                               / self.n_experts))
+
+    def _experts(self, toks: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Every expert's FFN on its [C, dim] buffer, batched over E: the
+        JAX ``vmap(expert_fn)``. Returns f32 [E, C, dim]."""
+        w1, b1, w2, b2 = self.w1, self.b1, self.w2, self.b2   # read once
+        h = torch.matmul(toks.to(dtype), w1.to(dtype)) + b1[:, None, :]
+        g = F.gelu(h, approximate="tanh")
+        # JAX promotes the bf16 kernel to the hidden layer's f32
+        out = torch.matmul(g, w2.to(dtype).to(g.dtype)) + b2[:, None, :]
+        return out.to(torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        n, e = b * t, self.n_experts
+        probs = torch.softmax(
+            self.router(x.to(torch.float32)).reshape(n, e), dim=-1)
+        topk_w, topk_idx = top_k(probs, self.k)                  # [n, k]
+        if self.k == 1:
+            gate_idx, gate_w = topk_idx[:, 0], topk_w[:, 0]      # switch
+        else:
+            # GShard top-k: renormalise the chosen gates; flatten so every
+            # (token, choice) is one routing unit in dispatch order
+            # [t0c0, t0c1, ..., t1c0, ...]
+            topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True)
+            gate_idx, gate_w = topk_idx.reshape(-1), topk_w.reshape(-1)
+
+        # Switch-Transformer load-balance loss: E · Σ_e f_e · P_e with f_e
+        # the top-1 routing fraction, minimized (=1) at uniform routing
+        experts = torch.arange(e, device=x.device)
+        frac = (topk_idx[:, :1] == experts).to(torch.float32).mean(dim=0)
+        self.aux = e * torch.sum(frac * probs.mean(dim=0))
+
+        flat = x.reshape(n, d)
+        if self.k > 1:
+            flat = flat[:, None].expand(n, self.k, d).reshape(n * self.k, d)
+        with annotate(DISPATCH_SPAN):
+            dispatch, combine = switch_dispatch(
+                gate_idx, gate_w, e, self.capacity(n * self.k))
+            buf = torch.einsum("nec,nd->ecd", dispatch,
+                               flat.to(torch.float32))
+        done = self._experts(buf, x.dtype)
+        with annotate(COMBINE_SPAN):
+            out = torch.einsum("ecd,nec->nd", done, combine)
+        if self.k > 1:
+            out = out.reshape(n, self.k, d).sum(dim=1)           # combine k
+        return out.reshape(b, t, d).to(x.dtype)
+
+
+def switch_ffn_factory(n_experts: int, capacity_factor: float = 2.0,
+                       mesh=None, hidden_ratio: int = 4, k: int = 1):
+    """An ``ffn_factory`` for `TransformerLM`: ``make(dim)`` builds a
+    SwitchFFN in place of a block's dense MLP."""
+    if mesh is not None:
+        expert_parallel_apply()
+
+    def make(dim: int) -> nn.Module:
+        return SwitchFFN(dim=dim, hidden=dim * hidden_ratio,
+                         n_experts=n_experts, k=k,
+                         capacity_factor=capacity_factor)
+    # declarative twin of this factory so `engine/generate.py:save_lm` can
+    # persist MoE architectures (the JAX package's keys)
+    make.lm_store_ffn = {"kind": "switch", "n_experts": n_experts,
+                         "capacity_factor": capacity_factor,
+                         "hidden_ratio": hidden_ratio, "k": k}
+    return make
+
+
+def MoETransformerLM(vocab: int = 1024, dim: int = 128, depth: int = 2,
+                     num_heads: int = 4, n_experts: int = 4,
+                     capacity_factor: float = 2.0, causal: bool = True,
+                     attn_fn: AttnFn = full_attention, mesh=None,
+                     moe_every: int = 1,
+                     hidden_ratio: int = 4, k: int = 1, remat: bool = False,
+                     dtype: torch.dtype = torch.float32,
+                     compute_dtype: torch.dtype | None = None
+                     ) -> TransformerLM:
+    """Causal LM with switch-MoE FFNs: `TransformerLM` with the expert
+    layer plugged in every ``moe_every``-th block (1 = all blocks, 2 = the
+    Switch-Transformer interleave); ``k`` routes each token to its top-k
+    experts (GShard top-2 when k=2). ``dtype`` is the parameters' dtype,
+    ``compute_dtype`` the activations' (flax's ``param_dtype`` and
+    ``dtype``)."""
+    return TransformerLM(
+        vocab=vocab, dim=dim, depth=depth, num_heads=num_heads,
+        causal=causal, attn_fn=attn_fn,
+        ffn_factory=switch_ffn_factory(n_experts, capacity_factor, mesh,
+                                       hidden_ratio=hidden_ratio, k=k),
+        ffn_every=moe_every, remat=remat, dtype=dtype,
+        compute_dtype=compute_dtype)
+
+
+def moe_aux_loss(model: nn.Module) -> torch.Tensor:
+    """The sum of every routed block's balance loss from ``model``'s last
+    forward (0 for a model without one), on the model's device."""
+    auxes = [m.aux for m in model.modules()
+             if isinstance(m, SwitchFFN) and m.aux is not None]
+    if not auxes:
+        return torch.zeros((), device=next(model.parameters()).device)
+    return torch.stack(auxes).sum()
+
+
+__all__ = ["COMBINE_SPAN", "DISPATCH_SPAN", "SwitchFFN", "MoETransformerLM", "moe_aux_loss",
+           "switch_ffn_factory", "top_k"]

@@ -10,9 +10,15 @@ v1.5 layout), a strided projection at stage entry, global average pool,
 1000-way FC.
 
 Inputs are NCHW; the engine hands them over in ``channels_last`` memory,
-which is the NHWC layout the preprocess kernel writes. The compute dtype is
-the parameters' dtype (bf16 on the card, f32 in the CPU tests); logits come
-back in f32. Padding is explicit, torch-style, as the JAX module spells it
+which is the NHWC layout the preprocess kernel writes. ``compute_dtype`` is
+the activations' dtype (flax's ``dtype``); by default it is the
+parameters' dtype (the serving engine's bf16 weights compute in bf16, the
+CPU tests' f32 in f32). ``compute_dtype=torch.bfloat16`` over f32
+parameters is the JAX module's default split, which its train step runs:
+convs and the FC cast their f32 weights to bf16 (``models/mixed.py``), and
+BatchNorm keeps f32 statistics, f32 running averages and f32 scale and
+bias, normalizing in f32 into bf16 as flax's ``BatchNorm(dtype=bfloat16,
+param_dtype=float32)`` does. Logits come back in f32. Padding is explicit, torch-style, as the JAX module spells it
 (``resnet.py:80,115,172``), and the max-pool pads with -inf
 (``nn.MaxPool2d(3, 2, 1)``), as ``nn.max_pool`` does.
 """
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from idunno_tpu_torch.models.init import init_like_flax
+from idunno_tpu_torch.models.mixed import Conv2d, Dense
 from idunno_tpu_torch.models.stem_fold import FoldedStemConv
 
 
@@ -31,7 +38,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     training it normalizes with the batch statistics, as torch does, but
     folds the *biased* batch variance into ``running_var``, where torch
     folds the unbiased one (n / (n - 1) larger, n = batch x height x
-    width). Eval reads the running statistics, as torch does.
+    width). Eval reads the running statistics, as torch does. An input in
+    another dtype than the parameters' (bf16 activations over f32
+    parameters) takes torch's mixed-type kernel: f32 statistics, scale
+    and shift, the output in the input's dtype.
 
     torch's own update runs, then the unbiased share is scaled back on
     the per-channel vectors: with ``keep = (1 - momentum) * var0``, torch
@@ -52,7 +62,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-class _S2DStem(nn.Conv2d):
+class _S2DStem(Conv2d):
     """The 7x7/stride-2 stem conv recast as a 4x4/stride-1 conv over the
     2x2 space-to-depth input [B, 4C, H/2, W/2] (``idunno_tpu/models/
     resnet.py:_S2DStem``, the MLPerf-ResNet trick): no stride, and 4·4·12
@@ -74,7 +84,7 @@ class _S2DStem(nn.Conv2d):
             raise ValueError(f"space-to-depth stem needs even spatial dims, "
                              f"got {h}x{w}")
         f = self.out_channels
-        k = F.pad(self.weight, (1, 0, 1, 0))             # [F, C, 8, 8]
+        k = F.pad(self.weight.to(x.dtype), (1, 0, 1, 0))  # [F, C, 8, 8]
         k = (k.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
              .reshape(f, 4 * c, 4, 4))                  # (dy, dx, C) taps
         xs = (x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
@@ -89,9 +99,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, filters: int, stride: int) -> None:
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, filters, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, filters, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(filters)
-        self.conv2 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(filters, filters, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(filters)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _projection(in_ch, filters, stride)
@@ -116,11 +126,11 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, filters: int, stride: int) -> None:
         super().__init__()
         out_ch = filters * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, filters, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, filters, 1, bias=False)
         self.bn1 = BatchNorm2d(filters)
-        self.conv2 = nn.Conv2d(filters, filters, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(filters, filters, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(filters)
-        self.conv3 = nn.Conv2d(filters, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(filters, out_ch, 1, bias=False)
         self.bn3 = BatchNorm2d(out_ch)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = _projection(in_ch, out_ch, stride)
@@ -141,7 +151,7 @@ def _projection(in_ch: int, out_ch: int, stride: int) -> nn.Sequential | None:
     """The strided 1x1 projection where the block changes shape."""
     if stride == 1 and in_ch == out_ch:
         return None
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride, bias=False),
+    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, bias=False),
                          BatchNorm2d(out_ch))
 
 
@@ -154,12 +164,15 @@ class ResNet(nn.Module):
     inputs, with the same parameters and mathematically identical
     outputs. ``stem_s2d`` runs the stem as the space-to-depth conv
     (`_S2DStem`), with the same parameters and outputs. Both recast the
-    stem, so they exclude each other."""
+    stem, so they exclude each other. ``compute_dtype`` is the activations'
+    dtype (``None``: the parameters')."""
 
     def __init__(self, stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock,
                  num_classes: int = 1000, num_filters: int = 64,
-                 stem_s2d: bool = False, fold_preprocess: bool = False) -> None:
+                 stem_s2d: bool = False, fold_preprocess: bool = False,
+                 compute_dtype: torch.dtype | None = None) -> None:
         super().__init__()
+        self._compute_dtype = compute_dtype
         if stem_s2d and fold_preprocess:
             raise ValueError("stem_s2d and fold_preprocess both recast the "
                              "stem conv; pick one")
@@ -169,7 +182,7 @@ class ResNet(nn.Module):
         elif stem_s2d:
             self.conv1 = _S2DStem(3, num_filters)
         else:
-            self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
+            self.conv1 = Conv2d(3, num_filters, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(num_filters)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -183,7 +196,7 @@ class ResNet(nn.Module):
                 in_ch = filters * block_cls.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
-        self.fc = nn.Linear(in_ch, num_classes)
+        self.fc = Dense(in_ch, num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -194,8 +207,13 @@ class ResNet(nn.Module):
             if isinstance(m, (BasicBlock, Bottleneck)):
                 nn.init.zeros_(m.last_bn.weight)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The activations' dtype; the parameters' unless set."""
+        return self._compute_dtype or self.bn1.weight.dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.bn1.weight.dtype)
+        x = x.to(self.compute_dtype)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for stage in range(self.n_stages):
             x = getattr(self, f"layer{stage + 1}")(x)

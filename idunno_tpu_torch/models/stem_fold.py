@@ -51,7 +51,8 @@ class FoldedStemConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight = self.weight        # read once: an int8 weight dequantizes
-        dtype = weight.dtype
+        # the compute dtype: the model hands over its activations' dtype
+        dtype = x.dtype if x.is_floating_point() else weight.dtype
         x = x.to(dtype)
         h, w = x.shape[2], x.shape[3]
         wf = weight.to(torch.float32)
@@ -63,8 +64,8 @@ class FoldedStemConv(nn.Module):
         cimg = torch.cat([torch.full((1, 1, h, w), v, dtype=dtype,
                                      device=x.device) for v in self.shift],
                          dim=1)
-        y = y + F.conv2d(cimg, weight, stride=self.stride,
+        y = y + F.conv2d(cimg, weight.to(dtype), stride=self.stride,
                          padding=self.padding)
         if self.bias is not None:
-            y = y + self.bias[None, :, None, None]
+            y = y + self.bias.to(dtype)[None, :, None, None]
         return y

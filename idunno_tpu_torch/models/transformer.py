@@ -2,8 +2,10 @@
 
 A port of ``idunno_tpu/models/transformer.py``: ``rope``,
 ``MultiHeadAttention`` (GQA, the int8 KV cache, scalar and per-row decode
-cursors, the paged split with its merge), ``Block``, ``TransformerLM``,
-``make_attn_fn`` and ``decode_apply``. Parameter names follow the flax
+cursors, the paged split with its merge), ``Block`` (a dense MLP or a
+pluggable FFN), ``TransformerLM`` (``ffn_factory``/``ffn_every``, the
+routed FFN of ``models/moe.py``; ``remat``), ``make_attn_fn`` and
+``decode_apply``. Parameter names follow the flax
 tree (``models/convert.py:lm_state_dict_from_flax`` carries the JAX
 package's weights across).
 
@@ -42,7 +44,9 @@ from collections.abc import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from idunno_tpu_torch.models.mixed import Dense
 from idunno_tpu_torch.ops.attention import full_attention
 from idunno_tpu_torch.ops.paged_attention import (PagedContext,
                                                   merge_attention,
@@ -150,15 +154,6 @@ def _softmax_parts(scores: torch.Tensor):
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     return m, p, p.sum(dim=-1, keepdim=True)
-
-
-class Dense(nn.Linear):
-    """``nn.Linear`` that casts its weight and bias to the input's dtype
-    before the product (flax ``Dense`` with ``dtype`` = the compute dtype;
-    a no-op when the dtypes agree)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -356,12 +351,16 @@ class MultiHeadAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN block: attention and a GELU (tanh) MLP, flax epsilon."""
+    """Pre-LN block: attention and a GELU (tanh) MLP, flax epsilon. ``ffn``
+    replaces the dense MLP with another FFN module (a routed one,
+    ``models/moe.py:SwitchFFN``), stored under the name ``ffn`` as the JAX
+    block stores it."""
 
     def __init__(self, dim: int, num_heads: int,
                  num_kv_heads: int | None = None, mlp_ratio: int = 4,
                  causal: bool = True, attn_fn: AttnFn = full_attention,
-                 use_rope: bool = True, kv_cache_dtype: str = "native") -> None:
+                 use_rope: bool = True, kv_cache_dtype: str = "native",
+                 ffn: nn.Module | None = None) -> None:
         super().__init__()
         self.ln1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = MultiHeadAttention(dim, num_heads,
@@ -370,10 +369,14 @@ class Block(nn.Module):
                                        use_rope=use_rope,
                                        kv_cache_dtype=kv_cache_dtype)
         self.ln2 = LayerNorm(dim, eps=LN_EPS)
-        self.mlp_up = Dense(dim, dim * mlp_ratio)
-        self.mlp_down = Dense(dim * mlp_ratio, dim)
+        self.ffn = ffn
+        if ffn is None:
+            self.mlp_up = Dense(dim, dim * mlp_ratio)
+            self.mlp_down = Dense(dim * mlp_ratio, dim)
 
     def _mlp(self, x):
+        if self.ffn is not None:
+            return self.ffn(x)
         return self.mlp_down(F.gelu(self.mlp_up(x), approximate="tanh"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -387,27 +390,44 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Minimal causal LM (the JAX package's ``TransformerLM`` with dense
-    blocks). ``dtype`` is the parameters' dtype; ``compute_dtype`` the
-    activations' (flax's ``dtype``), by default ``None``: the parameters'
-    dtype. The logits come out in f32."""
+    """Minimal causal LM (the JAX package's ``TransformerLM``). ``dtype`` is
+    the parameters' dtype; ``compute_dtype`` the activations' (flax's
+    ``dtype``), by default ``None``: the parameters' dtype. The logits come
+    out in f32.
+
+    ``ffn_factory`` (``make(dim) -> nn.Module``, e.g.
+    ``models/moe.py:switch_ffn_factory``) swaps the dense MLP for another
+    FFN on every ``ffn_every``-th block, counting from the last block
+    backwards (the Switch-Transformer interleave: the last block always
+    has it); the remaining blocks keep the dense MLP. ``remat`` recomputes
+    each block's activations in the backward pass instead of storing
+    them (``torch.utils.checkpoint``; flax's ``nn.remat``): the same
+    values, activation memory O(T·d) instead of O(depth·T·d), at about a
+    third more FLOPs."""
 
     def __init__(self, vocab: int = 1024, dim: int = 128, depth: int = 2,
                  num_heads: int = 4, num_kv_heads: int | None = None,
                  causal: bool = True, attn_fn: AttnFn = full_attention,
-                 kv_cache_dtype: str = "native",
-                 dtype: torch.dtype = torch.float32,
+                 ffn_factory: Callable[[int], nn.Module] | None = None,
+                 ffn_every: int = 1, kv_cache_dtype: str = "native",
+                 remat: bool = False, dtype: torch.dtype = torch.float32,
                  compute_dtype: torch.dtype | None = None) -> None:
         super().__init__()
+        if ffn_every < 1:
+            raise ValueError(f"ffn_every={ffn_every}: must be >= 1")
         self._compute_dtype = compute_dtype
         self.vocab, self.dim, self.depth = vocab, dim, depth
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.causal, self.kv_cache_dtype = causal, kv_cache_dtype
+        self.ffn_factory, self.ffn_every = ffn_factory, ffn_every
+        self.remat = remat
         self.embed = nn.Embedding(vocab, dim)
         self.blocks = nn.ModuleList(
             Block(dim, num_heads, num_kv_heads=num_kv_heads, causal=causal,
-                  attn_fn=attn_fn, kv_cache_dtype=kv_cache_dtype)
-            for _ in range(depth))
+                  attn_fn=attn_fn, kv_cache_dtype=kv_cache_dtype,
+                  ffn=(ffn_factory(dim) if ffn_factory is not None
+                       and (depth - 1 - i) % ffn_every == 0 else None))
+            for i in range(depth))
         self.ln_f = LayerNorm(dim, eps=LN_EPS)
         self.head = Dense(dim, vocab)
         self.to(dtype)
@@ -435,8 +455,11 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed(tokens).to(self.compute_dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            # the model draws no random numbers: no RNG state to stash
+            x = (checkpoint(blk, x, use_reentrant=False,
+                            preserve_rng_state=False) if remat else blk(x))
         return self.head(self.ln_f(x)).to(torch.float32)
 
 

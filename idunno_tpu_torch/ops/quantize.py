@@ -30,6 +30,12 @@ grouping first (`flax_view`):
 - any other parameter of two or more dimensions keeps flax's layout (ViT's
   ``cls`` and ``pos_embed``): one scale per index of its last axis.
 
+A weight is read back in its own dtype, the dtype every consumer in the
+dense models casts it to anyway; a module names the weights it consumes
+without such a cast in ``int8_dtypes`` (``{name: torch.float32}``: the
+routed FFN's router and biases), which read back in f32 as the JAX
+package's dequantize returns them.
+
 ``absmax / 127.0`` is computed in the weight's own dtype, as JAX does
 (its Python float is weakly typed), then cast to f32; both round half to
 even, so ``q`` and ``scale`` are bit-equal to the JAX package's for the
@@ -141,8 +147,11 @@ def quantize_tree(model: nn.Module,
                 continue
             del mod._parameters[name]
             mod.register_buffer(name, p.detach())
+            dtype = getattr(mod, "int8_dtypes", {}).get(name, p.dtype)
+            # unsafe: the read-back dtype may differ from the stored one
             parametrize.register_parametrization(
-                mod, name, _Dequantize(view, axis, p.dtype))
+                mod, name, _Dequantize(view, axis, dtype),
+                unsafe=dtype != p.dtype)
     return model
 
 

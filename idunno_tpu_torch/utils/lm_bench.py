@@ -8,15 +8,19 @@
   flash_bwd — the gradient of that forward through the flash backward
               kernels K4 and K5 (``ops/flash_attention.py:FlashAttention``;
               their plain versions on the CPU).
-  decode    — ``DecodeServer`` steady state through the paged KV pool (K3
-              on the card, each all-greedy dispatch one CUDA-graph
-              replay): all slots live, ``decode_steps`` tokens a dispatch,
-              timed over K dispatches after the warm-up and admission.
-              Decode streams every weight once a step, so the record
-              carries the implied weight-stream bandwidth beside the MFU.
+  decode    — ``DecodeServer`` steady state from the contiguous KV cache,
+              the JAX suite's pool (each all-greedy dispatch one
+              CUDA-graph replay on the card): all slots live,
+              ``decode_steps`` tokens a dispatch, timed over K dispatches
+              after the warm-up and admission. Decode streams every weight
+              once a step, so the record carries the implied weight-stream
+              bandwidth beside the MFU.
+  paged_k3  — the same steady decode through a paged KV block pool whose
+              every step attends through K3 (an extra arm of the record,
+              beside the headline).
   speculative, speculative_trained, int8_decode, gqa_decode,
   decode_slots_scaling
-            — the JAX bench's comparison points on the same pool.
+            — the JAX bench's comparison points on the contiguous pool.
 
 The suites behind ``python -m idunno_tpu_torch.bench`` (``BENCH_SUITE``):
 ``run_lm_bench`` (lm), ``run_lm_slots_bench``, ``run_lm_prefix_bench``,
@@ -25,8 +29,13 @@ The suites behind ``python -m idunno_tpu_torch.bench`` (``BENCH_SUITE``):
 ``run_lm_autoscale_bench``, ``run_lm_gray_bench``; ``run_lm_tp_bench``
 raises until tensor parallelism is ported. Each takes ``platform``
 (``"cuda"`` or ``"cpu"``: the device it runs on) and returns the JAX
-suite's record keys. Every pool with a KV block pool attends through K3
-(``paged_kernel="auto"``) unless the JAX suite's point is the gathered one.
+suite's record keys. Each headline serves from the JAX suite's own pool:
+the contiguous cache (``lm``, ``lm_slots``, ``lm_gateway``,
+``lm_autoscale``, ``lm_gray``) or a gathered KV block pool, radix hits
+copied back into the slot cache (``gathered_pool_kw``: ``lm_prefix``,
+``lm_cluster_prefix``, ``lm_distserve``); ``lm_paged`` sets the gathered
+and the K3 pools side by side, and ``lm`` and ``lm_prefix`` carry a
+``paged_k3`` arm (``paged_pool_kw``: hits read in place through K3).
 
 Every knob is env-overridable (``BENCH_LM_*``, as in the JAX bench).
 ``lm_bench_config`` keeps the JAX bench's TPU sizes for the card, and
@@ -191,11 +200,19 @@ def _block_size(platform: str) -> int:
     return _env_int("BENCH_LM_KV_BLOCK", 16 if platform == "cuda" else 4)
 
 
-def paged_pool_kw(block: int, slots: int, prompt_len: int) -> dict:
+def gathered_pool_kw(block: int, slots: int, prompt_len: int) -> dict:
     """A KV block pool of ``block``-token blocks, one chain a slot plus
-    one, read in place through K3 (``paged_kernel="auto"``)."""
-    return dict(kv_block_size=block, paged_kernel="auto",
+    one, whose radix hits are gathered back into the slot cache (no
+    ``paged_kernel``): the JAX suites' block pool."""
+    return dict(kv_block_size=block,
                 kv_cache_blocks=(slots + 1) * -(-prompt_len // block))
+
+
+def paged_pool_kw(block: int, slots: int, prompt_len: int) -> dict:
+    """`gathered_pool_kw`'s pool read in place through K3
+    (``paged_kernel="auto"``)."""
+    return dict(gathered_pool_kw(block, slots, prompt_len),
+                paged_kernel="auto")
 
 
 def _base_record(cfg: dict, platform: str, device_kind: str,
@@ -225,7 +242,6 @@ def _trained_spec_point(platform: str, cfg: dict, base_tok_s_note: str
     vocab_sub = min(cfg["vocab"], 512)
     seq, batch = 128, 16
     rng = np.random.default_rng(42)
-    block = _block_size(platform)
 
     def model(dim, depth, heads):
         return TransformerLM(vocab=cfg["vocab"], dim=dim, depth=depth,
@@ -276,8 +292,7 @@ def _trained_spec_point(platform: str, cfg: dict, base_tok_s_note: str
                 srv.stats()["dispatches"] - disp0)
 
     pool = dict(slots=cfg["slots"], prompt_len=prompt_len,
-                max_len=cfg["max_len"], device=dev,
-                **paged_pool_kw(block, cfg["slots"], prompt_len))
+                max_len=cfg["max_len"], device=dev)
     plain = DecodeServer(target, decode_steps=cfg["decode_steps"], **pool)
     plain.submit([1, 2, 3], max_new=cfg["decode_steps"] + 1)
     plain.run_until_drained()                                 # build
@@ -473,19 +488,22 @@ def run_lm_bench(platform: str, device_kind: str, n_devices: int,
     model.set_attn_fn(make_attn_fn("full"))
 
     # -- steady-state decode ----------------------------------------------
-    def measure_pool(m, slots=None, trace_name=None, **server_kw):
-        """Build a paged pool, pay its kernel builds and graph capture on
-        a warm-up request and the first dispatch, then measure steady-
-        state decode tokens/s — the shared protocol for the plain/int8/
-        GQA/slot-scaling points. Returns (tok/s, timed dispatches,
-        seconds/dispatch, warm-up seconds). With ``trace_name`` and
-        BENCH_TRACE=1, one extra dispatch runs under the profiler into
-        ``.trace/<trace_name>``."""
+    def measure_pool(m, slots=None, trace_name=None, paged=False,
+                     **server_kw):
+        """Build a pool (contiguous, as the JAX suite's; ``paged``: a
+        block pool read through K3), pay its kernel builds and graph
+        capture on a warm-up request and the first dispatch, then measure
+        steady-state decode tokens/s — the shared protocol for the
+        plain/paged/int8/GQA/slot-scaling points. Returns (tok/s, timed
+        dispatches, seconds/dispatch, warm-up seconds). With
+        ``trace_name`` and BENCH_TRACE=1, one extra dispatch runs under
+        the profiler into ``.trace/<trace_name>``."""
         s = slots or cfg["slots"]
+        if paged:
+            server_kw.update(paged_pool_kw(block, s, cfg["prompt_len"]))
         srv = DecodeServer(m, slots=s, prompt_len=cfg["prompt_len"],
                            max_len=cfg["max_len"],
                            decode_steps=cfg["decode_steps"], device=dev,
-                           **paged_pool_kw(block, s, cfg["prompt_len"]),
                            **server_kw)
         c_s = srv.warmup()
         ts, kk, disp_s = _steady_decode_tok_s(srv, cfg)
@@ -502,7 +520,6 @@ def run_lm_bench(platform: str, device_kind: str, n_devices: int,
         "tokens_per_s": round(tok_s, 1),
         "slots": cfg["slots"], "decode_steps": cfg["decode_steps"],
         "timed_dispatches": k, "dispatch_s": round(dispatch_s, 4),
-        "kv_block_size": block,
         # decode re-streams the whole weight set once per token step
         # (all slots advance together): steps/s = tok_s / slots
         "implied_weight_stream_gbps": round(
@@ -510,6 +527,20 @@ def run_lm_bench(platform: str, device_kind: str, n_devices: int,
     }
     if peak_bf16:
         out["decode"]["mfu"] = round(tok_s * 2.0 * n_params / peak_bf16, 4)
+
+    # the K3 arm (compact runs too): the same steady decode through a
+    # paged block pool, every step attending through the paged kernel
+    try:
+        tok_p, kp, disp_p, comp_p = measure_pool(model, paged=True)
+        out["paged_k3"] = {
+            "tokens_per_s": round(tok_p, 1),
+            "vs_contiguous": round(tok_p / tok_s, 2),
+            "timed_dispatches": kp, "dispatch_s": round(disp_p, 4),
+            "compile_s": round(comp_p, 2), "kv_block_size": block,
+            "pool": "paged block pool, paged_kernel='auto' (K3 on the card)",
+        }
+    except Exception as e:  # noqa: BLE001
+        out["paged_k3"] = _error(e)
 
     # -- speculative best-case + int8 residency (full suite only) ---------
     if not compact and time.perf_counter() < deadline:
@@ -524,8 +555,7 @@ def run_lm_bench(platform: str, device_kind: str, n_devices: int,
                 zt, slots=cfg["slots"], prompt_len=cfg["prompt_len"],
                 max_len=cfg["max_len"], draft=(zd, None),
                 draft_len=cfg["draft_len"], decode_steps=n_rounds,
-                device=dev,
-                **paged_pool_kw(block, cfg["slots"], cfg["prompt_len"]))
+                device=dev)
             spec.warmup()                                # build
             for _ in range(cfg["slots"]):
                 spec.submit(list(range(1, cfg["prompt_len"] + 1)),
@@ -655,7 +685,8 @@ def run_lm_slots_bench(platform: str, device_kind: str, n_devices: int,
                        peak_bf16: float | None, *, deadline: float,
                        compact: bool = False) -> dict:
     """BENCH_SUITE=lm_slots: the decode slot-scaling curve plus a blessed
-    serving default derived from it. Each point builds a paged pool, warms
+    serving default derived from it. Each point builds a contiguous pool
+    (the JAX suite's), warms
     it (kernel builds, graph capture), then times full-occupancy
     dispatches. Points past the first are skipped (and recorded as such)
     once the deadline passes."""
@@ -663,7 +694,6 @@ def run_lm_slots_bench(platform: str, device_kind: str, n_devices: int,
 
     dev = resolve_device(platform)
     cfg = lm_bench_config(platform)
-    block = _block_size(platform)
     out = _base_record(cfg, platform, device_kind, n_devices)
     model = build_lm(cfg, dev, 0)
     n_params, param_bytes = _count_params(model)
@@ -678,8 +708,7 @@ def run_lm_slots_bench(platform: str, device_kind: str, n_devices: int,
         try:
             srv = DecodeServer(model, slots=s, prompt_len=cfg["prompt_len"],
                                max_len=cfg["max_len"],
-                               decode_steps=cfg["decode_steps"], device=dev,
-                               **paged_pool_kw(block, s, cfg["prompt_len"]))
+                               decode_steps=cfg["decode_steps"], device=dev)
             c_s = srv.warmup()
             ts, k, disp_s = _steady_decode_tok_s(srv, cfg)
             point = {
@@ -718,10 +747,12 @@ def run_lm_prefix_bench(platform: str, device_kind: str, n_devices: int,
                         peak_bf16: float | None, *, deadline: float,
                         compact: bool = False) -> dict:
     """BENCH_SUITE=lm_prefix: the shared-prefix serving workload through
-    the KV block pool + radix prefix cache, hits read in place by K3
-    (``cache_on``, the headline) against a pool without either
-    (``cache_off``). The comparable pair is (tokens/s to drain, admission
-    prefill tokens computed): the cache turns each admission's
+    the KV block pool + radix prefix cache, hits gathered back into the
+    slot cache as in the JAX suite (``cache_on``, the headline), against a
+    pool without either (``cache_off``), and the same block pool with its
+    hits read in place by K3 (``paged_k3``). The comparable pair is
+    (tokens/s to drain, admission prefill tokens computed): the cache
+    turns each admission's
     full-bucket prefill into a tail-bucket prefill after a block-aligned
     radix hit."""
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
@@ -778,7 +809,7 @@ def run_lm_prefix_bench(platform: str, device_kind: str, n_devices: int,
     # headline first: a deadline hit must cost the baseline; the pool is
     # sized one chain above peak pinned capacity
     out["cache_on"] = run_pool(
-        **paged_pool_kw(block, cfg["slots"], cfg["prompt_len"]))
+        **gathered_pool_kw(block, cfg["slots"], cfg["prompt_len"]))
     if time.perf_counter() < deadline:
         try:
             out["cache_off"] = run_pool()
@@ -789,6 +820,15 @@ def run_lm_prefix_bench(platform: str, device_kind: str, n_devices: int,
                 on["prefill_tokens"] / max(off["prefill_tokens"], 1), 3)
         except Exception as e:  # noqa: BLE001
             out["cache_off"] = _error(e)
+    if time.perf_counter() < deadline:
+        try:
+            out["paged_k3"] = run_pool(
+                **paged_pool_kw(block, cfg["slots"], cfg["prompt_len"]))
+            out["paged_k3"]["vs_gathered"] = round(
+                out["paged_k3"]["tokens_per_s"]
+                / out["cache_on"]["tokens_per_s"], 2)
+        except Exception as e:  # noqa: BLE001
+            out["paged_k3"] = _error(e)
     if peak_bf16:
         out["cache_on"]["mfu"] = round(
             out["cache_on"]["tokens_per_s"] * 2.0 * n_params / peak_bf16,
@@ -874,7 +914,7 @@ def run_lm_cluster_prefix_bench(platform: str, device_kind: str,
     pool_kw = dict(slots=cfg["slots"], prompt_len=cfg["prompt_len"],
                    max_len=cfg["max_len"], decode_steps=cfg["decode_steps"],
                    prompt_buckets=buckets, device=dev,
-                   **paged_pool_kw(block, cfg["slots"], cfg["prompt_len"]))
+                   **gathered_pool_kw(block, cfg["slots"], cfg["prompt_len"]))
 
     def replica(cluster: bool, salt: int = 0) -> DecodeServer:
         srv = DecodeServer(model, **pool_kw)
@@ -1124,7 +1164,6 @@ def run_lm_gateway_bench(platform: str, device_kind: str, n_devices: int,
                           64 if platform == "cuda" else 32)
     out, model, dev = _gateway_record(cfg, platform, device_kind, n_devices,
                                       n_requests)
-    block = _block_size(platform)
     max_new = serving_max_new(cfg)
     rng = np.random.default_rng(11)
 
@@ -1136,9 +1175,7 @@ def run_lm_gateway_bench(platform: str, device_kind: str, n_devices: int,
         srv = DecodeServer(model, slots=cfg["slots"],
                            prompt_len=cfg["prompt_len"],
                            max_len=cfg["max_len"],
-                           decode_steps=cfg["decode_steps"], device=dev,
-                           **paged_pool_kw(block, cfg["slots"],
-                                           cfg["prompt_len"]))
+                           decode_steps=cfg["decode_steps"], device=dev)
         srv.warmup()
         return srv
 
@@ -1215,7 +1252,6 @@ def run_lm_autoscale_bench(platform: str, device_kind: str,
                           48 if platform == "cuda" else 24)
     out, model, dev = _gateway_record(cfg, platform, device_kind, n_devices,
                                       n_requests)
-    block = _block_size(platform)
     max_new = serving_max_new(cfg)
     rng = np.random.default_rng(13)
 
@@ -1232,9 +1268,7 @@ def run_lm_autoscale_bench(platform: str, device_kind: str,
         srv = DecodeServer(model, slots=cfg["slots"],
                            prompt_len=cfg["prompt_len"],
                            max_len=cfg["max_len"],
-                           decode_steps=cfg["decode_steps"], device=dev,
-                           **paged_pool_kw(block, cfg["slots"],
-                                           cfg["prompt_len"]))
+                           decode_steps=cfg["decode_steps"], device=dev)
         srv.warmup()
         return srv
 
@@ -1363,8 +1397,7 @@ def run_lm_distserve_bench(platform: str, device_kind: str,
                    max_len=ds_max_len,
                    decode_steps=cfg["decode_steps"],
                    prompt_buckets=buckets, kv_block_size=block,
-                   kv_cache_blocks=(n_long + 6) * per_long,
-                   paged_kernel="auto", device=dev)
+                   kv_cache_blocks=(n_long + 6) * per_long, device=dev)
     out = _base_record(cfg, platform, device_kind, n_devices,
                        workload={"short_len": short_len,
                                  "long_len": long_len,
@@ -1593,7 +1626,6 @@ def run_lm_gray_bench(platform: str, device_kind: str, n_devices: int,
 
     dev = resolve_device(platform)
     cfg = lm_bench_config(platform)
-    block = _block_size(platform)
     n_requests = _env_int("BENCH_LM_GRAY_REQUESTS", 3 * cfg["slots"])
     n_polls = _env_int("BENCH_LM_GRAY_POLLS",
                        160 if platform == "cuda" else 120)
@@ -1613,9 +1645,7 @@ def run_lm_gray_bench(platform: str, device_kind: str, n_devices: int,
     srv = DecodeServer(model, slots=cfg["slots"],
                        prompt_len=cfg["prompt_len"],
                        max_len=cfg["max_len"],
-                       decode_steps=cfg["decode_steps"], device=dev,
-                       **paged_pool_kw(block, cfg["slots"],
-                                       cfg["prompt_len"]))
+                       decode_steps=cfg["decode_steps"], device=dev)
     srv.warmup()
     t0 = time.perf_counter()
     for _ in range(n_requests):

@@ -13,10 +13,11 @@
   fsdp  — sharded parameters and optimizer state: slice 4; recorded as
           skipped, never as a number.
   cnn   — ``engine/train.py`` step on ResNet-18, ``flat_tx(sgd(0.1,
-          momentum=0.9))``: images/s. The port's ResNet has one dtype, so
-          this step runs f32 parameters and f32 compute (cuDNN runs f32
-          convolutions in TF32 unless ``torch.backends.cudnn.allow_tf32``
-          is cleared), where the JAX step computes in bf16.
+          momentum=0.9))``, with f32 parameters and bf16 compute (the JAX
+          module's default split; BatchNorm statistics in f32): images/s,
+          with MFU by the JAX bench's formula, 3 × the analytic forward
+          FLOPs an image (``bench.py:resnet_forward_flops``; forward +
+          backward) × images/s over the card's bf16 dense peak.
 
 Every knob is env-overridable (``BENCH_TRAIN_*``). Only a run on the card
 gives device numbers: on the CPU the record carries no MFU.
@@ -163,7 +164,8 @@ def run_train_bench(*, device: str | torch.device | None = None) -> dict:
     try:
         cb, size = cfg["cnn_batch"], cfg["cnn_image"]
         cstate = create_train_state(
-            resnet18(), torch.Generator(device=dev).manual_seed(0),
+            resnet18(compute_dtype=torch.bfloat16),
+            torch.Generator(device=dev).manual_seed(0),
             flat_tx(sgd(0.1, momentum=0.9)), device=dev)
         images = torch.zeros((cb, 3, size, size), device=dev).to(
             memory_format=torch.channels_last)
@@ -172,13 +174,20 @@ def run_train_bench(*, device: str | torch.device | None = None) -> dict:
         perc, firstc, closs = _timed_steps(
             cstep, cstate, (images, labels), cfg["iters"],
             trace_name="train_cnn" if card else None)
+        ips = cb / perc
         out["cnn"] = {
-            "model": "resnet18", "images_per_s": cb / perc,
+            "model": "resnet18", "images_per_s": ips,
             "batch": cb, "image_size": size, "step_s": perc,
             "first_step_s": firstc, "loss": closs,
-            "dtype": "float32 parameters and compute",
+            "dtype": "float32 parameters, bfloat16 compute",
+            "compute_dtype": "bfloat16",
             "optimizer_layout": "fused (torch.optim.SGD(fused=True))",
         }
+        if card:
+            from idunno_tpu_torch.bench import resnet_forward_flops
+            flops_img = resnet_forward_flops(size)
+            out["cnn"]["flops_per_image_gf"] = flops_img / 1e9
+            out["cnn"]["mfu"] = ips * 3.0 * flops_img / H100_BF16_FLOPS
     except Exception as e:  # noqa: BLE001
         out["cnn"] = _error(e)
     return out

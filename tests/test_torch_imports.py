@@ -87,6 +87,17 @@ def test_port_file_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", ["idunno_tpu_torch/models/moe.py",
+                                  "idunno_tpu_torch/models/mixed.py",
+                                  "idunno_tpu_torch/parallel/__init__.py",
+                                  "idunno_tpu_torch/parallel/expert.py"])
+def test_slice_modules_are_guarded(path):
+    """The routed FFN's modules (and the CNNs' compute-dtype layers) are
+    among the files the guard above reads, and import no JAX."""
+    assert path in PORT_FILES
+    test_port_file_imports_no_jax(path)
+
+
 def _code_tree(text: str, rename: bool) -> str:
     """The module's syntax tree without docstrings, with ``idunno_tpu``
     read as ``idunno_tpu_torch`` in imports when ``rename``."""

@@ -503,7 +503,6 @@ def test_int8_dequantize_on_card_is_bit_equal(cuda_device, dtype):
                        want.view(torch.uint8))
 
 
-# last in the file: it leaves a failed stream capture behind it
 @pytest.mark.gpu
 def test_failed_capture_raises(cuda_device):
     """A dispatch that syncs the host cannot be recorded: the capture
@@ -523,6 +522,39 @@ def test_failed_capture_raises(cuda_device):
     with pytest.raises(RuntimeError):
         srv.run_until_drained()
     assert srv.graph_stats()["replayed"] == 0
+
+
+@pytest.mark.gpu
+def test_sampling_on_the_card_after_a_failed_capture(cuda_device):
+    """A failed capture leaves the process able to draw on the card
+    (``engine/serve_lm.py:_abandon_capture``): the same pool then serves a
+    sampled request eagerly, its stream equal to an eager pool's from the
+    same seed, and ``torch.randn`` on the card draws; the current stream
+    is the one the capture started from."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    model = _small_lm(cuda_device, dim=64, heads=2, seed=1)
+    kw = dict(slots=2, prompt_len=8, max_len=48, device="cuda")
+    srv = DecodeServer(model, decode_graph="graph", **kw)
+    dispatch = srv._dispatch
+
+    def syncing(sampled):
+        dispatch(sampled)
+        return float(srv._cursors.sum())          # a host read
+
+    srv._dispatch = syncing
+    stream = torch.cuda.current_stream()
+    srv.submit([1, 2, 3], max_new=8)
+    with pytest.raises(RuntimeError):
+        srv.run_until_drained()
+    assert torch.cuda.current_stream() == stream
+    rid = srv.submit([4, 5, 6, 7], max_new=24, temperature=0.9, seed=11)
+    got = {c.id: c.tokens for c in srv.run_until_drained()}[rid]
+    ref = DecodeServer(model, decode_graph="eager", **kw)
+    ref_id = ref.submit([4, 5, 6, 7], max_new=24, temperature=0.9, seed=11)
+    want = {c.id: c.tokens for c in ref.run_until_drained()}[ref_id]
+    assert got == want and len(got) == 4 + 24
+    draw = torch.randn(4096, device=cuda_device)
+    assert bool(torch.isfinite(draw).all()) and float(draw.std()) > 0.5
 
 
 @pytest.mark.gpu
@@ -605,3 +637,36 @@ def test_trace_holds_k3_kernels_of_another_thread(cuda_device, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" and "paged_fwd" in e.get("name", "")
                for e in events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["contiguous", "gathered"])
+def test_routed_replayed_pool_matches_eager_pool(cuda_device, pool):
+    """A routed LM (``models/moe.py``, every block routed, f32) replays its
+    all-greedy dispatches as CUDA graphs: the routing reads nothing back
+    to the host, and the streams equal an eager pool's."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.moe import MoETransformerLM
+    with torch.device(cuda_device):
+        model = MoETransformerLM(vocab=257, dim=64, depth=2, num_heads=2,
+                                 n_experts=4)
+    init_like_flax(model, torch.Generator(device=cuda_device).manual_seed(3))
+    model.eval().requires_grad_(False)
+    kw = dict(slots=4, prompt_len=16, max_len=64, decode_steps=4,
+              device="cuda")
+    if pool == "gathered":
+        kw.update(kv_block_size=4, prompt_buckets=(4, 8, 16))
+    rng = np.random.default_rng(5)
+    head = [int(t) for t in rng.integers(1, 257, 12)]
+    prompts = [head + [int(t) for t in rng.integers(1, 257, 4)]
+               for _ in range(8)]
+    streams, graphs = {}, {}
+    for mode in ("graph", "eager"):
+        srv = DecodeServer(model, decode_graph=mode, **kw)
+        ids = [srv.submit(p, max_new=24) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        streams[mode] = [done[i] for i in ids]
+        graphs[mode] = srv.graph_stats()
+    assert graphs["graph"]["replayed"] > 0
+    assert streams["graph"] == streams["eager"]

@@ -183,6 +183,9 @@ def test_lm_record_points(tiny_env):
     tr = rec["speculative_trained"]
     assert tr["train_steps"] == {"target": 6, "draft": 2}
     assert 1.0 <= tr["avg_commit_per_round"] <= tr["draft_len"] + 1
+    # the K3 arm beside the contiguous headline
+    assert rec["paged_k3"]["tokens_per_s"] > 0
+    assert rec["paged_k3"]["kv_block_size"] == 4
 
 
 @pytest.mark.parametrize("how", ["compact", "deadline"])
@@ -215,6 +218,60 @@ def test_prefix_suite_counts_equal_jax(tiny_env):
     for k in ("lookups", "hits", "cached_tokens_saved", "prefix_hit_rate"):
         assert pc[k] == rpc[k], k
     assert "prefix_cache" not in mine["cache_off"]
+    # the K3 arm reads the same hits in place: the same admission work
+    for k in ("prefill_tokens", "tokens_generated", "dispatches"):
+        assert mine["paged_k3"][k] == mine["cache_on"][k], k
+    assert mine["paged_k3"]["prefix_cache"]["hits"] == pc["hits"]
+
+
+class _Stop(BaseException):
+    """Ends a suite at its first pool (a BaseException, which the suites'
+    ``except Exception`` recorders let through)."""
+
+
+# the pool of each suite's headline: the first DecodeServer it builds
+POOL_SUITES = ["run_lm_bench", "run_lm_slots_bench", "run_lm_prefix_bench",
+               "run_lm_cluster_prefix_bench", "run_lm_gateway_bench",
+               "run_lm_autoscale_bench", "run_lm_distserve_bench",
+               "run_lm_gray_bench"]
+POOL_KEYS = ("slots", "prompt_len", "max_len", "decode_steps",
+             "prompt_buckets", "kv_block_size", "kv_cache_blocks",
+             "paged_kernel", "quantize", "draft")
+
+
+def _headline_pool(monkeypatch, module: str, suite) -> dict:
+    """The pool keywords of the first ``DecodeServer`` that ``suite``
+    builds, ``module``'s class replaced by a recorder that stops it."""
+    seen = []
+
+    def recorder(*args, **kw):
+        seen.append(kw)
+        raise _Stop
+
+    monkeypatch.setattr(f"{module}.DecodeServer", recorder)
+    with pytest.raises(_Stop):
+        suite("cpu", "cpu", 1, None, deadline=time.perf_counter() + 600)
+    pool = {k: seen[0].get(k) for k in POOL_KEYS}
+    pool["kv_block_size"] = pool["kv_block_size"] or 0
+    pool["kv_cache_blocks"] = pool["kv_cache_blocks"] or 0
+    return pool
+
+
+@pytest.mark.parametrize("suite", POOL_SUITES)
+def test_headline_pool_equals_jax_suite(tiny_env, monkeypatch, suite):
+    """Each suite's headline serves from the JAX suite's own pool: the
+    contiguous cache, or a block pool whose radix hits are gathered (no
+    ``paged_kernel``), with the same block size and block count; the K3
+    pool is an extra arm (``paged_k3``), never the headline."""
+    mine = _headline_pool(monkeypatch, "idunno_tpu_torch.engine.serve_lm",
+                          getattr(lb, suite))
+    ref = _headline_pool(monkeypatch, "idunno_tpu.engine.serve_lm",
+                         getattr(jax_bench, suite))
+    assert mine == ref
+    assert mine["paged_kernel"] is None
+    gathered = {"run_lm_prefix_bench", "run_lm_cluster_prefix_bench",
+                "run_lm_distserve_bench"}
+    assert (mine["kv_block_size"] > 0) == (suite in gathered)
 
 
 def test_tp_suite_raises_naming_roadmap(tiny_env):

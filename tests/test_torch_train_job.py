@@ -288,10 +288,13 @@ def test_model_config_follows_the_jax_field_names():
                                  "param_dtype": "float32",
                                  "remat": False, "ffn_every": 1})
     assert kw == {"vocab": 8, "dim": 16, "depth": 1, "num_heads": 2,
-                  "compute_dtype": torch.bfloat16, "dtype": torch.float32}
+                  "compute_dtype": torch.bfloat16, "dtype": torch.float32,
+                  "remat": False, "ffn_every": 1}
     assert "compute_dtype" not in train_job.model_kwargs({"dtype":
                                                           "float32"})
-    with pytest.raises(ValueError, match="not ported"):
-        train_job.model_kwargs({"remat": True})
+    # remat and ffn_every pass through to TransformerLM, as the JAX job's
+    # TransformerLM(**model_config) takes them
+    assert train_job.model_kwargs({"remat": True, "ffn_every": 2}) == {
+        "remat": True, "ffn_every": 2}
     with pytest.raises(ValueError, match="no field"):
         train_job.model_kwargs({"scan_layers": True})
