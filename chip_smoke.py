@@ -41,6 +41,10 @@ through the control RPC:
   width through K2-K5, ``utils/tracing.py``'s ``device_timed`` on
   replayed decode dispatches, and the cluster's ``profile`` verb tracing
   a node while its LM pool serves;
+- tensor-parallel decode: the same LM in a paged pool sharded over a
+  virtual mesh of the card at n_model 2 and 4 (K3 per model shard on its
+  16 / n_model KV heads, head-sharded block stores, the vocab-sharded
+  sampling tail), held to n_model 1;
 - the routed FFN (switch MoE): the same LM widths with a switch FFN of 8
   experts on every other block (570,884,144 parameters, seeded): its
   prefill through K2, its training through K2, K4 and K5 (``remat`` held
@@ -54,8 +58,9 @@ Phases:
 2. every kernel against its plain version, at the main paths' shapes
    (bf16 K2, K4 and K5 within the per-element bound of their bf16
    rounding of P and dS, ``ops/flash_attention.py:tensor_core_bound``;
-   K2 also at ViT-S/16's [256, 197, 6, 64]; K3 also at head_dim 32 and
-   at the speculative verify shape, 16 rows x 5 positions);
+   K2 also at ViT-S/16's [256, 197, 6, 64]; K3 also at head_dim 32, at
+   the speculative verify shape, 16 rows x 5 positions, and at one
+   tensor-parallel shard's decode shape, 16 / n_model KV heads);
 3. kernel timing by CUDA-graph replay (K4 and K5 also by CUDA events; K2
    also at the ViT shape, non-causal; K3 at the decode, the radix-hit
    prefill, the head_dim 32 decode and the verify shapes), beside its bound, the
@@ -158,14 +163,25 @@ Phases:
     idunno_tpu_torch --host n0 --no-shell`` as a subprocess, without
     ``--cpu``: ``put`` and greedy ``generate`` equal to this process's,
     the subprocess seen among the card's compute apps;
-12. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+12. tensor-parallel decode (``tp_decode``): the full-width LM in a paged
+    pool on a virtual mesh of the card (every model shard on cuda:0), at
+    n_model 2 and 4 against n_model 1: in f32 (K3 on f32 pages, TF32
+    off) 8 shared-prefix requests' greedy streams and a seeded sampled
+    stream equal n_model 1's token for token, with radix hits, replayed
+    dispatches and K3 launches of exactly n_model times n_model 1's; in
+    bf16, n_model 1's streams teacher-forced through each tensor-parallel
+    decoder give logits within ``TP["bf16_rel_tol"]`` (5%) of n_model
+    1's, relative to each row's largest |logit|; the share of greedy
+    tokens a bf16 TP pool serves differently and each pool's decode
+    tokens/s are printed, not gated;
+13. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
     ten steps on that batch with finite, falling loss, K2, K4 and K5
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-13. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
+14. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
     full-width routed forward on [4, 1024] tokens, bf16, through
     ``make_attn_fn("auto")``: K2 launches (zeroed just before) equal
     depth × forwards, logits within 2% of the ``full`` forward's largest,
@@ -181,12 +197,17 @@ Phases:
     gathered block pool: a ``paged_kernel`` pool raises, replayed and
     eager pools give equal greedy streams, then the 48 shared-prefix
     prompts from two threads: tokens/s, TTFT p50/p95;
-14. ``failed_capture``: after a provoked failed CUDA-graph capture the
+15. ``failed_capture``: after a provoked failed CUDA-graph capture the
     pool serves a sampled request equal to an eager pool's, and a random
     draw on the card succeeds;
-15. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+16. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-16. the last line, ``{"ok": true, "device": {...}}``.
+17. the last line, ``{"ok": true, "device": {...}}``.
+
+Every ``torch.profiler`` window (``device_profile``) prints a
+``profile_window`` line: when it opened after the previous window
+closed, the CUDA activities Kineto returned, the kernels recorded and
+those the window's labels matched.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -237,6 +258,12 @@ MOE = {"n_experts": 8, "capacity_factor": 2.0, "hidden_ratio": 4, "k": 1,
 # routed blocks, 8 experts and a router in place of one dense MLP
 MOE_PARAMS = 218_298_368 + 6 * (67_158_024 - 8_393_728)
 MOE_TRAIN_STEPS = 6              # routed train steps on one batch
+# the tensor-parallel decode phase: the full-width LM on a virtual mesh of
+# the card (every model shard on cuda:0) at these model-axis extents,
+# against n_model 1; the bf16 gate bounds the largest logit difference of
+# a teacher-forced stream, relative to the row's largest |logit|
+TP = {"n_models": (2, 4), "requests": 8, "max_new": 32, "seed": 5,
+      "bf16_rel_tol": 0.05}
 CLUSTER_HOSTS = ("n0", "n1", "n2")
 CLUSTER_GEN = {"prompts": 4, "max_new": 16}   # the cluster's `generate`
 # the in-process serving figures of phases 4 and 8, printed beside the
@@ -656,7 +683,8 @@ def paged_shapes():
     radix-hit prefill (one row, 64 query positions, a 3-block chain), the
     default-size model's decode shape (head_dim 32, 4 kv-heads), and the
     speculative verify of draft_len 4 (16 rows x 5 positions) at head_dim
-    64 (16 kv-heads) and 32 (4 kv-heads)."""
+    64 (16 kv-heads) and 32 (4 kv-heads); and the decode shape of one
+    model shard of the tensor-parallel pool (16 / n_model kv-heads)."""
     rng = random.Random(3)
     chains = [0] + [rng.randint(0, 3) for _ in range(15)]
     t = LM_DRAFT_LEN + 1
@@ -669,7 +697,12 @@ def paged_shapes():
             ("verify", dict(b=16, t=t, kvh=16, g=1, d=64, n=68, bs=LM_BLOCK,
                             chains=chains)),
             ("verify_d32", dict(b=16, t=t, kvh=4, g=1, d=32, n=68,
-                                bs=LM_BLOCK, chains=chains)))
+                                bs=LM_BLOCK, chains=chains)),
+            # one model shard of the tensor-parallel pool: 16 KV heads
+            # over n_model 2 and 4
+            *((f"decode_tp{n}", dict(b=16, t=1, kvh=16 // n, g=1, d=64,
+                                     n=68, bs=LM_BLOCK, chains=chains))
+              for n in TP["n_models"]))
 
 
 def phase_paged_vs_plain() -> float:
@@ -1085,6 +1118,11 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 
+# every device_profile window: its index and when the previous one closed
+# (host clock, ns), for the window record each call prints
+_WINDOWS = {"count": 0, "last_exit_ns": None}
+
+
 def device_profile(fn, host: dict | None = None, labels: tuple = ()):
     """``fn`` once under ``torch.profiler`` (through ``utils/tracing.py:
     trace``, so no other trace of the process may overlap it), after a
@@ -1102,24 +1140,49 @@ def device_profile(fn, host: dict | None = None, labels: tuple = ()):
     ``labelled_ms``: for each of ``labels``, the device ms of the kernels
     launched inside its ``record_function`` ranges (``forward``) and of
     those the autograd engine launched for the nodes the ops inside them
-    recorded (``backward``, matched by sequence number)."""
+    recorded (``backward``, matched by sequence number).
+
+    Every call prints one ``profile_window`` line: when the window opened
+    against the close of the previous one (host clock; ``trace`` pads a
+    CUDA window by ``TRACE_PAD_S`` on each side), how many CUDA activities
+    Kineto returned, how many kernels the profiler's events hold and how
+    many of those the ``labels`` matched, and, for a window that recorded
+    no kernel, "not measured" beside those numbers."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
 
-    from idunno_tpu_torch.utils.tracing import trace
+    from idunno_tpu_torch.utils.tracing import TRACE_PAD_S, trace
 
     torch.cuda.synchronize()
+    enter_ns = time.time_ns()
     with trace(None) as prof:
         t0 = time.perf_counter()
+        region_ns = time.time_ns()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         synced_ns = time.time_ns()
+    exit_ns = time.time_ns()
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
+    activities = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+    prev = _WINDOWS["last_exit_ns"]
+    _WINDOWS["count"] += 1
+    _WINDOWS["last_exit_ns"] = exit_ns
+    say("profile_window", window=_WINDOWS["count"],
+        opened_after_previous_close_ms=(
+            (enter_ns - prev) / 1e6 if prev is not None else "first window"),
+        region_after_open_ms=(region_ns - enter_ns) / 1e6,
+        trace_pad_s=TRACE_PAD_S, wall_ms=wall_ms,
+        kineto_cuda_activities=len(activities), kernels=len(kernels),
+        labels=list(labels),
+        labelled_kernels=(sum(labelled_kernel_count(events, label)
+                              for label in labels) if labels else None),
+        device="not measured" if not kernels else "recorded")
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
@@ -1137,26 +1200,21 @@ def device_profile(fn, host: dict | None = None, labels: tuple = ()):
     return wall_ms, by_name, len(kernels)
 
 
-def labelled_device_ms(events, label: str) -> dict:
-    """Device ms of the kernels that the ops inside the ``label`` ranges
-    of ``events`` launched, and of those that the autograd engine
-    launched evaluating the backward nodes of the same ops."""
+def labelled_ops(events, label: str) -> tuple[list, list]:
+    """The ops inside the ``label`` ranges of ``events`` (and below them),
+    and the autograd engine's evaluations of their backward nodes (and
+    below them); a kernel is listed under the operator that launched it,
+    the labelled range itself under user annotations."""
     from torch.autograd import DeviceType
 
     def below(roots) -> list:
         out, stack = [], list(roots)
         while stack:
             e = stack.pop()
-            out.append(e)
+            if not getattr(e, "is_user_annotation", False):
+                out.append(e)
             stack.extend(e.cpu_children)
         return out
-
-    def ms(ops) -> float:
-        # a kernel is listed under the operator that launched it; the
-        # labelled range itself lists its span on the device timeline
-        return sum(k.duration for e in ops
-                   if not getattr(e, "is_user_annotation", False)
-                   for k in e.kernels) / 1e3
 
     forward = below(e for e in events if e.name == label
                     and e.device_type == DeviceType.CPU)
@@ -1164,7 +1222,25 @@ def labelled_device_ms(events, label: str) -> dict:
     backward = below(
         e for e in events if e.sequence_nr in seqs
         and e.name.startswith("autograd::engine::evaluate_function"))
+    return forward, backward
+
+
+def labelled_device_ms(events, label: str) -> dict:
+    """Device ms of the kernels that the ops inside the ``label`` ranges
+    of ``events`` launched, and of those that the autograd engine
+    launched evaluating the backward nodes of the same ops."""
+    forward, backward = labelled_ops(events, label)
+
+    def ms(ops) -> float:
+        return sum(k.duration for e in ops for k in e.kernels) / 1e3
+
     return {"forward": ms(forward), "backward": ms(backward)}
+
+
+def labelled_kernel_count(events, label: str) -> int:
+    """How many kernels `labelled_device_ms` sums for ``label``."""
+    forward, backward = labelled_ops(events, label)
+    return sum(len(e.kernels) for e in forward + backward)
 
 
 def profile_dispatch(srv, prompts, max_new: int, card: str) -> dict:
@@ -2525,6 +2601,176 @@ def phase_default_pool(card: str) -> int:
     return launches
 
 
+def tp_streams(model, prompts, max_new: int, mesh=None, sampled=None,
+               **kw) -> dict:
+    """One pool on the card (``mesh``: tensor-parallel over it) serving
+    ``prompts`` greedily, then ``sampled`` (a prompt and its sampling
+    keys) alone: the greedy and sampled streams, radix hits, graph stats,
+    the greedy decode tokens/s of a second, warm pass of the prompts, and
+    K3's launches over all of it (zeroed just before the pool is built,
+    read after the warm pass)."""
+    import torch
+
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+
+    torch.cuda.synchronize()
+    zero_launches()
+    srv = DecodeServer(model, device="cuda", mesh=mesh, **kw)
+    ids = [srv.submit(p, max_new=max_new) for p in prompts]
+    done = {c.id: c.tokens for c in srv.run_until_drained()}
+    out = {"greedy": [done[i] for i in ids]}
+    if sampled is not None:
+        prompt, keys = sampled
+        rid = srv.submit(prompt, max_new=max_new, **keys)
+        out["sampled"] = {c.id: c.tokens
+                          for c in srv.run_until_drained()}[rid]
+    out["hits"] = srv.prefix_cache_stats()["hits"]
+    out["graph"] = srv.graph_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        srv.submit(p, max_new=max_new)
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    out["tokens_per_s"] = (len(prompts) * (max_new - 1)
+                           / (time.perf_counter() - t0))
+    out["launches"] = read_launches()["paged_attention"]
+    del srv
+    return out
+
+
+def teacher_forced_logits(dec, tokens):
+    """f32 logits [B, T, vocab] of ``tokens`` [B, T] in one chunked
+    decode step (scalar cursor 0) of ``dec`` (a model or its
+    tensor-parallel decoder), the vocab parts joined."""
+    import torch
+
+    from idunno_tpu_torch.engine.generate import init_cache
+    from idunno_tpu_torch.models.transformer import decode_apply
+
+    with torch.no_grad():
+        cache = init_cache(dec, tokens.shape[0], tokens.shape[1])
+        out = decode_apply(dec, cache, tokens, 0)
+    return torch.cat(out.parts, dim=-1) if hasattr(out, "parts") else out
+
+
+def phase_tp_decode(cfg: dict, card: str) -> int:
+    """(``tp_decode``) Tensor-parallel decode on a virtual mesh of the
+    card: the full-width LM in a paged pool (K3 per model shard, each on
+    16 / n_model KV heads; head-sharded block stores; vocab-sharded tail),
+    at n_model 2 and 4 against n_model 1.
+
+    f32 compute, K3 on f32 pages (TF32 off): the greedy streams of
+    ``TP["requests"]`` shared-prefix requests (radix hits among them) and
+    one seeded sampled stream equal n_model 1's token for token; the
+    pool's K3 launches equal n_model x the n_model 1 pool's. bf16 compute:
+    n_model 1's greedy streams teacher-forced through the tensor-parallel
+    decoder give logits within ``TP["bf16_rel_tol"]`` of n_model 1's,
+    relative to each row's largest |logit| (printed beside the same
+    difference between n_model 1's bf16 and f32 logits), and the share of
+    greedy tokens a bf16 TP pool serves differently (printed, not gated).
+    Decode tokens/s of each pool (a warm second pass), with the card's
+    name and power limit: informational. Returns the phase's K3
+    launches."""
+    import torch
+
+    from idunno_tpu_torch.models.transformer import ShardedLM
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    greedy = prompts[:TP["requests"]]
+    sampled = (prompts[TP["requests"]],
+               {"temperature": 0.8, "top_p": 0.9, "seed": 21})
+    kw = dict(lm_pool_kw(cfg, buckets), paged_kernel="kernel")
+    max_new = TP["max_new"]
+    meshes = {1: None, **{n: virtual_mesh(1, n, "cuda:0")
+                          for n in TP["n_models"]}}
+    total = 0
+    model = build_lm(cfg, "f32", depth=cfg["depth"], seed=TP["seed"])
+    runs = {}
+    for n, mesh in meshes.items():
+        runs[n] = tp_streams(model, greedy, max_new, mesh=mesh,
+                             sampled=sampled, **kw)
+        total += runs[n]["launches"]
+        torch.cuda.empty_cache()
+    base = runs[1]
+    for n in TP["n_models"]:
+        run = runs[n]
+        differ = sum(a != b for sa, sb in zip(run["greedy"], base["greedy"])
+                     for a, b in zip(sa, sb))
+        say("tp_decode", card=card, dtype="float32", n_model=n,
+            mesh="virtual 1 x %d over cuda:0" % n, depth=cfg["depth"],
+            dim=cfg["dim"], kv_heads_per_shard=cfg["heads"] // n,
+            requests=len(greedy), max_new=max_new,
+            greedy_tokens_differing=differ,
+            sampled_equal=run["sampled"] == base["sampled"],
+            radix_hits=run["hits"], k3_launches=run["launches"],
+            k3_launches_n_model_1=base["launches"],
+            replayed=run["graph"]["replayed"],
+            decode_tokens_per_s=run["tokens_per_s"],
+            decode_tokens_per_s_n_model_1=base["tokens_per_s"],
+            tokens_per_s_note="informational, a virtual mesh on one card")
+        if run["greedy"] != base["greedy"] or \
+                run["sampled"] != base["sampled"]:
+            raise AssertionError(f"tp_decode f32: n_model {n} differs from "
+                                 f"n_model 1 in {differ} greedy tokens "
+                                 f"(sampled equal: "
+                                 f"{run['sampled'] == base['sampled']})")
+        if run["hits"] <= 0 or run["graph"]["replayed"] <= 0:
+            raise AssertionError(f"tp_decode n_model {n}: radix hits "
+                                 f"{run['hits']}, replays {run['graph']}")
+        if run["launches"] != n * base["launches"] or base["launches"] <= 0:
+            raise AssertionError(f"tp_decode n_model {n}: K3 launched "
+                                 f"{run['launches']} times, n_model 1 "
+                                 f"{base['launches']}")
+
+    # bf16: the n_model 1 pool's streams teacher-forced through each
+    # tensor-parallel decoder (and the f32 model, for scale)
+    model16 = build_lm(cfg, "bf16", depth=cfg["depth"], seed=TP["seed"])
+    ref16 = tp_streams(model16, greedy, max_new, **kw)
+    total += ref16["launches"]
+    tokens = torch.tensor(ref16["greedy"], device="cuda")
+    first = len(greedy[0]) - 1            # the first generated position
+    want = teacher_forced_logits(model16, tokens)[:, first:-1]
+    f32 = teacher_forced_logits(model, tokens)[:, first:-1]
+
+    def rel(a, b):
+        return float(((a - b).abs().amax(-1)
+                      / b.abs().amax(-1)).max())
+
+    bf16_vs_f32 = rel(want, f32)
+    del model, f32
+    torch.cuda.empty_cache()
+    for n in TP["n_models"]:
+        mesh = meshes[n]
+        got = teacher_forced_logits(ShardedLM(model16, mesh), tokens)
+        gap = rel(got[:, first:-1], want)
+        run = tp_streams(model16, greedy, max_new, mesh=mesh, **kw)
+        total += run["launches"]
+        gen = [(a != b) for sa, sb in zip(run["greedy"], ref16["greedy"])
+               for a, b in zip(sa[first + 1:], sb[first + 1:])]
+        say("tp_decode", card=card, dtype="bfloat16", n_model=n,
+            teacher_forced_positions=int(want.shape[0] * want.shape[1]),
+            max_rel_logit_diff=gap, tolerance=TP["bf16_rel_tol"],
+            n_model_1_bf16_vs_f32_max_rel_logit_diff=bf16_vs_f32,
+            greedy_token_share_differing=sum(gen) / len(gen),
+            k3_launches=run["launches"],
+            k3_launches_n_model_1=ref16["launches"],
+            decode_tokens_per_s=run["tokens_per_s"],
+            decode_tokens_per_s_n_model_1=ref16["tokens_per_s"],
+            tokens_per_s_note="informational, a virtual mesh on one card")
+        if not gap <= TP["bf16_rel_tol"]:
+            raise AssertionError(f"tp_decode bf16: n_model {n} logits off "
+                                 f"by {gap} of the largest (tolerance "
+                                 f"{TP['bf16_rel_tol']})")
+        torch.cuda.empty_cache()
+    del model16
+    torch.cuda.empty_cache()
+    return total
+
+
 # -- the cluster: nodes as ``python -m idunno_tpu_torch`` builds them -----
 
 
@@ -3508,6 +3754,9 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     launches["paged_attention"] += phase_default_pool(smi)
+    torch.cuda.empty_cache()
+    launches["paged_attention"] += phase_tp_decode(lm_cfg, smi)
+    torch.cuda.empty_cache()
     train = phase_lm_train(smi)
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):

@@ -19,8 +19,9 @@ measured surface:
                      — the other LM suites of ``utils/lm_bench.py``
   train              — ``utils/train_bench.py``: trained tokens/s (K2, K4,
                        K5) and the ResNet-18 step
-  lm_tp              — refused: tensor parallelism is not ported
-                       (ROADMAP.md, modules item 10)
+  lm_tp              — ``run_lm_tp_bench``: tensor-parallel decode at
+                       n_model 1 against 2 (on the card a point needing
+                       more cards than the machine has records a skip)
 
 The line carries ``metric``, ``value``, ``unit``, ``vs_baseline``,
 ``error`` where one occurred and ``details``: the suite's record, its
@@ -545,7 +546,9 @@ def run_record_suite(suite: str, dev, card: bool, device_kind: str,
                          os.environ.get("BENCH_LM_COMPACT", "0") == "1")
     t_start = time.perf_counter()
     budget_s = float(os.environ.get("BENCH_TIME_BUDGET_S", "600"))
-    rec = fn(dev.type, device_kind, 1, peak_bf16_for(device_kind),
+    import torch
+    n_devices = torch.cuda.device_count() if card else 1
+    rec = fn(dev.type, device_kind, n_devices, peak_bf16_for(device_kind),
              deadline=t_start + budget_s * 0.85, **kw)
     rec["wall_s"] = round(time.perf_counter() - t_start, 1)
     value = (rec.get(value_key) or {}).get("tokens_per_s")

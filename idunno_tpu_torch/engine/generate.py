@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from idunno_tpu_torch.engine.checkpoint import decode_state, encode_state
-from idunno_tpu_torch.models.transformer import TransformerLM, decode_apply
+from idunno_tpu_torch.models.transformer import (ShardedLM, TransformerLM,
+                                                 decode_apply)
 from idunno_tpu_torch.ops.attention import full_attention
 from idunno_tpu_torch.ops.sampling import categorical, sample_keep_mask
 
@@ -37,7 +38,10 @@ def init_cache(model: TransformerLM, batch: int, max_len: int,
     """Zeroed depth-stacked KV cache for a [batch] decode of ≤ max_len
     tokens: ``cached_k``/``cached_v`` [L, batch, max_len, KVH, D] in the
     model's compute dtype (int8 for an int8 cache, which adds f32 ``k_scale``/
-    ``v_scale`` [L, batch, max_len, KVH])."""
+    ``v_scale`` [L, batch, max_len, KVH]). A `ShardedLM` gives its
+    `ShardedCache` (each shard's part on its own device)."""
+    if isinstance(model, ShardedLM):
+        return model.init_cache(batch, max_len)
     dev = _device_of(model) if device is None else torch.device(device)
     hd = model.dim // model.num_heads
     shape = (model.depth, batch, max_len, model.kv_heads, hd)

@@ -56,8 +56,21 @@ together, so a row's expert capacity depends on the batch as it does
 there; ``paged_kernel`` and a speculative pool over a routed target raise
 as they do there.
 
-What waits for later slices raises a ValueError naming ROADMAP.md: tensor
-parallelism (``mesh``, ``n_model > 1``).
+Tensor parallelism (``n_model > 1`` or ``mesh=``, a ``parallel/mesh.py:
+Mesh``): the pool decodes through `models/transformer.py:ShardedLM`, the
+Megatron split written out (each model shard its Q heads, its KV heads or
+all of them where they do not divide, its MLP slice and its vocab slice
+of the unembed; two reductions per block, summed in shard order), its
+slots split over the mesh's data axis. The KV cache and the block pool
+are head-sharded (`engine/kv_blocks.py`), a paged pool runs K3 per shard
+on the shard's pages, and the sampling tail resolves its picks from
+per-shard statistics (`ops/sampling.py:VocabShards`). ``n_model > 1``
+without a mesh builds a pure-TP mesh: over the visible cards on a card
+(distinct devices, or `MeshShapeError`), and a virtual mesh over the one
+CPU on the CPU (`parallel/mesh.py`). A mesh whose cells are distinct
+devices runs its dispatches eagerly (a CUDA graph records one device's
+work). Speculative pools under TP wait for ROADMAP.md §1 step 3a-ii and
+routed ones for step 3e; both raise a ValueError naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -73,16 +86,18 @@ import torch
 from idunno_tpu_torch.engine.generate import init_cache
 from idunno_tpu_torch.engine.inference import resolve_device
 from idunno_tpu_torch.engine.kv_blocks import concat_kv_prefix
-from idunno_tpu_torch.models.transformer import (KV_LEAF_KEYS, TransformerLM,
+from idunno_tpu_torch.models.transformer import (KV_LEAF_KEYS, ShardedCache,
+                                                 ShardedLM, TransformerLM,
                                                  decode_apply)
 from idunno_tpu_torch.ops.paged_attention import (PagedContext,
                                                   paged_attention_kernel,
                                                   resolve_paged_kernel)
 from idunno_tpu_torch.ops.quantize import quantize_tree
-from idunno_tpu_torch.ops.sampling import (categorical, draw_sampled,
-                                           filter_on, filtered_probs,
-                                           fused_decode_tail,
-                                           masked_sample_logits)
+from idunno_tpu_torch.ops.sampling import (draw_sampled, filter_on,
+                                           filtered_probs, fused_decode_tail,
+                                           pick_token, token_logprob)
+from idunno_tpu_torch.parallel.sharding import (sampling_collective_bytes,
+                                                tp_collective_bytes)
 
 # the launch-counted kernel wrappers a decode dispatch can reach; a replay
 # adds, per wrapper, the launches its capture recorded
@@ -167,9 +182,14 @@ def _abandon_capture(dev: torch.device, pool, stream) -> None:
     gen.graphsafe_set_state(fresh)
 
 
-def _splice_prefix(cache: dict, prefix_cache: dict) -> dict:
+def _splice_prefix(cache, prefix_cache):
     """Write a cached prefix's K/V leaves into the head of a (longer)
-    fresh batch-1 cache, in place."""
+    fresh batch-1 cache, in place (sharded caches shard by shard)."""
+    if isinstance(cache, ShardedCache):
+        for row, prow in zip(cache.parts, prefix_cache.parts):
+            for part, ppart in zip(row, prow):
+                _splice_prefix(part, ppart)
+        return cache
     for name in KV_LEAF_KEYS:
         if name in cache:
             src = prefix_cache[name]
@@ -190,10 +210,17 @@ def resolve_decode_graph(kind: str, device: torch.device) -> str:
     return kind
 
 
-def _insert_cache(cache: dict, row_cache: dict, slot: int) -> dict:
+def _insert_cache(cache, row_cache, slot: int):
     """Cache-only splice of a batch-1 row cache into slot ``slot`` of the
     pool's cache, in place (the draft's prompt prefill; the target's
-    insert writes the tokens as well)."""
+    insert writes the tokens as well). A sharded pool cache holds its
+    slots in data-group order; the row cache is its group's."""
+    if isinstance(cache, ShardedCache):
+        per = next(iter(cache.parts[0][0].values())).shape[1]
+        row = cache.parts[slot // per]
+        for part, rpart in zip(row, row_cache.parts[0]):
+            _insert_cache(part, rpart, slot % per)
+        return cache
     for name, leaf in cache.items():
         src = row_cache[name]
         leaf[:, slot, :src.shape[2]] = src[:, 0]
@@ -367,23 +394,6 @@ def _prefill_chunk(model: TransformerLM, cache: dict, tok: torch.Tensor,
     return decode_apply(model, cache, tok, cursor, paged=ctx)
 
 
-def _next_token(logits: torch.Tensor, temp: float,
-                gen: torch.Generator | None, top_p: float,
-                top_k: int) -> int:
-    """Greedy (temp == 0) or temperature + top-k/nucleus-sampled token
-    from one row's logits [vocab], in the masked-scaled form the decode
-    tail uses."""
-    if temp <= 0.0:
-        return int(torch.argmax(logits))
-    scaled = (logits / max(temp, 1e-6))[None]
-    dev = logits.device
-    if top_p < 1.0 or top_k > 0:
-        scaled = masked_sample_logits(
-            scaled, torch.tensor([top_p], dtype=torch.float32, device=dev),
-            torch.tensor([top_k], dtype=torch.int64, device=dev))
-    return int(categorical(scaled[0], gen))
-
-
 class DecodeServer:
     """Continuous-batching decode pool over a dense `TransformerLM`.
 
@@ -426,9 +436,6 @@ class DecodeServer:
                  kv_cache_blocks: int = 0, paged_kernel: str | None = None,
                  prefill_chunk: int = 0, decode_graph: str = "auto",
                  device: torch.device | str | None = None) -> None:
-        if mesh is not None or int(n_model) > 1:
-            raise _later("tensor parallelism (mesh=, n_model > 1)",
-                         "the parallelism slice, modules item 10")
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize={quantize!r}: want none|int8")
         if not model.causal:
@@ -462,7 +469,17 @@ class DecodeServer:
             # take: MoE pools keep the gathered path
             raise ValueError("paged_kernel requires the scanned decode "
                              "layout (dense scan-compatible blocks)")
-        self.device = resolve_device(device)
+        mesh, n_model = self._resolve_mesh(mesh, int(n_model), draft,
+                                           slots, device)
+        self.mesh, self.n_model = mesh, n_model
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
+        if mesh is not None and len(mesh.distinct()) > 1:
+            # a CUDA graph records one device's stream: a mesh of distinct
+            # devices runs its dispatches eagerly
+            if decode_graph == "graph":
+                raise ValueError("decode_graph='graph' records one device; "
+                                 "a mesh over distinct devices runs eager")
+            decode_graph = "eager"
         self.decode_graph = resolve_decode_graph(decode_graph, self.device)
         self.paged_kernel = (None if paged_kernel is None else
                              resolve_paged_kernel(paged_kernel, self.device))
@@ -527,6 +544,10 @@ class DecodeServer:
             # decode re-reads every weight per step: int8 residency halves
             # those bytes against bf16; the dequantize runs in each forward
             self.model = quantize_tree(copy.deepcopy(self.model))
+        # what every decode call runs: the model, or its tensor-parallel
+        # decoder over the mesh (the same weights, cut per shard)
+        self._dec = (self.model if mesh is None
+                     else ShardedLM(self.model, mesh))
         self.slots = slots
         self.prompt_len = prompt_len
         self.max_len = max_len
@@ -546,7 +567,7 @@ class DecodeServer:
         dev = self.device
         i64 = torch.int64
         self._tokens = torch.zeros((slots, max_len), dtype=i64, device=dev)
-        self._cache = init_cache(self.model, slots, max_len)
+        self._cache = init_cache(self._dec, slots, max_len)
         self._cursors = torch.zeros((slots,), dtype=i64, device=dev)
         self._remaining = torch.zeros((slots,), dtype=i64, device=dev)
         # paged decode state: per-slot block table + paged-region length
@@ -598,7 +619,8 @@ class DecodeServer:
             pf = torch.tensor([self.prefix], dtype=i64, device=dev)
             pl = len(self.prefix)
             with torch.no_grad():
-                self._prefix_cache, _ = _prefill(self.model, pf, pl, pl)
+                self._prefix_cache, _ = _prefill(self._row_dec(0), pf, pl,
+                                                 pl)
                 if self._draft_model is not None:
                     self._draft_prefix_cache, _ = _prefill(
                         self._draft_model, pf, pl, pl)
@@ -609,8 +631,62 @@ class DecodeServer:
             nblocks = int(kv_cache_blocks) or slots * (
                 (prompt_len + self.kv_block_size - 1) // self.kv_block_size)
             self._block_pool = KVBlockPool(self.model, nblocks,
-                                           self.kv_block_size, device=dev)
+                                           self.kv_block_size, mesh=mesh,
+                                           device=dev)
             self._radix = RadixPrefixCache(self._block_pool)
+
+    @staticmethod
+    def _resolve_mesh(mesh, n_model: int, draft, slots: int, device):
+        """The pool's mesh and model-axis extent (the JAX package's rules):
+        ``n_model > 1`` with no mesh builds a pure-TP mesh; a mesh is
+        authoritative, and a conflicting ``n_model`` raises."""
+        from idunno_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                    Mesh, make_mesh,
+                                                    virtual_mesh)
+        if n_model < 1:
+            raise ValueError(f"n_model {n_model} must be >= 1")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh is None and n_model > 1:
+            dev = resolve_device(device)
+            # the CPU is one device: its pools shard over a virtual mesh
+            # (the JAX tests' forced host devices); cards must be distinct
+            mesh = (virtual_mesh(1, n_model, dev) if dev.type == "cpu"
+                    else make_mesh(1, n_model))
+        if mesh is None:
+            return None, n_model
+        if draft is not None:
+            raise _later("speculative decoding under tensor parallelism",
+                         "§1 step 3a-ii")
+        mesh_model = mesh.shape[MODEL_AXIS]
+        if n_model == 1:
+            n_model = mesh_model            # the mesh is authoritative
+        elif n_model != mesh_model:
+            raise ValueError(f"n_model={n_model} conflicts with the mesh's "
+                             f"model axis extent {mesh_model}")
+        if device is not None and torch.device(device).type != \
+                mesh.lead.type:
+            raise ValueError(f"device={device} but the mesh's devices are "
+                             f"{mesh.lead.type}")
+        n_data = mesh.shape[DATA_AXIS]
+        if slots % n_data:
+            raise ValueError(f"slots={slots} must divide over the mesh "
+                             f"data axis ({n_data})")
+        return mesh, n_model
+
+    def _group(self, slot: int) -> int:
+        """The data group (mesh row) that holds pool slot ``slot``."""
+        if self.mesh is None:
+            return 0
+        return self._dec.group_of(slot, self.slots)
+
+    def _row_dec(self, slot: int):
+        """What a batch-1 prefill for slot ``slot`` runs: the model, or the
+        tensor-parallel decoder of the slot's data group."""
+        if self.mesh is None:
+            return self.model
+        return self._dec.for_group(self._group(slot))
 
     # -- client surface ---------------------------------------------------
 
@@ -772,6 +848,17 @@ class DecodeServer:
             "kv_cache_blocks": (self._block_pool.num_blocks
                                 if self._block_pool is not None else 0),
             "device": str(self.device),
+            # tensor parallelism: model-axis extent + estimated reduction
+            # payload per decode step (2 row-parallel reductions per
+            # block over a [slots, 1, dim] activation; 0 when TP is off)
+            "n_model": self.n_model,
+            "tp_collective_bytes": tp_collective_bytes(
+                m, self.slots, self.n_model),
+            # vocab-sharded sampling tail: per-row scalar merge payload
+            # instead of a gathered [S, vocab]; 0 when TP is off or the
+            # vocab replicates
+            "sampling_collective_bytes": sampling_collective_bytes(
+                m, self.slots, self.n_model),
         }
         out = dict(self._stats, live=len(self._live),
                    queued=len(self._queue), slots=self.slots,
@@ -967,6 +1054,7 @@ class DecodeServer:
         pl = len(self.prefix) if self.prefix else 0
         bs = self.kv_block_size
         dev = self.device
+        dec = self._row_dec(0)
         hit = len(hit_chain) * bs
         head_true = len(head)
         while True:
@@ -994,7 +1082,7 @@ class DecodeServer:
                                    dtype=torch.int32, device=dev)
                 plen = torch.tensor([hit], dtype=torch.int32, device=dev)
                 row_cache, _ = _prefill_suffix_paged(
-                    self.model, self._prefix_cache, suffix, head_true - hit,
+                    dec, self._prefix_cache, suffix, head_true - hit,
                     pl + hit, bucket, tab, plen,
                     self._block_pool.kv_pages(), start=pl,
                     kernel=self.paged_kernel)
@@ -1004,15 +1092,12 @@ class DecodeServer:
                 pre = (concat_kv_prefix(self._prefix_cache, gathered)
                        if self.prefix else gathered)
                 row_cache, _ = _prefill_suffix(
-                    self.model, pre, suffix, head_true - hit, pl + hit,
-                    bucket)
+                    dec, pre, suffix, head_true - hit, pl + hit, bucket)
             elif self.prefix:
                 row_cache, _ = _prefill_suffix(
-                    self.model, self._prefix_cache, suffix, head_true, pl,
-                    bucket)
+                    dec, self._prefix_cache, suffix, head_true, pl, bucket)
             else:
-                row_cache, _ = _prefill(self.model, suffix, head_true,
-                                        bucket)
+                row_cache, _ = _prefill(dec, suffix, head_true, bucket)
             return self._radix.insert(head, row_cache, pl)
         finally:
             if hit_chain:
@@ -1172,6 +1257,7 @@ class DecodeServer:
         dev = self.device
         while free and self._queue:
             slot = free.pop(0)
+            dec = self._row_dec(slot)
             req = self._queue.popleft()
             req.t_admit = time.monotonic()
             req.cold = not self._dispatched_ever
@@ -1241,7 +1327,8 @@ class DecodeServer:
                 total = pl + hit + suffix_bucket
                 if hit and tab is None:
                     gathered = self._block_pool.gather(
-                        [nd.block for nd in hit_chain])
+                        [nd.block for nd in hit_chain],
+                        group=self._group(slot))
                     pre = (concat_kv_prefix(self._prefix_cache, gathered)
                            if self.prefix else gathered)
                 else:   # paged hit (hit region stays zero) or no hit
@@ -1257,7 +1344,7 @@ class DecodeServer:
                     sp.t_start = t_prefill0
                 self._pending = {
                     "req": req, "slot": slot,
-                    "cache": _chunk_init(self.model, pre, total),
+                    "cache": _chunk_init(dec, pre, total), "dec": dec,
                     "suffix": suffix_t, "true": suffix_true - hit,
                     "suffix_true": suffix_true, "cursor0": pl + hit,
                     "bucket": suffix_bucket, "off": 0, "hit": hit,
@@ -1268,25 +1355,25 @@ class DecodeServer:
                 return
             if hit and tab is not None:
                 row_cache, last_logits = _prefill_suffix_paged(
-                    self.model, self._prefix_cache, suffix_t,
+                    dec, self._prefix_cache, suffix_t,
                     suffix_true - hit, pl + hit, suffix_bucket, tab, plen,
                     self._block_pool.kv_pages(), start=pl,
                     kernel=self.paged_kernel)
             elif hit:
                 gathered = self._block_pool.gather(
-                    [nd.block for nd in hit_chain])
+                    [nd.block for nd in hit_chain], group=self._group(slot))
                 pre = (concat_kv_prefix(self._prefix_cache, gathered)
                        if self.prefix else gathered)
                 row_cache, last_logits = _prefill_suffix(
-                    self.model, pre, suffix_t, suffix_true - hit, pl + hit,
+                    dec, pre, suffix_t, suffix_true - hit, pl + hit,
                     suffix_bucket)
             elif self.prefix:
                 row_cache, last_logits = _prefill_suffix(
-                    self.model, self._prefix_cache, suffix_t, suffix_true,
+                    dec, self._prefix_cache, suffix_t, suffix_true,
                     pl, suffix_bucket)
             else:
                 row_cache, last_logits = _prefill(
-                    self.model, suffix_t, suffix_true, suffix_bucket)
+                    dec, suffix_t, suffix_true, suffix_bucket)
             self._finish_admission(
                 req, slot, row_cache, last_logits, hit=hit,
                 hit_chain=hit_chain, per_req=per_req, pl=pl,
@@ -1302,7 +1389,7 @@ class DecodeServer:
         tok = p["suffix"][:, p["off"]:p["off"] + n]
         cursor = p["cursor0"] + p["off"]
         logits = _prefill_chunk(
-            self.model, p["cache"], tok, cursor, p["tables"], p["plen"],
+            p["dec"], p["cache"], tok, cursor, p["tables"], p["plen"],
             self._block_pool.kv_pages() if p["tables"] is not None else None,
             start=p["pl"], kernel=self.paged_kernel or "plain")
         # the first-token logits live at true-1 (suffix coordinates)
@@ -1386,8 +1473,8 @@ class DecodeServer:
         if req.temperature > 0.0:
             seed = req.id if req.seed is None else req.seed
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        first = _next_token(last_logits, req.temperature, gen, req.top_p,
-                            req.top_k)
+        first = pick_token(last_logits, req.temperature, gen, req.top_p,
+                           req.top_k)
         # insert: prompt tokens, the first generated token, the row cache
         self._tokens[slot, :bucket] = torch.from_numpy(prompt).to(dev)
         self._tokens[slot, true_len] = first
@@ -1414,8 +1501,8 @@ class DecodeServer:
         self._top_ks[slot] = req.top_k
         self._gens[slot] = gen
         if self.track_logprobs:   # the prefill-picked token's logprob
-            self._logprobs[slot, true_len] = torch.log_softmax(
-                last_logits.float(), dim=-1)[first]
+            self._logprobs[slot, true_len] = token_logprob(last_logits,
+                                                           first)
         if self.penalties:   # fresh row; the first token counts
             self._pres[slot] = req.presence_penalty
             self._freq[slot] = req.frequency_penalty
@@ -1550,7 +1637,7 @@ class DecodeServer:
                 self._spec_round(ctx, sampled, filtered)
                 continue
             tok = self._tokens.gather(1, self._cursors[:, None])
-            logits = decode_apply(self.model, self._cache, tok,
+            logits = decode_apply(self._dec, self._cache, tok,
                                   self._cursors, paged=ctx)
             _, cursors, remaining, _, _ = fused_decode_tail(
                 logits[:, 0], self._tokens, self._cursors, self._remaining,

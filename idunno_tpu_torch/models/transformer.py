@@ -39,7 +39,10 @@ not use it.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from collections.abc import Callable
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +54,7 @@ from idunno_tpu_torch.ops.attention import full_attention
 from idunno_tpu_torch.ops.paged_attention import (PagedContext,
                                                   merge_attention,
                                                   paged_attention_grouped)
+from idunno_tpu_torch.ops.sampling import VocabShards
 
 AttnFn = Callable[..., torch.Tensor]     # (q, k, v, *, causal) -> out
 
@@ -169,6 +173,122 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.to(self.weight.dtype)).to(x.dtype)
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache: dict, cursors, paged: PagedContext | None = None,
+                     *, kv_cache_dtype: str = "native", use_rope: bool = True,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The cached attention of one decode step, between the projections:
+    ``q`` [B, t, H, D] and the step's ``k``/``v`` [B, t, KVH, D] (H a
+    multiple of KVH) against one layer's cache ``{"cached_k": [B, T_max,
+    KVH, D], ...}``, written in place. Returns [B, t, H, D] in
+    ``out_dtype`` (default ``q``'s). `MultiHeadAttention.decode_step`
+    runs it on all heads; a tensor-parallel shard (`ShardedLM`) on its own
+    heads and its cache's KV heads. The cursor shapes, the overflow
+    poisoning and the paged split are `MultiHeadAttention.decode_step`'s."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if kv_cache_dtype not in ("native", "int8"):
+        raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: "
+                         "want native|int8")
+    quant = kv_cache_dtype == "int8"
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    ck, cv = cache["cached_k"], cache["cached_v"]
+    ks = cache.get("k_scale")
+    vs = cache.get("v_scale")
+    max_len = ck.shape[1]
+    dev = q.device
+    if isinstance(cursors, torch.Tensor) and cursors.dim() == 1:
+        i = cursors.to(dev)
+        pos_bt = i[:, None] + torch.arange(t, device=dev)[None, :]
+        overflow = i + t > max_len                      # [B]
+        if use_rope:
+            p = pos_bt.to(torch.float32)
+            q, k = rope(q, positions=p), rope(k, positions=p)
+        slot = torch.clamp(pos_bt, 0, max_len - 1)      # [B, t]
+        rows = torch.arange(b, device=dev)[:, None]
+        if quant:
+            (k_st, k_sc), (v_st, v_sc) = _q8(k), _q8(v)
+        else:
+            k_st, v_st = k, v
+        # overflow gating on the VALUES: an overflowing row writes its
+        # old cache entries back (a no-op)
+        ovr = overflow[:, None, None, None]
+        ck[rows, slot] = torch.where(ovr, ck[rows, slot], k_st.to(ck.dtype))
+        cv[rows, slot] = torch.where(ovr, cv[rows, slot], v_st.to(cv.dtype))
+        if quant:
+            ovr_s = overflow[:, None, None]
+            ks[rows, slot] = torch.where(ovr_s, ks[rows, slot], k_sc)
+            vs[rows, slot] = torch.where(ovr_s, vs[rows, slot], v_sc)
+        ax = torch.arange(max_len, device=dev)[None, None, :]
+        live = ax <= pos_bt[:, :, None]                 # [B, t, T]
+        if paged is not None:
+            start = paged.start
+            live = live & ~((ax >= start)
+                            & (ax < start + paged.lengths.to(dev)
+                               .long()[:, None, None]))
+        mask = live[:, None]                            # [B, 1, t, T]
+        poison = overflow[:, None, None, None, None]
+    else:
+        i = int(cursors)
+        pos = (i + torch.arange(t, device=dev)).to(torch.float32)
+        overflow = i + t > max_len
+        if use_rope:
+            q, k = rope(q, positions=pos), rope(k, positions=pos)
+        if quant:
+            (k_st, k_sc), (v_st, v_sc) = _q8(k), _q8(v)
+        else:
+            k_st, v_st = k, v
+        if not overflow:
+            ck[:, i:i + t] = k_st.to(ck.dtype)
+            cv[:, i:i + t] = v_st.to(cv.dtype)
+            if quant:
+                ks[:, i:i + t] = k_sc
+                vs[:, i:i + t] = v_sc
+        ax = torch.arange(max_len, device=dev)[None, :]
+        live = ax <= (i + torch.arange(t, device=dev))[:, None]  # [t, T]
+        if paged is not None:
+            # batch-1 in the scalar-cursor shape: one chain length
+            start = paged.start
+            live = live & ~((ax >= start)
+                            & (ax < start + paged.lengths.to(dev)
+                               .long()[0]))
+        mask = live[None, None]
+        poison = overflow
+    # grouped attention against the (possibly narrower) cache: query
+    # heads reshape to [.., kv_heads, group, d]; no repeat of the cache
+    group = h // kvh
+    new_k, new_v = ck, cv
+    if quant:
+        new_k = ck.to(torch.float32) * ks[..., None]
+        new_v = cv.to(torch.float32) * vs[..., None]
+    q5 = q.reshape(b, t, kvh, group, d)
+    scores = torch.einsum("bqhgd,bthd->bhgqt", q5.to(torch.float32),
+                          new_k.to(torch.float32)) / (d ** 0.5)
+    mask = mask[:, :, None]          # broadcast over the group axis
+    if isinstance(poison, torch.Tensor):
+        scores = torch.where(poison, torch.full_like(scores, float("nan")),
+                             scores)
+    elif poison:
+        scores = torch.full_like(scores, float("nan"))
+    scores = torch.where(mask, scores,
+                         torch.full_like(scores, float("-inf")))
+    m_l, p_l, l_l = _softmax_parts(scores)
+    # normalize BEFORE the value product in both branches
+    o_l = torch.einsum("bhgqt,bthd->bqhgd", p_l / l_l,
+                       new_v.to(torch.float32))
+    if paged is None:
+        out = o_l.to(out_dtype)
+    else:
+        lse_l = (m_l + torch.log(l_l))[..., 0].permute(0, 3, 1, 2)
+        o_p, lse_p = paged_attention_grouped(
+            q5.to(torch.float32), paged.k_pages, paged.v_pages,
+            paged.tables, paged.lengths,
+            k_scale_pages=paged.k_scale_pages,
+            v_scale_pages=paged.v_scale_pages, kernel=paged.kernel)
+        out = merge_attention(o_l, lse_l, o_p, lse_p).to(out_dtype)
+    return out.reshape(b, t, h, d)
+
+
 class MultiHeadAttention(nn.Module):
     """Pluggable-kernel attention; ``decode_step`` is the KV-cached
     serving path. ``num_kv_heads`` < num_heads is grouped-query attention:
@@ -246,108 +366,12 @@ class MultiHeadAttention(nn.Module):
             raise ValueError("decode requires causal=True (autoregressive "
                              "serving of a bidirectional model would "
                              "silently change its semantics)")
-        if self.kv_cache_dtype not in ("native", "int8"):
-            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: "
-                             "want native|int8")
-        quant = self.kv_cache_dtype == "int8"
         b, t, _ = x.shape
         q, k, v = self._qkv(x)
-        h, d, kvh = self.num_heads, self.head_dim, self.kv_heads
-        ck, cv = cache["cached_k"], cache["cached_v"]
-        ks = cache.get("k_scale")
-        vs = cache.get("v_scale")
-        max_len = ck.shape[1]
-        dev = x.device
-        if isinstance(cursors, torch.Tensor) and cursors.dim() == 1:
-            i = cursors.to(dev)
-            pos_bt = i[:, None] + torch.arange(t, device=dev)[None, :]
-            overflow = i + t > max_len                      # [B]
-            if self.use_rope:
-                p = pos_bt.to(torch.float32)
-                q, k = rope(q, positions=p), rope(k, positions=p)
-            slot = torch.clamp(pos_bt, 0, max_len - 1)      # [B, t]
-            rows = torch.arange(b, device=dev)[:, None]
-            if quant:
-                (k_st, k_sc), (v_st, v_sc) = _q8(k), _q8(v)
-            else:
-                k_st, v_st = k, v
-            # overflow gating on the VALUES: an overflowing row writes its
-            # old cache entries back (a no-op)
-            ovr = overflow[:, None, None, None]
-            ck[rows, slot] = torch.where(ovr, ck[rows, slot], k_st.to(ck.dtype))
-            cv[rows, slot] = torch.where(ovr, cv[rows, slot], v_st.to(cv.dtype))
-            if quant:
-                ovr_s = overflow[:, None, None]
-                ks[rows, slot] = torch.where(ovr_s, ks[rows, slot], k_sc)
-                vs[rows, slot] = torch.where(ovr_s, vs[rows, slot], v_sc)
-            ax = torch.arange(max_len, device=dev)[None, None, :]
-            live = ax <= pos_bt[:, :, None]                 # [B, t, T]
-            if paged is not None:
-                start = paged.start
-                live = live & ~((ax >= start)
-                                & (ax < start + paged.lengths.to(dev)
-                                   .long()[:, None, None]))
-            mask = live[:, None]                            # [B, 1, t, T]
-            poison = overflow[:, None, None, None, None]
-        else:
-            i = int(cursors)
-            pos = (i + torch.arange(t, device=dev)).to(torch.float32)
-            overflow = i + t > max_len
-            if self.use_rope:
-                q, k = rope(q, positions=pos), rope(k, positions=pos)
-            if quant:
-                (k_st, k_sc), (v_st, v_sc) = _q8(k), _q8(v)
-            else:
-                k_st, v_st = k, v
-            if not overflow:
-                ck[:, i:i + t] = k_st.to(ck.dtype)
-                cv[:, i:i + t] = v_st.to(cv.dtype)
-                if quant:
-                    ks[:, i:i + t] = k_sc
-                    vs[:, i:i + t] = v_sc
-            ax = torch.arange(max_len, device=dev)[None, :]
-            live = ax <= (i + torch.arange(t, device=dev))[:, None]  # [t, T]
-            if paged is not None:
-                # batch-1 in the scalar-cursor shape: one chain length
-                start = paged.start
-                live = live & ~((ax >= start)
-                                & (ax < start + paged.lengths.to(dev)
-                                   .long()[0]))
-            mask = live[None, None]
-            poison = overflow
-        # grouped attention against the (possibly narrower) cache: query
-        # heads reshape to [.., kv_heads, group, d]; no repeat of the cache
-        group = h // kvh
-        new_k, new_v = ck, cv
-        if quant:
-            new_k = ck.to(torch.float32) * ks[..., None]
-            new_v = cv.to(torch.float32) * vs[..., None]
-        q5 = q.reshape(b, t, kvh, group, d)
-        scores = torch.einsum("bqhgd,bthd->bhgqt", q5.to(torch.float32),
-                              new_k.to(torch.float32)) / (d ** 0.5)
-        mask = mask[:, :, None]          # broadcast over the group axis
-        if isinstance(poison, torch.Tensor):
-            scores = torch.where(poison, torch.full_like(scores, float("nan")),
-                                 scores)
-        elif poison:
-            scores = torch.full_like(scores, float("nan"))
-        scores = torch.where(mask, scores,
-                             torch.full_like(scores, float("-inf")))
-        m_l, p_l, l_l = _softmax_parts(scores)
-        # normalize BEFORE the value product in both branches
-        o_l = torch.einsum("bhgqt,bthd->bqhgd", p_l / l_l,
-                           new_v.to(torch.float32))
-        if paged is None:
-            out = o_l.to(x.dtype)
-        else:
-            lse_l = (m_l + torch.log(l_l))[..., 0].permute(0, 3, 1, 2)
-            o_p, lse_p = paged_attention_grouped(
-                q5.to(torch.float32), paged.k_pages, paged.v_pages,
-                paged.tables, paged.lengths,
-                k_scale_pages=paged.k_scale_pages,
-                v_scale_pages=paged.v_scale_pages, kernel=paged.kernel)
-            out = merge_attention(o_l, lse_l, o_p, lse_p).to(x.dtype)
-        return self.out(out.reshape(b, t, h * d))
+        out = decode_attention(q, k, v, cache, cursors, paged,
+                               kv_cache_dtype=self.kv_cache_dtype,
+                               use_rope=self.use_rope, out_dtype=x.dtype)
+        return self.out(out.reshape(b, t, self.num_heads * self.head_dim))
 
 
 class Block(nn.Module):
@@ -469,10 +493,258 @@ def decode_apply(model: TransformerLM, cache: dict, tokens: torch.Tensor,
     depth-stacked ``cache`` (written in place) from ``cursors`` (int or
     int64 [B]); ``paged`` carries depth-stacked page stores
     (``[L, N, bs, ...]``, `engine.kv_blocks.KVBlockPool.kv_pages`), read in
-    place, never gathered. Returns f32 logits [B, t, vocab]."""
+    place, never gathered. Returns f32 logits [B, t, vocab]. A
+    `ShardedLM` runs its tensor-parallel step on its `ShardedCache` and
+    returns the logits as `ops/sampling.py:VocabShards`."""
+    if isinstance(model, ShardedLM):
+        return model.decode_apply(cache, tokens, cursors, paged)
     x = model.embed(tokens).to(model.compute_dtype)
     for i, blk in enumerate(model.blocks):
         layer = {name: leaf[i] for name, leaf in cache.items()}
         x = blk.decode(x, layer, cursors,
                        None if paged is None else paged.layer(i))
     return model.head(model.ln_f(x)).to(torch.float32)
+
+
+# -- tensor-parallel decode -------------------------------------------------
+
+
+class ShardDense:
+    """One model shard of a ``Dense``: its cut of the weight (a tensor, or
+    an int8 `parallel/sharding.py:QParam` dequantized on each call as
+    ``ops/quantize.py`` does) and of the bias, or no bias (a row shard,
+    whose bias is added once after the reduction)."""
+
+    def __init__(self, weight, bias) -> None:
+        self.weight, self.bias = weight, bias
+
+    @staticmethod
+    def _read(p):
+        return p.dequantize() if hasattr(p, "dequantize") else p
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self._read(self.bias).to(x.dtype)
+        return F.linear(x, self._read(self.weight).to(x.dtype), b)
+
+
+@dataclass
+class ShardedCache:
+    """The decode cache of a `ShardedLM`: ``parts[i][m]`` is the
+    depth-stacked cache dict (``init_cache``'s layout) of the ``i``-th data
+    group the decoder spans (its rows of the batch) on model shard ``m``,
+    holding that shard's KV heads (all of them where the KV heads
+    replicate), on that shard's device."""
+
+    parts: list
+
+
+class ShardedLM:
+    """Tensor-parallel decode of a dense `TransformerLM` over a
+    ``parallel/mesh.py:Mesh`` (the JAX package's GSPMD split, written out).
+
+    Model shard ``m`` holds its cut of every block (`parallel/sharding.py:
+    lm_tp_specs`): the Q heads ``[m·H/n, (m+1)·H/n)`` and its KV heads
+    (all of them where the KV heads do not divide ``n``), its slice of the
+    MLP's hidden features, and its vocab slice of the unembed where the
+    vocab divides. A block runs, per shard, the column shards (q/k/v,
+    ``mlp_up``), the attention on the shard's heads against the shard's
+    cache (K3 per shard on a paged pool), and the row shards (``out``,
+    ``mlp_down``); each row shard's partial outputs are summed in shard
+    order, in f32, on the data group's lead device, then its bias is added
+    once: two reductions per block, and a stream that does not depend on
+    timing. The embedding and the norms run once, on the lead device.
+
+    ``groups`` are the data groups this decoder serves (default all): a
+    batch splits over them in order (the pool's slots over the data
+    axis), each group on its own row of the mesh. `for_group` gives the
+    decoder of one group, which a single-row prefill uses. Routed (MoE)
+    blocks refuse: expert parallelism is ROADMAP.md §1 step 3e."""
+
+    def __init__(self, model: TransformerLM, mesh, *,
+                 groups: tuple[int, ...] | None = None) -> None:
+        from idunno_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+        from idunno_tpu_torch.parallel.sharding import shard_lm_params
+
+        if getattr(model, "ffn_factory", None) is not None:
+            raise ValueError(
+                "n_model > 1 requires the scanned decode layout (dense "
+                "scan-compatible blocks): routed blocks under tensor "
+                "parallelism come with expert parallelism (ROADMAP.md §1, "
+                "step 3e)")
+        self.model, self.mesh = model, mesh
+        self.n_data = mesh.shape[DATA_AXIS]
+        self.n_model = n = mesh.shape[MODEL_AXIS]
+        self.groups = (tuple(range(self.n_data)) if groups is None
+                       else tuple(groups))
+        self.kv_shard = model.kv_heads % n == 0
+        self.vocab_shard = n > 1 and model.vocab % n == 0
+        self.head_dim = model.dim // model.num_heads
+        self.q_heads = model.num_heads // n
+        self.kv_local = model.kv_heads // n if self.kv_shard \
+            else model.kv_heads
+        # each model shard's weights per (device, shard), and the model
+        # (embedding, norms, row shards' biases) per data group's lead
+        self._shards: dict = {}
+        self._replicas: dict = {}
+        src_dev = model.ln_f.weight.device
+        for g, row in enumerate(mesh.devices):
+            lead = row[0]
+            if lead not in self._replicas:
+                self._replicas[lead] = (model if lead == src_dev else
+                                        copy.deepcopy(model).to(lead))
+            if all((dev, m) in self._shards for m, dev in enumerate(row)):
+                continue
+            for m, params in enumerate(shard_lm_params(mesh, model, g)):
+                blocks = [{
+                    mod: ShardDense(
+                        params[f"blocks.{i}.{path}.weight"],
+                        None if mod in ("out", "mlp_down")
+                        else params[f"blocks.{i}.{path}.bias"])
+                    for mod, path in (("q", "attn.q"), ("k", "attn.k"),
+                                      ("v", "attn.v"), ("out", "attn.out"),
+                                      ("mlp_up", "mlp_up"),
+                                      ("mlp_down", "mlp_down"))}
+                    for i in range(model.depth)]
+                head = (ShardDense(params["head.weight"], params["head.bias"])
+                        if self.vocab_shard else None)
+                self._shards[row[m], m] = {"blocks": blocks, "head": head}
+
+    def for_group(self, group: int) -> "ShardedLM":
+        """This decoder over data group ``group`` alone (same weights)."""
+        view = copy.copy(self)
+        view.groups = (group,)
+        return view
+
+    def group_of(self, slot: int, slots: int) -> int:
+        """The data group that holds pool slot ``slot`` of ``slots``."""
+        return slot // (slots // self.n_data)
+
+    def _devices(self, g: int) -> tuple:
+        return self.mesh.devices[g]
+
+    def init_cache(self, batch: int, max_len: int) -> ShardedCache:
+        """Zeroed cache for ``batch`` rows split over this decoder's data
+        groups (``init_cache``'s depth-stacked leaves per shard, KV heads
+        cut where they shard)."""
+        ng = len(self.groups)
+        if batch % ng:
+            raise ValueError(f"batch {batch} must divide over {ng} data "
+                             "groups")
+        m = self.model
+        quant = m.kv_cache_dtype == "int8"
+        dt = torch.int8 if quant else m.compute_dtype
+        parts = []
+        for g in self.groups:
+            row = []
+            for dev in self._devices(g):
+                shape = (m.depth, batch // ng, max_len, self.kv_local,
+                         self.head_dim)
+                c = {"cached_k": torch.zeros(shape, dtype=dt, device=dev),
+                     "cached_v": torch.zeros(shape, dtype=dt, device=dev)}
+                if quant:
+                    c["k_scale"] = torch.zeros(shape[:-1],
+                                               dtype=torch.float32,
+                                               device=dev)
+                    c["v_scale"] = torch.zeros(shape[:-1],
+                                               dtype=torch.float32,
+                                               device=dev)
+                row.append(c)
+            parts.append(row)
+        return ShardedCache(parts)
+
+    @staticmethod
+    def _reduce(parts: list, lead: torch.device, bias: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        """Sum a row shard's partial outputs in shard order, in f32, on
+        ``lead``, then add the bias once."""
+        acc = parts[0].to(lead, torch.float32)
+        for p in parts[1:]:
+            acc = acc + p.to(lead, torch.float32)
+        return (acc + bias.to(torch.float32)).to(dtype)
+
+    def _paged_shard(self, paged: PagedContext, dev, m: int, i: int,
+                     rows: slice) -> PagedContext:
+        def pick(pages):
+            return None if pages is None else pages[dev, m][i]
+        return dataclasses.replace(
+            paged, k_pages=pick(paged.k_pages), v_pages=pick(paged.v_pages),
+            k_scale_pages=pick(paged.k_scale_pages),
+            v_scale_pages=pick(paged.v_scale_pages),
+            tables=paged.tables[rows].to(dev),
+            lengths=paged.lengths[rows].to(dev))
+
+    def _group_apply(self, g: int, cache: list, tokens: torch.Tensor,
+                     cursors, paged: PagedContext | None,
+                     rows: slice) -> list:
+        devs = self._devices(g)
+        lead = devs[0]
+        rep = self._replicas[lead]
+        hd, hq = self.head_dim, self.q_heads
+        x = rep.embed(tokens.to(lead)).to(self.model.compute_dtype)
+        b, t, _ = x.shape
+        for i, blk in enumerate(rep.blocks):
+            h = blk.ln1(x)
+            parts = []
+            for m, dev in enumerate(devs):
+                w = self._shards[dev, m]["blocks"][i]
+                hm = h.to(dev)
+                q = w["q"](hm).view(b, t, hq, hd)
+                k = w["k"](hm).view(b, t, self.kv_local, hd)
+                v = w["v"](hm).view(b, t, self.kv_local, hd)
+                h0 = m * hq
+                if not self.kv_shard:
+                    # replicated KV heads: the shard's Q heads sit at
+                    # their places among all H heads (zeros elsewhere)
+                    # so every head meets its own KV head
+                    full = q.new_zeros((b, t, self.model.num_heads, hd))
+                    full[:, :, h0:h0 + hq] = q
+                    q = full
+                layer = {name: leaf[i] for name, leaf in cache[m].items()}
+                ctx = (None if paged is None
+                       else self._paged_shard(paged, dev, m, i, rows))
+                o = decode_attention(
+                    q, k, v, layer, cursors, ctx,
+                    kv_cache_dtype=blk.attn.kv_cache_dtype,
+                    use_rope=blk.attn.use_rope, out_dtype=x.dtype)
+                if not self.kv_shard:
+                    o = o[:, :, h0:h0 + hq]
+                parts.append(w["out"](o.reshape(b, t, hq * hd)))
+            x = x + self._reduce(parts, lead, blk.attn.out.bias, x.dtype)
+            h = blk.ln2(x)
+            parts = []
+            for m, dev in enumerate(devs):
+                w = self._shards[dev, m]["blocks"][i]
+                up = F.gelu(w["mlp_up"](h.to(dev)), approximate="tanh")
+                parts.append(w["mlp_down"](up))
+            x = x + self._reduce(parts, lead, blk.mlp_down.bias, x.dtype)
+        y = rep.ln_f(x)
+        if not self.vocab_shard:
+            return [rep.head(y).to(torch.float32)]
+        return [self._shards[dev, m]["head"](y.to(dev)).to(torch.float32)
+                for m, dev in enumerate(devs)]
+
+    def decode_apply(self, cache: ShardedCache, tokens: torch.Tensor,
+                     cursors, paged: PagedContext | None = None):
+        """`decode_apply` over the mesh: ``tokens`` [B, t] split over the
+        data groups in order (so are per-row ``cursors`` and the paged
+        context's tables and lengths); ``paged`` carries the pool's page
+        stores per ``(device, shard)`` (`KVBlockPool(mesh=).kv_pages`).
+        Returns the f32 logits [B, t, vocab] as `VocabShards`: one part
+        per vocab shard, on data group 0's device of that shard (one
+        part, on the lead device, where the vocab replicates)."""
+        ng = len(self.groups)
+        per = tokens.shape[0] // ng
+        outs = []
+        for gi, g in enumerate(self.groups):
+            rows = slice(gi * per, (gi + 1) * per)
+            cur = (cursors[rows] if isinstance(cursors, torch.Tensor)
+                   and cursors.dim() == 1 else cursors)
+            outs.append(self._group_apply(g, cache.parts[gi], tokens[rows],
+                                          cur, paged, rows))
+        if ng == 1:
+            return VocabShards(outs[0])
+        devs = self._devices(self.groups[0])
+        return VocabShards([
+            torch.cat([o[m].to(devs[m]) for o in outs])
+            for m in range(len(outs[0]))])
+

@@ -5,10 +5,11 @@ package's, except that ``generate``, ``lm_serve``, the cluster prefix and
 KV-handoff verbs and ``train_start`` run the port's ``load_lm``,
 ``generate``/``beam_search``, ``DecodeServer``, ``ClusterPrefixCache`` and
 ``LMTrainJob`` on the node's device (``node.device``: the card unless the
-node was built for the CPU), ``profile`` traces through
-``utils/tracing.py`` (``torch.profiler``), and ``lm_serve``'s ``n_model >
-1``, whose module is not ported yet, raises a ValueError naming
-ROADMAP.md.
+node was built for the CPU), and ``profile`` traces through
+``utils/tracing.py`` (``torch.profiler``). ``lm_serve``'s ``n_model > 1``
+serves a tensor-parallel pool over a mesh of the node's local devices:
+its cards on a card node (one per shard), a virtual mesh over the CPU on
+a CPU node (`engine/serve_lm.py`).
 
 The reference is driven only by a human typing into each VM's interactive
 shell (`mp4_machinelearning.py:1111-1229`); there is no way to script the
@@ -56,8 +57,7 @@ from typing import TYPE_CHECKING
 
 from idunno_tpu_torch.comm.message import Message
 from idunno_tpu_torch.comm.transport import TransportError
-from idunno_tpu_torch.engine.serve_lm import (DEFAULT_SLOTS, DecodeServer,
-                                              _later)
+from idunno_tpu_torch.engine.serve_lm import DEFAULT_SLOTS, DecodeServer
 from idunno_tpu_torch.membership.epoch import (ScopeOwnerRedirect,
                                                check_payload, check_scoped,
                                                observe_payload, place_scope,
@@ -81,15 +81,6 @@ class RelayedError(Exception):
     def __init__(self, payload: dict) -> None:
         super().__init__(payload.get("error", "relayed error"))
         self.payload = dict(payload)
-
-
-def _refuse_unported(verb: str, p: dict) -> None:
-    """Raise (naming ROADMAP.md) for a key of ``lm_serve`` that needs a
-    module the port does not have yet, before anything is routed or
-    built: nothing quietly drops such a key."""
-    if verb == "lm_serve" and int(p.get("n_model", 1)) > 1:
-        raise _later("lm_serve's n_model > 1 (tensor parallelism)",
-                     "the parallelism slice, modules item 10")
 
 
 class _Starting:
@@ -171,7 +162,6 @@ class ControlService:
 
     def _dispatch(self, verb: str, p: dict) -> dict:
         node = self.node
-        _refuse_unported(verb, p)
         routed = self._route_cluster(verb, p)
         if routed is not None:
             return routed
@@ -417,6 +407,10 @@ class ControlService:
                     # spec like the block-pool keys above
                     paged_kernel=p.get("paged_kernel"),
                     prefill_chunk=int(p.get("prefill_chunk", 0)),
+                    # tensor parallelism over a mesh of the node's local
+                    # devices; rides the journaled spec so manager
+                    # placement and recovery rebuilds keep the same shape
+                    n_model=int(p.get("n_model", 1)),
                     # each all-greedy dispatch one CUDA-graph replay on
                     # a card (decode_graph="auto"), recorded at the
                     # pool's first such dispatch, warmup's included

@@ -26,8 +26,8 @@ The suites behind ``python -m idunno_tpu_torch.bench`` (``BENCH_SUITE``):
 ``run_lm_bench`` (lm), ``run_lm_slots_bench``, ``run_lm_prefix_bench``,
 ``run_lm_cluster_prefix_bench``, ``run_lm_paged_bench``,
 ``run_lm_distserve_bench``, ``run_lm_gateway_bench``,
-``run_lm_autoscale_bench``, ``run_lm_gray_bench``; ``run_lm_tp_bench``
-raises until tensor parallelism is ported. Each takes ``platform``
+``run_lm_autoscale_bench``, ``run_lm_gray_bench``, ``run_lm_tp_bench``
+(tensor-parallel decode, ``n_model`` 1 against 2). Each takes ``platform``
 (``"cuda"`` or ``"cpu"``: the device it runs on) and returns the JAX
 suite's record keys. Each headline serves from the JAX suite's own pool:
 the contiguous cache (``lm``, ``lm_slots``, ``lm_gateway``,
@@ -1115,15 +1115,111 @@ def run_lm_paged_bench(platform: str, device_kind: str, n_devices: int,
     return out
 
 
+def lm_tp_grid(platform: str) -> list[tuple[int, int]]:
+    """(n_model, slots) points for BENCH_SUITE=lm_tp: the JAX suite's
+    16/32 slots at n_model 1 vs 2 on the card, its miniature on the CPU.
+    BENCH_LM_TP_GRID=m:s,m:s overrides."""
+    env = os.environ.get("BENCH_LM_TP_GRID")
+    if env:
+        return [(int(m), int(s)) for m, s in
+                (p.split(":") for p in env.split(",") if p.strip())]
+    if platform == "cuda":
+        return [(1, 16), (2, 16), (1, 32), (2, 32)]
+    return [(1, 2), (2, 2), (1, 4), (2, 4)]
+
+
 def run_lm_tp_bench(platform: str, device_kind: str, n_devices: int,
                     peak_bf16: float | None, *, deadline: float,
                     compact: bool = False) -> dict:
-    """BENCH_SUITE=lm_tp: tensor-parallel decode. Not ported: raises the
-    ValueError naming ROADMAP.md that ``DecodeServer(n_model > 1)``
-    raises."""
-    from idunno_tpu_torch.engine.serve_lm import _later
-    raise _later("the lm_tp bench suite (tensor-parallel decode)",
-                 "the parallelism slice, modules item 10")
+    """BENCH_SUITE=lm_tp: steady-state decode throughput of the tensor-
+    parallel pool (`models/transformer.py:ShardedLM`: the Megatron split,
+    two reductions per block) at n_model 1 against 2, on the JAX suite's
+    contiguous pool. Each point times pure decode dispatches on a pure-TP
+    mesh; paired points report the TP speedup and a token-exactness probe
+    (the first completion must match across n_model). On the card a
+    point whose n_model exceeds the ``n_devices`` cards records a skip,
+    as the JAX suite does; the CPU's points run on a virtual mesh."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+
+    dev = resolve_device(platform)
+    card = dev.type == "cuda"
+    cfg = lm_bench_config(platform)
+    out = _base_record(cfg, platform, device_kind, n_devices)
+    model = build_lm(cfg, dev, 0)
+    n_params, _ = _count_params(model)
+    out["n_params"] = n_params
+    max_new = cfg["decode_steps"] * 3 + 1
+    prompt_len = min(cfg["prompt_len"], 64)
+    prompt = [int(t) for t in np.random.default_rng(5).integers(
+        1, cfg["vocab"], size=prompt_len)]
+
+    def run_point(n_model: int, slots: int) -> dict:
+        srv = DecodeServer(model, slots=slots, prompt_len=prompt_len,
+                           max_len=prompt_len + max_new + 1,
+                           decode_steps=cfg["decode_steps"],
+                           n_model=n_model, device=dev)
+        t0 = time.perf_counter()
+        srv.submit(prompt, max_new=2)          # cold build
+        head = srv.run_until_drained()[0].tokens
+        c_s = time.perf_counter() - t0
+        for _ in range(slots):
+            srv.submit(prompt, max_new=max_new)
+        srv.step()                             # admissions + first dispatch
+        k = max(1, (max_new - 1) // cfg["decode_steps"] - 1)
+        t0 = time.perf_counter()
+        for _ in range(k):
+            srv.step()
+        disp = (time.perf_counter() - t0) / k
+        st = srv.stats()["config"]
+        rec = {"tokens_per_s": round(
+                   slots * cfg["decode_steps"] / disp, 1),
+               "dispatch_s": round(disp, 4), "timed_dispatches": k,
+               "compile_s": round(c_s, 2),
+               "tp_collective_bytes": st["tp_collective_bytes"],
+               "head_tokens": head}
+        if peak_bf16:
+            rec["mfu"] = round(rec["tokens_per_s"] * 2.0 * n_params
+                               / (peak_bf16 / max(1, n_model)), 4)
+        del srv
+        return rec
+
+    points: list[dict] = []
+    out["points"] = points
+    base_heads: dict[int, list] = {}           # slots -> n_model=1 stream
+    for n_model, slots in lm_tp_grid(platform):
+        point: dict = {"n_model": n_model, "slots": slots}
+        points.append(point)
+        if card and n_model > n_devices:
+            point["skipped"] = f"needs {n_model} devices, have {n_devices}"
+            continue
+        if points[:-1] and time.perf_counter() > deadline:
+            point["skipped"] = "time budget"
+            continue
+        try:
+            rec = run_point(n_model, slots)
+        except Exception as e:  # noqa: BLE001 - record, never hide
+            point["error"] = f"{type(e).__name__}: {e}"
+            continue
+        head = rec.pop("head_tokens")
+        point.update(rec)
+        if n_model == 1:
+            base_heads[slots] = head
+        elif slots in base_heads:
+            # the exactness claim, measured where it runs
+            point["token_exact_vs_1"] = head == base_heads[slots]
+            base = next((p for p in points
+                         if p["n_model"] == 1 and p["slots"] == slots
+                         and "tokens_per_s" in p), None)
+            if base is not None:
+                point["speedup_vs_1"] = round(
+                    point["tokens_per_s"] / base["tokens_per_s"], 3)
+    ok = [p for p in points if "tokens_per_s" in p]
+    if ok:
+        tp = [p for p in ok if p["n_model"] > 1] or ok
+        best = max(tp, key=lambda p: p["tokens_per_s"])
+        out["best"] = {"n_model": best["n_model"], "slots": best["slots"],
+                       "tokens_per_s": best["tokens_per_s"]}
+    return out
 
 
 def _gateway_record(cfg: dict, platform: str, device_kind: str,

@@ -228,11 +228,30 @@ UNPORTED = [
 
 @pytest.mark.parametrize("verb,extra", UNPORTED,
                          ids=[f"{v}-{'-'.join(e)}" for v, e in UNPORTED])
-def test_unported_verbs_name_roadmap(cluster, verb, extra):
+def test_unported_verbs_name_roadmap(cluster, lm, verb, extra):
+    """``lm_serve`` with ``n_model: 2``, which raised naming ROADMAP.md
+    before tensor parallelism was ported, now serves a TP pool over the
+    CPU node's virtual mesh, node-local and cluster-managed alike: greedy
+    streams equal JAX ``generate`` and the pool reports its n_model."""
     nodes, control = cluster
-    kw = dict({"name": "chat", "prompt_len": 8, "max_len": 24}, **extra)
-    err = control("n0", verb, ok=False, **kw)["error"]
-    assert "ValueError" in err and "ROADMAP.md" in err, err
+    jm, params, blob = lm
+    name = "tp-" + "-".join(extra)
+    control("n1", "put_bytes", name=lm_store_name(name),
+            data=blob.decode("latin-1"))
+    kw = dict({"name": name, "slots": 2, "prompt_len": 8, "max_len": 24},
+              **extra)
+    out = control("n0", verb, **kw)
+    host = out.get("owner", "n0") if "placement" in extra else "n0"
+    prompts = [[7, 3, 11, 5], [1, 2, 40, 9, 13]]
+    ids = [control(host, "lm_submit", name=name, prompt=p,
+                   max_new=6)["id"] for p in prompts]
+    done = wait_done(control, host, name, ids)
+    for rid, p in zip(ids, prompts):
+        assert done[rid] == jax_tokens(jm, params, p, 6), rid
+    if "placement" not in extra:
+        cfg = control(host, "lm_stats", name=name)["stats"]["config"]
+        assert cfg["n_model"] == 2 and cfg["tp_collective_bytes"] > 0
+    assert control(host, "lm_stop", name=name)["stopped"]
 
 
 def test_profile_verb_through_the_node(cluster, tmp_path):

@@ -10,6 +10,9 @@ check cannot tell: an interpreter may import JAX at start-up on its own):
   outside comments and docstrings. The port's copies drop the JAX modules'
   citations of tracker numbers from their comments and docstrings, so
   those may differ;
+- the protocol analyzer's modules (``RETARGETED_COPIES``) have the JAX
+  modules' code once a string naming the JAX package's tree reads as the
+  port's, their registries aside, which keep every JAX row;
 - a module the port copies in part (``PARTIAL_COPIES``) has the JAX
   module's code, docstrings aside, in each of the named top-level
   functions and assignments;
@@ -54,7 +57,23 @@ COPIES = [
     "store/__init__.py", "store/sdfs.py",
     "utils/__init__.py", "utils/logging.py", "utils/ring.py",
     "utils/spans.py", "utils/types.py",
+    "chaos.py",
 ]
+
+# the protocol analyzer's modules: copies of the JAX package's retargeted to
+# the port's tree, so a string that names the JAX package's tree
+# (``"idunno_tpu"``, ``"idunno_tpu/..."``) reads as the port's; the named
+# top-level registries are left out of the comparison here and held by
+# test_analyzer_registries_keep_the_jax_rows instead
+RETARGETED_COPIES = {
+    "analysis/__init__.py": [], "analysis/allowlist.py": [],
+    "analysis/contracts.py": ["IDEM_VERBS", "GUARDED"],
+    "analysis/core.py": [], "analysis/determinism.py": [],
+    "analysis/errorlint.py": ["BASELINE_TARGETS"],
+    "analysis/fence_check.py": [], "analysis/idem_check.py": [],
+    "analysis/lock_discipline.py": [], "analysis/retry_safety.py": [],
+    "analysis/stamp_check.py": [],
+}
 
 
 # modules of the port that keep some of a JAX module's definitions as they
@@ -90,19 +109,39 @@ def test_port_file_imports_no_jax(path):
 @pytest.mark.parametrize("path", ["idunno_tpu_torch/models/moe.py",
                                   "idunno_tpu_torch/models/mixed.py",
                                   "idunno_tpu_torch/parallel/__init__.py",
-                                  "idunno_tpu_torch/parallel/expert.py"])
+                                  "idunno_tpu_torch/parallel/expert.py",
+                                  "idunno_tpu_torch/parallel/mesh.py",
+                                  "idunno_tpu_torch/parallel/sharding.py",
+                                  "idunno_tpu_torch/analysis/__main__.py",
+                                  "idunno_tpu_torch/chaos_soak.py"])
 def test_slice_modules_are_guarded(path):
-    """The routed FFN's modules (and the CNNs' compute-dtype layers) are
-    among the files the guard above reads, and import no JAX."""
+    """The routed FFN's modules (and the CNNs' compute-dtype layers), the
+    tensor-parallel modules and the analyzer's and chaos soak's drivers
+    are among the files the guard above reads, and import no JAX."""
     assert path in PORT_FILES
     test_port_file_imports_no_jax(path)
 
 
-def _code_tree(text: str, rename: bool) -> str:
+def _retarget(s: str) -> str:
+    if s == "idunno_tpu" or s.startswith("idunno_tpu/"):
+        return "idunno_tpu_torch" + s[len("idunno_tpu"):]
+    return s
+
+
+def _code_tree(text: str, rename: bool, strings: bool = False,
+               drop: tuple = ()) -> str:
     """The module's syntax tree without docstrings, with ``idunno_tpu``
-    read as ``idunno_tpu_torch`` in imports when ``rename``."""
+    read as ``idunno_tpu_torch`` in imports when ``rename`` (and in string
+    constants naming the package's tree when ``strings``), and without the
+    top-level assignments named in ``drop``."""
     tree = ast.parse(text)
+    tree.body = [n for n in tree.body if not (
+        isinstance(n, ast.Assign) and any(
+            getattr(x, "id", None) in drop for x in n.targets))]
     for node in ast.walk(tree):
+        if strings and isinstance(node, ast.Constant) \
+                and isinstance(node.value, str):
+            node.value = _retarget(node.value)
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body
                 and isinstance(body[0], ast.Expr)
@@ -171,6 +210,57 @@ def test_copy_keeps_the_jax_modules_code(rel):
             f"idunno_tpu_torch/{rel}:{j1 + 1} differs from idunno_tpu/"
             f"{rel}:{i1 + 1} outside comments and docstrings:\n"
             + "\n".join(a[i1:i2] + ["---"] + b[j1:j2]))
+
+
+@pytest.mark.parametrize("rel", sorted(RETARGETED_COPIES))
+def test_retargeted_copy_keeps_the_jax_modules_code(rel):
+    with open(os.path.join(REPO, "idunno_tpu", rel)) as f:
+        ref = f.read()
+    with open(os.path.join(PORT, rel)) as f:
+        got = f.read()
+    drop = tuple(RETARGETED_COPIES[rel])
+    mine = _code_tree(got, rename=False, drop=drop)
+    theirs = _code_tree(ref, rename=True, strings=True, drop=drop)
+    assert mine == theirs, (
+        f"idunno_tpu_torch/{rel}: code differs from idunno_tpu/{rel} "
+        "once its strings name the port's tree")
+
+
+def test_analyzer_registries_keep_the_jax_rows():
+    """The port's registries keep every row of the JAX package's,
+    retargeted; the port only adds rows (its own verbs, and one more
+    guarded field of its control tier), and lints its own tree."""
+    import dataclasses
+
+    from idunno_tpu.analysis import contracts as jax_c
+    from idunno_tpu.analysis import errorlint as jax_e
+    from idunno_tpu_torch.analysis import contracts as port_c
+    from idunno_tpu_torch.analysis import errorlint as port_e
+
+    def re_row(row):
+        out = {}
+        for f in dataclasses.fields(row):
+            v = getattr(row, f.name)
+            if isinstance(v, str):
+                v = _retarget(v)
+            elif isinstance(v, tuple):
+                v = tuple(tuple(_retarget(x) for x in a) if isinstance(
+                    a, tuple) else _retarget(a) if isinstance(a, str)
+                    else a for a in v)
+            out[f.name] = v
+        return dataclasses.astuple(dataclasses.replace(row, **out))
+
+    def rows(registry):
+        return [dataclasses.astuple(r) for r in registry]
+
+    jax_verbs = [re_row(v) for v in jax_c.IDEM_VERBS]
+    assert rows(port_c.IDEM_VERBS)[:len(jax_verbs)] == jax_verbs
+    port_guards = {g[:3]: g for g in rows(port_c.GUARDED)}
+    assert len(port_guards) == len(jax_c.GUARDED)
+    for g in map(re_row, jax_c.GUARDED):
+        assert set(g[3]) <= set(port_guards[g[:3]][3]), g
+    assert port_e.BASELINE_TARGETS == ("idunno_tpu_torch", "chip_smoke.py")
+    assert jax_e.BASELINE_TARGETS[0] == "idunno_tpu"
 
 
 def _top_level(text: str) -> dict[str, str]:

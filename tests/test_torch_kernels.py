@@ -670,3 +670,84 @@ def test_routed_replayed_pool_matches_eager_pool(cuda_device, pool):
         graphs[mode] = srv.graph_stats()
     assert graphs["graph"]["replayed"] > 0
     assert streams["graph"] == streams["eager"]
+
+
+# tensor-parallel decode: one model shard's page store holds 16 / n_model
+# of the 16 KV heads (engine/kv_blocks.py under a mesh), and K3 runs once
+# per shard on it
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_model", [2, 4])
+@pytest.mark.parametrize("page_dtype", [torch.bfloat16, torch.int8])
+def test_paged_kernel_on_a_head_sharded_store(cuda_device, n_model,
+                                              page_dtype):
+    """K3 on each shard's own contiguous cut of the KV heads matches its
+    plain version there, and the shards' outputs side by side are the
+    plain version over all 16 heads."""
+    from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
+                                                      paged_attention_kernel)
+    dims = dict(b=16, t=1, kvh=16, g=1, d=64, n=68, bs=16, c=3)
+    q5, kp, vp, tables, lengths, ks, vs = _paged_inputs(
+        cuda_device, page_dtype=page_dtype, seed=7, **dims)
+    whole, whole_lse = _paged_plain(q5, kp, vp, tables, lengths,
+                                    k_scale_pages=ks, v_scale_pages=vs,
+                                    scale=1.0 / 8.0)
+    per = 16 // n_model
+    outs, lses = [], []
+    for m in range(n_model):
+        heads = slice(m * per, (m + 1) * per)
+
+        def cut(x, heads=heads):
+            return None if x is None else x[:, :, heads].contiguous()
+
+        q = q5[:, :, heads].contiguous()
+        before = paged_attention_kernel.launches
+        out, lse = paged_attention_kernel(q, cut(kp), cut(vp), tables,
+                                          lengths, k_scale_pages=cut(ks),
+                                          v_scale_pages=cut(vs))
+        torch.cuda.synchronize()
+        assert paged_attention_kernel.launches == before + 1
+        ref, ref_lse = _paged_plain(q, cut(kp), cut(vp), tables, lengths,
+                                    k_scale_pages=cut(ks),
+                                    v_scale_pages=cut(vs), scale=1.0 / 8.0)
+        torch.testing.assert_close(out, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+        outs.append(out)
+        lses.append(lse)
+    torch.testing.assert_close(torch.cat(outs, dim=2), whole, rtol=1e-5,
+                               atol=1e-5 * float(whole.abs().max()))
+    torch.testing.assert_close(torch.cat(lses, dim=2),
+                               whole_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_tp_pool_on_the_card_matches_n_model_one(cuda_device, n_model):
+    """A tensor-parallel paged pool on a virtual mesh of the card (K3 per
+    shard, replayed) serves the n_model 1 pool's greedy streams, f32,
+    with n_model times its K3 launches."""
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _small_lm(cuda_device, dim=256, heads=4, seed=3)
+    rng = np.random.default_rng(4)
+    head = [int(t) for t in rng.integers(1, 257, 12)]
+    prompts = [head + [int(t) for t in rng.integers(1, 257, 4)]
+               for _ in range(6)]
+    kw = dict(slots=4, prompt_len=16, max_len=64, decode_steps=4,
+              kv_block_size=4, paged_kernel="kernel",
+              prompt_buckets=(4, 8, 16), device="cuda")
+    streams, launches = {}, {}
+    for n in (1, n_model):
+        mesh = None if n == 1 else virtual_mesh(1, n, "cuda:0")
+        srv = DecodeServer(model, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        before = paged_attention_kernel.launches
+        ids = [srv.submit(p, max_new=20) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        streams[n] = [done[i] for i in ids]
+        launches[n] = paged_attention_kernel.launches - before
+        assert srv.graph_stats()["replayed"] > 0
+    assert streams[n_model] == streams[1]
+    assert launches[n_model] == n_model * launches[1] > 0

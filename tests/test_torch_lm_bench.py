@@ -274,10 +274,22 @@ def test_headline_pool_equals_jax_suite(tiny_env, monkeypatch, suite):
     assert (mine["kv_block_size"] > 0) == (suite in gathered)
 
 
-def test_tp_suite_raises_naming_roadmap(tiny_env):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        lb.run_lm_tp_bench("cpu", "cpu", 1, None,
-                           deadline=time.perf_counter() + 600)
+def test_tp_suite_raises_naming_roadmap(tiny_env, monkeypatch):
+    """The ``lm_tp`` suite, once a refusal naming ROADMAP.md, measures
+    n_model 1 against 2 (a virtual mesh on the CPU) with the JAX suite's
+    record keys and an exactness probe on every TP point."""
+    monkeypatch.setenv("BENCH_LM_TP_GRID", "1:2,2:2")
+    rec = lb.run_lm_tp_bench("cpu", "cpu", 1, None,
+                             deadline=time.perf_counter() + 600)
+    one, two = rec["points"]
+    assert (one["n_model"], two["n_model"]) == (1, 2)
+    # bf16 pools: the probe is reported, not promised (the row shards'
+    # partial sums round apart from one whole product)
+    assert isinstance(two["token_exact_vs_1"], bool)
+    assert two["tp_collective_bytes"] > 0
+    assert one["tp_collective_bytes"] == 0 and "speedup_vs_1" in two
+    assert rec["best"]["n_model"] == 2
+    assert lb.lm_tp_grid("cuda") == [(1, 2), (2, 2)]   # the env override
 
 
 def test_bless_slots_equals_jax():

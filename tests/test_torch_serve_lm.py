@@ -233,11 +233,18 @@ def test_warmup_resets_accounting(lm):
 
 
 def test_unported_options_raise_naming_the_roadmap(lm):
+    """Tensor parallelism is ported: ``n_model=2`` builds a TP pool on the
+    CPU's virtual mesh that serves the greedy stream of ``generate``, and
+    a ``mesh`` that is not a ``parallel/mesh.py:Mesh`` raises typed."""
     _, _, tm = lm
     base = dict(slots=2, prompt_len=8, max_len=24, device="cpu")
-    for extra in (dict(n_model=2), dict(mesh=object())):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            DecodeServer(tm, **base, **extra)
+    tp = DecodeServer(tm, **base, n_model=2)
+    assert tp.n_model == 2 and tp.mesh.virtual
+    rid = tp.submit([5, 11, 17], max_new=6)
+    assert tp.run_until_drained()[0].tokens == expected(tm, [5, 11, 17], 6)
+    assert rid == 0
+    with pytest.raises(TypeError, match="Mesh"):
+        DecodeServer(tm, **base, mesh=object())
     # the cluster KV tier is ported: its legs refuse, typed, a pool that
     # lacks what they need (a cluster cache; a KV block tier)
     srv = DecodeServer(tm, kv_block_size=BS, **base)
@@ -344,7 +351,7 @@ def test_block_pool_refcounts_and_roundtrip(lm):
     pool.write_raw_block(bids[2], raw)
     assert torch.equal(pool.gather([bids[2]])["cached_v"],
                        row["cached_v"][:, :, 2:4])
-    with pytest.raises(ValueError, match="parallelism"):
+    with pytest.raises(TypeError, match="Mesh"):
         KVBlockPool(tm, 2, BS, mesh=object())
 
 

@@ -343,8 +343,9 @@ def test_sampled_spec_requests_complete(lm, weak):
 def test_spec_refusals_raise(lm, weak):
     """The JAX package's refusals: draft_len < 1, a non-causal draft, a
     vocab mismatch, a routed-FFN target, penalties, params in the tuple,
-    and the draft_len + 1 headroom in `validate`; tensor parallelism still
-    names the roadmap."""
+    and the draft_len + 1 headroom in `validate`; a speculative pool under
+    tensor parallelism still names the roadmap, and a ``mesh`` that is not
+    a ``parallel/mesh.py:Mesh`` raises typed."""
     _, _, tm = lm
     bidir = TransformerLM(vocab=VOCAB, dim=16, depth=1, num_heads=2,
                           causal=False)
@@ -362,9 +363,12 @@ def test_spec_refusals_raise(lm, weak):
             DecodeServer(tm, **base, **extra)
     with pytest.raises(ValueError, match="dense target"):
         DecodeServer(routed, draft=(weak, None), **base)
-    for extra in (dict(n_model=2), dict(mesh=object())):
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    for extra in (dict(n_model=2), dict(mesh=virtual_mesh(1, 2, "cpu"))):
         with pytest.raises(ValueError, match="ROADMAP"):
             DecodeServer(tm, draft=(weak, None), **base, **extra)
+    with pytest.raises(TypeError, match="Mesh"):
+        DecodeServer(tm, draft=(weak, None), **base, mesh=object())
     srv = DecodeServer(tm, draft=(weak, None), draft_len=GAMMA, **base)
     srv.validate([1, 2, 3], max_new=24 - 3 - GAMMA - 1)
     with pytest.raises(ValueError, match="speculative headroom"):
