@@ -45,6 +45,11 @@ through the control RPC:
   virtual mesh of the card at n_model 2 and 4 (K3 per model shard on its
   16 / n_model KV heads, head-sharded block stores, the vocab-sharded
   sampling tail), held to n_model 1;
+- data parallelism on virtual meshes of the card: ResNet-18 served over
+  2 and 4 data groups (K1 per group) and a (2, 2) mesh, the LM and
+  ResNet-18 trained over two groups (K2, K4, K5 per group; BatchNorm over
+  the global batch), FSDP, two processes joined over gloo, and the dry
+  run;
 - the routed FFN (switch MoE): the same LM widths with a switch FFN of 8
   experts on every other block (570,884,144 parameters, seeded): its
   prefill through K2, its training through K2, K4 and K5 (``remat`` held
@@ -174,14 +179,38 @@ Phases:
     1's, relative to each row's largest |logit|; the share of greedy
     tokens a bf16 TP pool serves differently and each pool's decode
     tokens/s are printed, not gated;
-13. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+13. data parallelism (``data_parallel``) on virtual meshes of the card:
+    (a) ResNet-18 served at full width (engine batch 256, 1,024 images)
+    over 2 and 4 data groups against one group on the same seeded
+    weights, in f32 with TF32 off: equal top-1 on every image,
+    probabilities within ``DP["prob_atol"]``, K1 launches (zeroed just
+    before) n_data × batches; over a (2, 2) mesh with the wide layers cut
+    over the model axis: top-1 equal on at least 99%; the same in bf16
+    for images/s (informational); (b) the full-width LM (f32 master, bf16
+    compute, seq 1024, global batch 8) trained three steps over two
+    groups against one group from the same init and batch: the first
+    loss within ``DP["lm_loss_rtol"]``, the parameters after within
+    ``DP["lm_update_gap"]`` of the update (``update_gap``), K2, K4 and
+    K5 launches each depth × 2 × 3, and a control run with the gradient
+    reduction skipped outside that gap; (c) ResNet-18 (bf16 over f32,
+    batch 256, its halves drawn apart) trained over two groups,
+    BatchNorm over the global batch, against one group: losses, running
+    statistics and the update within their stated tolerances, and a
+    control run with BatchNorm over each group alone outside all three;
+    (d) the train bench's record over a virtual (2, 1)
+    mesh: no point in error, the ``fsdp`` point's group holding about
+    half a replica's resident bytes; (e) two processes of ``python -m idunno_tpu_torch.dryrun``
+    joined over gloo on the card: ``process_info``, ``global_mesh``, and
+    one ResNet-18 step across them equal to one process's; (f) ``python
+    -m idunno_tpu_torch.dryrun 4 --device cuda`` exits 0;
+14. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
     ten steps on that batch with finite, falling loss, K2, K4 and K5
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-14. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
+15. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
     full-width routed forward on [4, 1024] tokens, bf16, through
     ``make_attn_fn("auto")``: K2 launches (zeroed just before) equal
     depth × forwards, logits within 2% of the ``full`` forward's largest,
@@ -197,12 +226,12 @@ Phases:
     gathered block pool: a ``paged_kernel`` pool raises, replayed and
     eager pools give equal greedy streams, then the 48 shared-prefix
     prompts from two threads: tokens/s, TTFT p50/p95;
-15. ``failed_capture``: after a provoked failed CUDA-graph capture the
+16. ``failed_capture``: after a provoked failed CUDA-graph capture the
     pool serves a sampled request equal to an eager pool's, and a random
     draw on the card succeeds;
-16. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+17. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-17. the last line, ``{"ok": true, "device": {...}}``.
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 Every ``torch.profiler`` window (``device_profile``) prints a
 ``profile_window`` line: when it opened after the previous window
@@ -2478,7 +2507,7 @@ def phase_vit_serving(card: str) -> dict:
     if launches["preprocess"] < batches:
         raise AssertionError(f"K1 launched {launches['preprocess']} times")
     _, block = data_lib.load_range(None, 0, N_QUERY - 1)
-    staged, n = eng.stage(block)
+    [staged], n = eng.stage(block)               # one group's [K, B] block
     rates = {}
     for kind, fn in (("flash", None), ("full", full_attention)):
         vit_logits(eng, staged[:1], fn)                    # warm
@@ -2769,6 +2798,410 @@ def phase_tp_decode(cfg: dict, card: str) -> int:
     del model16
     torch.cuda.empty_cache()
     return total
+
+
+# -- data parallelism on virtual meshes of the card -------------------------
+
+# The (b) and (c) limits sit near the geometric mean of the sound reading
+# and a control run with the fault the gate must catch (PERF.md §6, PR
+# 13; H100 readings sound / control: LM update 0.0114 / 0.922; ResNet-18
+# losses 2.96e-5 / 6.8e-3, running statistics 3.7e-4 / 1.0, update
+# 0.0113 / 0.653). The parameters are compared over the update
+# (``update_gap``), not over their own norm, which three steps barely
+# move. No control moves the LM's first loss (a missing share weight
+# doubles it); its limit is 100x the sound 8.7e-8.
+DP = {"n_data": (2, 4), "tp_mesh": (2, 2), "prob_atol": 1e-5,
+      "tp_top1_agree": 0.99, "lm_steps": 3, "lm_loss_rtol": 1e-5,
+      "lm_update_gap": 0.1, "cnn_steps": 3, "cnn_loss_rtol": 5e-4,
+      "cnn_stats_rel_tol": 2e-2, "cnn_update_gap": 0.08,
+      "fsdp_ratio": (0.45, 0.55)}
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """``module.<name>`` is ``value`` inside the block: a control run's
+    fault, never the run a gate checks."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def dp_engine_run(eng, block, n: int) -> dict:
+    """One engine's ``infer`` of images 0..n-1 (K1 launches zeroed just
+    before, read just after; one warm batch before, so the process's
+    first host decode is not in any engine's rate) and its staged
+    images/s on ``block``."""
+    import numpy as np
+    import torch
+
+    eng.infer("resnet", 0, BATCH - 1)                       # warm
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = eng.infer("resnet", 0, n - 1)
+    wall = time.perf_counter() - t0
+    k1 = read_launches()["preprocess"]
+    staged, m = eng.stage(block)
+    eng.infer_staged("resnet", staged, m)                   # warm
+    t0 = time.perf_counter()
+    eng.infer_staged("resnet", staged, m)
+    staged_s = time.perf_counter() - t0
+    del staged
+    return {"top1": np.array([r[1] for r in res.records]),
+            "prob": np.array([r[2] for r in res.records]),
+            "names": [r[0] for r in res.records], "k1": k1,
+            "infer_images_per_s": n / wall,
+            "staged_images_per_s": m / staged_s}
+
+
+def dp_serving(card: str) -> int:
+    """(a) ResNet-18 at full width, engine batch 256, over virtual meshes
+    of the card against the one-group engine on the same seeded weights;
+    returns the K1 launches of the counted ``infer`` calls."""
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.config import EngineConfig
+    from idunno_tpu_torch.engine import data as data_lib
+    from idunno_tpu_torch.engine.inference import InferenceEngine
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+
+    _, block = data_lib.load_range(None, 0, N_QUERY - 1)
+    batches = -(-N_QUERY // BATCH)
+    total = 0
+    # f32 with TF32 off for the exactness gates: the groups run the same
+    # convolutions at B / n_data rows, in f32 to a few ulps of the one
+    # group's; bf16 for the rates
+    for dtype in ("float32", "bfloat16"):
+        cfg = EngineConfig(batch_size=BATCH, image_size=CROP,
+                           resize_size=SIDE, compute_dtype=dtype)
+        base = dp_engine_run(InferenceEngine(cfg, seed=0), block, N_QUERY)
+        total += base["k1"]
+        shapes = [(n, 1) for n in DP["n_data"]]
+        if dtype == "float32":
+            shapes.append(DP["tp_mesh"])
+        for nd, nm in shapes:
+            run = dp_engine_run(InferenceEngine(
+                cfg, seed=0, mesh=virtual_mesh(nd, nm, "cuda:0")), block,
+                N_QUERY)
+            total += run["k1"]
+            agree = float((run["top1"] == base["top1"]).mean())
+            gap = float(np.abs(run["prob"] - base["prob"]).max())
+            say("data_parallel_serving", card=card, model="resnet18",
+                dtype=dtype, mesh=f"virtual {nd} x {nm} over cuda:0",
+                images=N_QUERY, engine_batch=BATCH,
+                top1_agreement=agree, max_prob_abs_diff=gap,
+                tolerance=({"top1_agreement": DP["tp_top1_agree"],
+                            "prob_abs": DP["prob_atol"]} if nm > 1 else
+                           {"top1_agreement": 1.0,
+                            "prob_abs": DP["prob_atol"]}),
+                k1_launches=run["k1"], k1_expected=nd * batches,
+                k1_launches_one_group=base["k1"],
+                infer_images_per_s=run["infer_images_per_s"],
+                staged_images_per_s=run["staged_images_per_s"],
+                one_group_infer_images_per_s=base["infer_images_per_s"],
+                one_group_staged_images_per_s=base["staged_images_per_s"],
+                images_per_s_note="informational, a virtual mesh on one "
+                                  "card")
+            if run["names"] != base["names"]:
+                raise AssertionError(f"data_parallel {nd}x{nm}: records "
+                                     "out of order")
+            if run["k1"] != nd * batches or base["k1"] != batches:
+                raise AssertionError(f"data_parallel {nd}x{nm}: K1 launched "
+                                     f"{run['k1']} times, want "
+                                     f"{nd * batches}")
+            if dtype != "float32":
+                continue
+            if nm == 1 and not (agree == 1.0 and gap <= DP["prob_atol"]):
+                raise AssertionError(f"data_parallel {nd}x1: top-1 agreement "
+                                     f"{agree}, prob gap {gap}")
+            if nm > 1 and not (agree >= DP["tp_top1_agree"]
+                               and gap <= DP["prob_atol"]):
+                raise AssertionError(f"data_parallel {nd}x{nm}: top-1 "
+                                     f"agreement {agree}, prob gap {gap}")
+        torch.cuda.empty_cache()
+    return total
+
+
+def update_gap(a: dict, b: dict, init: dict) -> float:
+    """||a - b|| / ||b - init|| over every parameter together: how far
+    ``a`` lies from ``b`` against how far ``b`` moved from ``init``."""
+    num = sum(float((a[k].float() - b[k].float()).pow(2).sum()) for k in b)
+    den = sum(float((b[k].float() - init[k].float()).pow(2).sum())
+              for k in b)
+    return math.sqrt(num / den)
+
+
+def dp_lm_train(card: str) -> dict:
+    """(b) The full-width LM (f32 master, bf16 compute, seq 1024, global
+    batch 8) over two data groups of a virtual mesh against one group, the
+    same seeded init and batch, and a control run over two groups with the
+    gradient reduction skipped, which the update gate must fail; returns
+    the DP run's K2/K4/K5 launches."""
+    import numpy as np
+    import torch
+
+    from idunno_tpu_torch.engine.train import (adamw, flat_tx,
+                                               gathered_params,
+                                               shard_train_state)
+    from idunno_tpu_torch.engine.train_lm import (create_lm_train_state,
+                                                  jit_lm_train_step,
+                                                  make_lm_train_step)
+    from idunno_tpu_torch.models.transformer import (TransformerLM,
+                                                     make_attn_fn)
+    from idunno_tpu_torch.parallel import data as data_lib
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    from idunno_tpu_torch.utils.train_bench import train_bench_config
+
+    cfg = train_bench_config("cuda")
+    b, t, depth, nd = cfg["batch"], cfg["seq"], cfg["depth"], 2
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg["vocab"], (b, t))).to("cuda")
+
+    def fresh():
+        model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"],
+                              depth=depth, num_heads=cfg["heads"],
+                              attn_fn=make_attn_fn("flash"),
+                              dtype=torch.float32,
+                              compute_dtype=torch.bfloat16)
+        return create_lm_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0),
+            flat_tx(adamw(3e-4)))
+
+    runs, init = {}, None
+    for kind in ("one", "dp", "control"):
+        state = fresh()
+        if kind == "one":
+            init = {k: v.detach().clone()
+                    for k, v in state.model.named_parameters()}
+            step = make_lm_train_step(state.model, state.optimizer)
+        else:
+            mesh = virtual_mesh(nd, 1, "cuda:0")
+            state = shard_train_state(state, mesh)
+            step = jit_lm_train_step(state.model, state.optimizer, mesh)
+        fault = (patched(data_lib, "reduce_gradients", lambda groups: None)
+                 if kind == "control" else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        zero_launches()
+        losses, times = [], []
+        with fault:
+            for _ in range(DP["lm_steps"]):
+                t0 = time.perf_counter()
+                losses.append(float(step(state, tokens)["loss"]))
+                times.append(time.perf_counter() - t0)
+        launches = read_launches()
+        params = (dict(state.model.named_parameters()) if kind == "one"
+                  else gathered_params(state))
+        runs[kind] = {"losses": losses, "launches": launches,
+                      "params": {k: v.detach().clone()
+                                 for k, v in params.items()},
+                      "step_ms": sorted(times)[len(times) // 2] * 1e3}
+        del state, step, params
+        torch.cuda.empty_cache()
+    zero_launches()             # the control's launches are not counted
+    one, dp, ctl = runs["one"], runs["dp"], runs["control"]
+    loss_gap = abs(dp["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    gap = update_gap(dp["params"], one["params"], init)
+    ctl_gap = update_gap(ctl["params"], one["params"], init)
+    want = depth * nd * DP["lm_steps"]
+    kl = {k: dp["launches"][k] for k in ("flash_attention",
+                                         "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv")}
+    say("data_parallel_lm_train", card=card, mesh=f"virtual {nd} x 1 over "
+        "cuda:0", batch=b, seq=t, depth=depth, steps=DP["lm_steps"],
+        losses=dp["losses"], losses_one_group=one["losses"],
+        first_loss_rel_gap=loss_gap, update_gap=gap,
+        control="gradient reduction skipped", control_losses=ctl["losses"],
+        control_update_gap=ctl_gap,
+        tolerance={"first_loss_rel": DP["lm_loss_rtol"],
+                   "update_gap": DP["lm_update_gap"]},
+        launches=kl, launches_expected=want,
+        step_ms_median=dp["step_ms"], one_group_step_ms_median=one["step_ms"],
+        step_ms_note="informational, a virtual mesh on one card")
+    if not (loss_gap <= DP["lm_loss_rtol"] and gap <= DP["lm_update_gap"]):
+        raise AssertionError(f"data_parallel LM: first loss gap {loss_gap}, "
+                             f"update gap {gap}")
+    if not ctl_gap > DP["lm_update_gap"]:
+        raise AssertionError(f"data_parallel LM: the control (no gradient "
+                             f"reduction) passed the update gate: {ctl_gap}")
+    if any(v != want for v in kl.values()):
+        raise AssertionError(f"data_parallel LM: launches {kl}, want {want}")
+    del runs, init
+    torch.cuda.empty_cache()
+    return kl
+
+
+def dp_cnn_train(card: str) -> None:
+    """(c) ResNet-18 (f32 parameters, bf16 compute, batch 256, 224²) over
+    two data groups, BatchNorm over the global batch, against one group,
+    and a control run over two groups with BatchNorm over each group's
+    rows alone, which the gates must fail. The batch's second half is
+    drawn scaled by 2 and shifted by 1: halves drawn alike would give
+    per-group statistics close to the global ones."""
+    import torch
+
+    from idunno_tpu_torch.engine.train import (create_train_state, flat_tx,
+                                               gathered_params,
+                                               jit_train_step,
+                                               make_train_step, sgd,
+                                               shard_train_state)
+    from idunno_tpu_torch.models import resnet
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    images = torch.randn((BATCH, 3, CROP, CROP), generator=g,
+                         device="cuda")
+    images[BATCH // 2:] = images[BATCH // 2:] * 2.0 + 1.0
+    images = images.to(memory_format=torch.channels_last)
+    labels = torch.randint(0, 1000, (BATCH,), generator=g, device="cuda")
+    runs, init = {}, None
+    for kind in ("one", "dp", "control"):
+        state = create_train_state(
+            resnet.resnet18(compute_dtype=torch.bfloat16),
+            torch.Generator(device="cuda").manual_seed(0),
+            flat_tx(sgd(0.1, momentum=0.9)))
+        if kind == "one":
+            init = {k: v.detach().clone()
+                    for k, v in state.model.named_parameters()}
+            step = make_train_step(state.model, state.optimizer)
+        else:
+            mesh = virtual_mesh(2, 1, "cuda:0")
+            state = shard_train_state(state, mesh)
+            step = jit_train_step(state.model, state.optimizer, mesh)
+        fault = (patched(resnet, "group_sum", lambda: None)
+                 if kind == "control" else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fault:
+            losses = [float(step(state, images, labels)["loss"])
+                      for _ in range(DP["cnn_steps"])]
+        wall = time.perf_counter() - t0
+        stats = {k: v.clone() for k, v in state.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        params = (dict(state.model.named_parameters()) if kind == "one"
+                  else gathered_params(state))
+        runs[kind] = (losses, stats, {k: v.detach().clone()
+                                      for k, v in params.items()}, wall)
+        del state, step, params
+
+    def gaps(kind: str) -> tuple[float, float, float]:
+        (l1, s1, p1, _), (l2, s2, p2, _) = runs["one"], runs[kind]
+        return (max(abs(a - b) / abs(b) for a, b in zip(l2, l1)),
+                max(float((s2[k] - s1[k]).abs().max() / s1[k].abs().max())
+                    for k in s1),
+                update_gap(p2, p1, init))
+
+    loss_gap, stats_gap, upd_gap = gaps("dp")
+    c_loss, c_stats, c_upd = gaps("control")
+    limits = (DP["cnn_loss_rtol"], DP["cnn_stats_rel_tol"],
+              DP["cnn_update_gap"])
+    say("data_parallel_cnn_train", card=card, model="resnet18",
+        mesh="virtual 2 x 1 over cuda:0", batch=BATCH, image=CROP,
+        steps=DP["cnn_steps"], losses=runs["dp"][0],
+        losses_one_group=runs["one"][0], max_loss_rel_gap=loss_gap,
+        max_running_stat_rel_gap=stats_gap, update_gap=upd_gap,
+        batch_norm="global (the groups' sums reduced)",
+        control="BatchNorm over each group alone",
+        control_losses=runs["control"][0], control_max_loss_rel_gap=c_loss,
+        control_max_running_stat_rel_gap=c_stats,
+        control_update_gap=c_upd,
+        tolerance={"loss_rel": limits[0], "running_stat_rel": limits[1],
+                   "update_gap": limits[2]},
+        images_per_s=BATCH * DP["cnn_steps"] / runs["dp"][3],
+        one_group_images_per_s=BATCH * DP["cnn_steps"] / runs["one"][3],
+        images_per_s_note="informational, first step included")
+    if not all(x <= lim for x, lim in
+               zip((loss_gap, stats_gap, upd_gap), limits)):
+        raise AssertionError(f"data_parallel CNN: loss gap {loss_gap}, "
+                             f"running statistics gap {stats_gap}, update "
+                             f"gap {upd_gap}")
+    if not all(x > lim for x, lim in zip((c_loss, c_stats, c_upd), limits)):
+        raise AssertionError(f"data_parallel CNN: the control (BatchNorm "
+                             f"over each group) passed a gate: loss gap "
+                             f"{c_loss}, running statistics gap {c_stats}, "
+                             f"update gap {c_upd}")
+    del runs, init
+    torch.cuda.empty_cache()
+
+
+def phase_data_parallel(card: str) -> dict:
+    """(``data_parallel``) Data parallelism on virtual meshes of the card:
+    (a) CNN serving over 2 and 4 data groups and a (2, 2) mesh against one
+    group; (b) the full-width LM trained over two groups; (c) ResNet-18
+    trained over two groups with BatchNorm over the global batch; (d) the
+    train bench's record, ``fsdp`` point included, over a virtual (2, 1)
+    mesh; (e) two
+    processes joined over gloo on the card, one data-parallel step across
+    them; (f) ``python -m idunno_tpu_torch.dryrun 4 --device cuda``.
+    Returns the launches of (a), (b) and (d) by kernel."""
+    import torch
+
+    from idunno_tpu_torch.dryrun import two_process_check
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    from idunno_tpu_torch.utils.train_bench import run_train_bench
+
+    t_phase = time.perf_counter()
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = dict.fromkeys(KERNELS, 0)
+        out["preprocess"] += dp_serving(card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+    for name, n in dp_lm_train(card).items():
+        out[name] += n
+    dp_cnn_train(card)
+
+    torch.cuda.synchronize()
+    zero_launches()
+    rec = run_train_bench(mesh=virtual_mesh(2, 1, "cuda:0"))
+    counted = read_launches()
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        out[name] += counted[name]
+    f = rec.get("fsdp", {})
+    ratio = (f["resident_bytes_per_group"] / f["replicated_resident_bytes"]
+             if "resident_bytes_per_group" in f else None)
+    say("data_parallel_fsdp", card=card, mesh="virtual 2 x 1 over cuda:0",
+        lm=rec.get("lm"), accum=rec.get("accum"), cnn=rec.get("cnn"),
+        fsdp=f, resident_ratio=ratio,
+        tolerance=DP["fsdp_ratio"], launches=counted,
+        tokens_per_s_note="informational, a virtual mesh on one card")
+    lo, hi = DP["fsdp_ratio"]
+    if any("error" in v for v in rec.values() if isinstance(v, dict)) \
+            or ratio is None or not lo <= ratio <= hi:
+        raise AssertionError(f"data_parallel FSDP: {rec}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    procs = two_process_check("cuda", timeout=300)
+    say("data_parallel_processes", card=card, seconds=time.perf_counter() - t0,
+        processes=procs, step_s_note="gloo reduces CUDA tensors through the "
+        "host (two processes share the card, which NCCL refuses): slow, "
+        "correct; informational")
+    if not all(p["ok"] and p["backend"] == "gloo" for p in procs):
+        raise AssertionError(f"data_parallel processes: {procs}")
+
+    t0 = time.perf_counter()
+    dry = subprocess.run([sys.executable, "-m", "idunno_tpu_torch.dryrun",
+                          "4", "--device", "cuda"], capture_output=True,
+                         text=True, timeout=600)
+    lines = dry.stdout.strip().splitlines()
+    say("data_parallel_dryrun", card=card, rc=dry.returncode,
+        seconds=time.perf_counter() - t0, lines=lines[-4:])
+    if dry.returncode != 0 or not lines or \
+            not lines[-1].startswith("dryrun_multichip ok"):
+        raise AssertionError(f"dryrun 4 --device cuda failed: "
+                             f"{dry.stderr[-3000:]}")
+    say("data_parallel", card=card, seconds=time.perf_counter() - t_phase,
+        launches=out)
+    return out
 
 
 # -- the cluster: nodes as ``python -m idunno_tpu_torch`` builds them -----
@@ -3756,6 +4189,9 @@ def main() -> int:
     launches["paged_attention"] += phase_default_pool(smi)
     torch.cuda.empty_cache()
     launches["paged_attention"] += phase_tp_decode(lm_cfg, smi)
+    torch.cuda.empty_cache()
+    for name, n in phase_data_parallel(smi).items():
+        launches[name] += n
     torch.cuda.empty_cache()
     train = phase_lm_train(smi)
     for name in ("flash_attention", "flash_attention_bwd_dq",

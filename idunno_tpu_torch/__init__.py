@@ -34,7 +34,12 @@ imports nothing of it and nothing of JAX. What is here so far:
   ``MoETransformerLM``, the balance loss) over the single-device
   ``parallel/expert.py:switch_dispatch``, trained (``remat`` per block)
   and served from the contiguous cache or a gathered block pool; the
-  CNNs' compute dtype beside their parameters' dtype.
+  CNNs' compute dtype beside their parameters' dtype;
+- slice 12, tensor-parallel decode over a ``(data, model)`` mesh;
+- slice 13, data parallelism: the engine over a mesh (K1 per data
+  group), the data-parallel and FSDP train steps, global BatchNorm,
+  processes joined by ``torch.distributed`` (``initialize_distributed``,
+  ``global_mesh``), and ``python -m idunno_tpu_torch.dryrun``.
 
 Every kernel runs on a CUDA tensor and falls to its plain PyTorch version
 only for a CPU tensor. ROADMAP.md lists what is still to port.
@@ -47,8 +52,9 @@ Package layout:
     membership  — join/heartbeat/failure detector
     models      — ResNet / AlexNet, the folded stem, TransformerLM and
                   its switch-MoE family, the weight carry from flax
-    parallel    — the single-device switch dispatch (meshes come with
-                  the parallelism slice)
+    parallel    — meshes (virtual ones over one device; across
+                  processes), the data-axis collectives, the sharding
+                  policies, the single-device switch dispatch
     ops         — preprocessing, classification, attention (plain, flash,
                   paged), sampling
     engine      — batched CNN inference, LM generation, the KV block
@@ -89,6 +95,11 @@ _LAZY_API = {
     "TokenDataset": ("idunno_tpu_torch.engine.data_lm", "TokenDataset"),
     "run_train_bench": ("idunno_tpu_torch.utils.train_bench",
                         "run_train_bench"),
+    "make_mesh": ("idunno_tpu_torch.parallel.mesh", "make_mesh"),
+    "local_mesh": ("idunno_tpu_torch.parallel.mesh", "local_mesh"),
+    "global_mesh": ("idunno_tpu_torch.parallel.mesh", "global_mesh"),
+    "initialize_distributed": ("idunno_tpu_torch.parallel.mesh",
+                               "initialize_distributed"),
 }
 
 

@@ -12,11 +12,16 @@ hardcoded IP tables (`utils.py:70-92`). Its ``engine`` block builds the
 port's ``EngineConfig``, whose ``preprocess`` values are the port's
 (``auto|fold|kernel|plain``).
 
-The node runs on the CUDA card. ``--cpu`` puts the engine and every LM
-pool on the CPU instead (tests); without it, a machine with no card exits
-non-zero. The JAX package's ``--jax-*`` flags (multi-host bring-up) have
-no counterpart yet: multi-host ``torch.distributed`` comes with the
-parallelism slice (ROADMAP.md).
+The node runs on the CUDA card (its engine over every visible card, one
+data group each). ``--cpu`` puts the engine and every LM pool on the CPU
+instead (tests); without it, a machine with no card exits non-zero.
+
+``--dist-coordinator host:port --dist-num-processes N --dist-process-id I``
+(the JAX package's ``--jax-*`` flags) join this process to a
+``torch.distributed`` group of N before the node is built
+(``parallel/mesh.py:initialize_distributed``; NCCL when every process has
+a card of its own, gloo otherwise); every process passes the same
+coordinator, where process 0 listens.
 """
 from __future__ import annotations
 
@@ -86,6 +91,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run the engine and every LM pool on the CPU "
                          "(tests; by default the node runs on the card)")
+    ap.add_argument("--dist-coordinator", default=None,
+                    help="host:port for torch.distributed bring-up (process "
+                         "0 listens there); all processes pass the same "
+                         "value")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
     args = ap.parse_args(argv)
 
     from idunno_tpu_torch.cli.shell import Shell
@@ -99,6 +110,11 @@ def main(argv: list[str] | None = None) -> int:
     config, addresses, engine_config = load_config(args.config)
     if args.host not in config.hosts:
         ap.error(f"--host {args.host!r} not in configured hosts")
+    if args.dist_coordinator:
+        from idunno_tpu_torch.parallel.mesh import initialize_distributed
+        initialize_distributed(args.dist_coordinator,
+                               num_processes=args.dist_num_processes,
+                               process_id=args.dist_process_id)
     node = build_node(args.host, config, addresses,
                       data_dir=args.data_dir or f"./{args.host}-data",
                       engine_config=engine_config,

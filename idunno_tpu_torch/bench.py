@@ -313,8 +313,10 @@ class Emitter:
 
 def run_cnn(dev, card: bool, device_kind: str, emitter: Emitter,
             model: str) -> int:
-    """BENCH_SUITE=cnn: images/s of ``InferenceEngine`` on one device over
-    a device-staged image block, at the best batch size of a sweep
+    """BENCH_SUITE=cnn: images/s of ``InferenceEngine`` over ``local_mesh()``
+    on the card (one data group per visible card; one group on the CPU)
+    over a device-staged image block (each batch size rounded up to a
+    multiple of the data axis), at the best batch size of a sweep
     (largest first, so the budget clamp cuts the cheap points); on the
     card, comparison points at the best batch size (f32 weights, int8
     weights, the other stem, the other preprocess paths); the worker
@@ -325,6 +327,8 @@ def run_cnn(dev, card: bool, device_kind: str, emitter: Emitter,
 
     from idunno_tpu_torch.config import EngineConfig
     from idunno_tpu_torch.engine.inference import InferenceEngine
+    from idunno_tpu_torch.parallel.mesh import (DATA_AXIS, local_mesh,
+                                                make_mesh)
     from idunno_tpu_torch.utils.tracing import trace
 
     t_start = time.perf_counter()
@@ -342,12 +346,14 @@ def run_cnn(dev, card: bool, device_kind: str, emitter: Emitter,
     bench_pp = os.environ.get("BENCH_PREPROCESS", "auto")
     platform = dev.type
     n_images = max(sweep + [base_bs]) * max(n_batches, 1)
+    mesh = local_mesh() if card else make_mesh(1, 1, devices=[dev])
+    n_data = mesh.shape[DATA_AXIS]
 
     def engine_for(bs, dtype=param_dtype, qz=quantize, s2d=stem_s2d,
                    pp=bench_pp):
         return InferenceEngine(
             EngineConfig(batch_size=bs, compute_dtype=dtype, quantize=qz,
-                         stem_s2d=s2d, preprocess=pp), device=dev)
+                         stem_s2d=s2d, preprocess=pp), mesh=mesh)
 
     images = np.random.default_rng(0).integers(
         0, 256, size=(n_images, 256, 256, 3), dtype=np.uint8)
@@ -358,8 +364,12 @@ def run_cnn(dev, card: bool, device_kind: str, emitter: Emitter,
     transfer_s = time.perf_counter() - t0
 
     def staged_for(bs: int):
-        k = n_images // bs
-        return flat[:k * bs].reshape(k, bs, 256, 256, 3), k
+        # each data group's slice of every batch, on its device: views of
+        # the one copy where the group's device holds it
+        k, per = n_images // bs, bs // n_data
+        block = flat[:k * bs].reshape(k, bs, 256, 256, 3)
+        return [block[:, g * per:(g + 1) * per].to(row[0]).contiguous()
+                for g, row in enumerate(mesh.devices)], k
 
     flops_img = model_forward_flops(model)
     peak = peak_bf16_for(device_kind)
@@ -376,7 +386,7 @@ def run_cnn(dev, card: bool, device_kind: str, emitter: Emitter,
         return float(np.median(times)), c_s
 
     sweep_out, best = [], None
-    for bs in dict.fromkeys(sweep):
+    for bs in dict.fromkeys(-(-b // n_data) * n_data for b in sweep):
         if bs > n_images:
             continue
         if best is not None and \
@@ -486,7 +496,8 @@ def run_cnn(dev, card: bool, device_kind: str, emitter: Emitter,
         ips, vs_baseline=vs,
         methodology="device-staged image block, one sweep run = every "
                     "staged batch launched back to back, one sync",
-        platform=platform, device_kind=device_kind, n_devices=1,
+        platform=platform, device_kind=device_kind,
+        n_devices=len(mesh.distinct()), mesh=mesh.shape,
         mfu=best.get("mfu"), peak_bf16_flops=peak,
         flops_per_image=round(flops_img / 1e9, 3),
         best_batch_size=best["batch_size"], sweep=sweep_out,

@@ -28,8 +28,20 @@ take precedence over the seeded init, so every node of a cluster serves
 the same weights, and ``store://<name>`` dataset roots resolve against
 images published into the store (``engine/data_store.py``).
 
+Data parallelism (``mesh=``, a ``parallel/mesh.py:Mesh``), as the JAX
+engine's mesh: each data group holds a replica of the weights on its
+device, a batch (rounded up to a multiple of the data axis) is cut into
+one contiguous slice per group, and each group runs the preprocess (K1
+on a card) on its slice on its own device, then the model, then top-1;
+the records come back in the input's order. Where the mesh has a model
+axis, the wide layers (``parallel/sharding.py:cnn_tp_specs``) are cut
+over the group's model shards and their output features gathered
+(``ColumnSplit``). A mesh of one group runs the one-device code.
+
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (the tests do), and raises when no card is present.
+With neither ``device`` nor ``mesh`` the engine runs over
+``local_mesh()``: one data group per visible card.
 """
 from __future__ import annotations
 
@@ -58,6 +70,10 @@ from idunno_tpu_torch.ops.classify import top1_from_logits
 from idunno_tpu_torch.ops.preprocess import center_crop, preprocess_batch
 from idunno_tpu_torch.ops.preprocess_kernel import preprocess_batch_kernel
 from idunno_tpu_torch.ops.quantize import quantize_tree
+from idunno_tpu_torch.parallel.data import replicate
+from idunno_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
+                                            local_mesh, make_mesh)
+from idunno_tpu_torch.parallel.sharding import cnn_tp_specs, split_columns
 
 log = logging.getLogger("idunno.engine")
 
@@ -92,18 +108,38 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 class InferenceEngine:
-    """Holds the loaded models of one node and runs them on one device.
+    """Holds the loaded models of one node and runs them over its mesh
+    (module docstring): on one device when the mesh has one group.
 
-    Batches are padded to ``config.batch_size``. ``preprocess="auto"``
-    resolves to the CUDA kernel on a card and to plain tensor ops on the
-    CPU (``config.py:EngineConfig``). ``store`` is an optional replicated
-    file store (a node's ``FileStoreService``)."""
+    Batches are padded to ``config.batch_size`` rounded up to a multiple
+    of the data axis. ``preprocess="auto"`` resolves to the CUDA kernel on
+    a card and to plain tensor ops on the CPU (``config.py:EngineConfig``).
+    ``store`` is an optional replicated file store (a node's
+    ``FileStoreService``). ``mesh`` runs every data group in this process;
+    ``device``, when given with it, must be its lead device."""
 
     def __init__(self, config: EngineConfig | None = None,
                  device: str | torch.device | None = None,
-                 seed: int = 0, store=None) -> None:
+                 seed: int = 0, store=None, *, mesh: Mesh | None = None
+                 ) -> None:
         self.config = config or EngineConfig()
-        self.device = resolve_device(device)
+        if mesh is None:
+            dev = resolve_device(device)
+            mesh = (local_mesh() if device is None
+                    else make_mesh(1, 1, devices=[dev]))
+        else:
+            resolve_device(mesh.lead)
+            if len(mesh.local_groups) != mesh.shape[DATA_AXIS]:
+                raise ValueError("an engine runs every data group of its "
+                                 "mesh in this process; this mesh spans "
+                                 "processes")
+            if device is not None and torch.device(device) != mesh.lead:
+                raise ValueError(f"device {device} is not the mesh's lead "
+                                 f"device {mesh.lead}")
+        self.mesh = mesh
+        self.n_data = mesh.shape[DATA_AXIS]
+        self.n_model = mesh.shape[MODEL_AXIS]
+        self.device = mesh.lead
         self.seed = seed
         # weights published into the store (by any node) take precedence
         # over the seeded init, so every node serves IDENTICAL weights
@@ -113,8 +149,10 @@ class InferenceEngine:
         if mode == "auto":
             mode = "kernel" if self.device.type == "cuda" else "plain"
         self.preprocess = mode
-        # eval mode, on the device, compute dtype, channels_last
+        # eval mode, on the device, compute dtype, channels_last; the
+        # first data group's (the others' in ``_replicas``)
         self._models: dict[str, nn.Module] = {}
+        self._replicas: dict[str, list[nn.Module]] = {}
         self._provenance: dict[str, str] = {}     # "store" | "random"
         self._store_datasets: dict[str, StoreDataset] = {}
         self._load_lock = threading.Lock()
@@ -150,10 +188,24 @@ class InferenceEngine:
                 module.load_state_dict(state_dict)
             module = module.to(device=self.device, dtype=self.dtype,
                                memory_format=torch.channels_last).eval()
+            replicas = self._replicate(module)
             if self.config.quantize == "int8":
-                module = quantize_tree(module)
-            self._models[name] = module
+                replicas = [quantize_tree(m) for m in replicas]
+            self._models[name] = replicas[0]
+            self._replicas[name] = replicas
             self._provenance[name] = provenance
+
+    def _replicate(self, module: nn.Module) -> list[nn.Module]:
+        """``module`` (on the lead device) for each data group: the group's
+        replica on its device, its wide layers cut over the group's model
+        shards where the mesh has a model axis (``cnn_tp_specs``,
+        ``split_columns``); ``[module]`` itself for a mesh of one
+        device."""
+        if self.n_data == 1 and self.n_model == 1:
+            return [module]
+        specs = cnn_tp_specs(module.state_dict(), n_model=self.n_model)
+        return [split_columns(rep, specs, list(row)) for rep, row in
+                zip(replicate(self.mesh, module), self.mesh.devices)]
 
     def _try_load_from_store(self, name: str,
                              module: nn.Module) -> dict | None:
@@ -258,6 +310,10 @@ class InferenceEngine:
         cluster-wide under provenance "store") unless ``allow_random``."""
         if self.store is None:
             raise ValueError("engine has no store attached")
+        if self.n_model > 1:
+            raise ValueError("refusing to publish from an engine whose "
+                             "mesh has a model axis: its wide layers are "
+                             "cut; publish from an engine without one")
         if self.config.quantize != "none":
             # a quantized engine only holds int8 weights; dequantizing them
             # would publish lossy round-tripped values as the cluster's
@@ -320,22 +376,46 @@ class InferenceEngine:
         return x.permute(0, 3, 1, 2)
 
     @torch.inference_mode()
-    def logits(self, name: str, images_u8: torch.Tensor) -> torch.Tensor:
+    def logits(self, name: str, images_u8: torch.Tensor,
+               group: int = 0) -> torch.Tensor:
         """Device uint8 NHWC [B, H, W, 3] → f32 logits [B, classes] through
-        this engine's preprocess and model; asynchronous on a card."""
+        this engine's preprocess and data group ``group``'s replica, on
+        that group's device; asynchronous on a card."""
         self.load(name)
-        return self._models[name](self._model_input(images_u8))
+        return self._replicas[name][group](self._model_input(images_u8))
 
     @torch.inference_mode()
-    def _predict(self, name: str, batch: torch.Tensor):
-        return top1_from_logits(self.logits(name, batch))
+    def _predict(self, name: str, batch: torch.Tensor, group: int = 0):
+        return top1_from_logits(self.logits(name, batch, group))
 
-    def _to_device(self, images_u8: np.ndarray) -> torch.Tensor:
+    def _to_device(self, images_u8: np.ndarray,
+                   device: torch.device | None = None) -> torch.Tensor:
         """Host uint8 → device, through pinned memory, without waiting."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(images_u8))
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
+
+    def _to_groups(self, images_u8: np.ndarray) -> list[torch.Tensor]:
+        """A host device batch → each data group's contiguous slice on its
+        device (the whole batch on the one device of a one-group mesh)."""
+        if self.n_data == 1:
+            return [self._to_device(images_u8)]
+        return [self._to_device(part, row[0]) for part, row in zip(
+            np.array_split(images_u8, self.n_data), self.mesh.devices)]
+
+    def _predict_groups(self, name: str, parts: list[torch.Tensor]) -> list:
+        """Each group's (idx, prob) of its slice, launched group by group
+        on each group's device without waiting."""
+        return [self._predict(name, part, g) for g, part in enumerate(parts)]
+
+    @staticmethod
+    def _host(outs: list, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """The groups' (idx, prob) back on the host in row order, the
+        first ``n`` rows (a read waits for each group's device)."""
+        return (np.concatenate([i.cpu().numpy() for i, _ in outs])[:n],
+                np.concatenate([p.cpu().numpy() for _, p in outs])[:n])
 
     def _pad(self, arr: np.ndarray, n: int) -> np.ndarray:
         if len(arr) == n:
@@ -354,14 +434,20 @@ class InferenceEngine:
         n = len(images_u8)
         if n == 0:
             return np.zeros((0,), np.int32), np.zeros((0,), np.float32)
-        bs = self.config.batch_size
+        bs = self._device_batch()
         pending = []
         for i in range(0, n, bs):
             chunk = images_u8[i:i + bs]
-            idx, prob = self._predict(name, self._to_device(self._pad(chunk, bs)))
-            pending.append((idx, prob, len(chunk)))
-        return (np.concatenate([idx.cpu().numpy()[:k] for idx, _, k in pending]),
-                np.concatenate([p.cpu().numpy()[:k] for _, p, k in pending]))
+            pending.append((self._predict_groups(
+                name, self._to_groups(self._pad(chunk, bs))), len(chunk)))
+        out = [self._host(outs, k) for outs, k in pending]
+        return (np.concatenate([i for i, _ in out]),
+                np.concatenate([p for _, p in out]))
+
+    def _device_batch(self) -> int:
+        """The configured batch size rounded UP to a multiple of the data
+        axis: batches must divide evenly over it."""
+        return -(-self.config.batch_size // self.n_data) * self.n_data
 
     # -- staged (device-resident) execution --------------------------------
     #
@@ -371,24 +457,43 @@ class InferenceEngine:
     # staged batch is launched back to back and only the (idx, prob) pairs
     # come back, with one synchronization at the end.
 
-    def stage(self, images_u8: np.ndarray) -> tuple[torch.Tensor, int]:
-        """Host uint8 [N,256,256,3] → device [K, B, 256, 256, 3] (padded).
-        Returns (staged tensor, true N)."""
+    def stage(self, images_u8: np.ndarray
+              ) -> tuple[list[torch.Tensor], int]:
+        """Host uint8 [N,256,256,3] → one device block per data group,
+        group ``g``'s ``[K, B / n_data, 256, 256, 3]`` (its slice of every
+        padded batch) on its device; one group's block is the whole
+        ``[K, B, 256, 256, 3]``. Returns (blocks, true N)."""
         n = len(images_u8)
-        bs = self.config.batch_size
+        bs = self._device_batch()
         k = -(-n // bs)
         padded = self._pad(images_u8, k * bs).reshape(
             k, bs, *images_u8.shape[1:])
-        return self._to_device(padded), n
+        per = bs // self.n_data
+        return [self._to_device(padded[:, g * per:(g + 1) * per], row[0])
+                for g, row in enumerate(self.mesh.devices)], n
 
-    def infer_staged(self, name: str, staged: torch.Tensor,
+    def infer_staged(self, name: str, staged: list[torch.Tensor],
                      n: int) -> tuple[np.ndarray, np.ndarray]:
-        """Classify a staged (device-resident) image block: one launch
-        sequence per staged batch, one synchronization at the end."""
-        outs = [self._predict(name, batch) for batch in staged]
-        idx = torch.cat([i for i, _ in outs]).cpu().numpy()
-        prob = torch.cat([p for _, p in outs]).cpu().numpy()
-        return idx[:n], prob[:n]
+        """Classify staged (device-resident) blocks: one launch sequence
+        per staged batch and data group, then each group's results joined
+        on its device and read back once (the only synchronization), the
+        rows in the input's order."""
+        k = len(staged[0])
+        outs: list[list] = [[] for _ in staged]
+        for b in range(k):
+            for g, out in enumerate(self._predict_groups(
+                    name, [block[b] for block in staged])):
+                outs[g].append(out)
+
+        def rows(j: int) -> np.ndarray:
+            # group-major reads back to batch-major rows: batch b holds
+            # every group's slice of it in group order
+            per_group = [torch.cat([o[j] for o in group]).cpu().numpy()
+                         for group in outs]
+            return np.stack([a.reshape(k, -1) for a in per_group],
+                            1).reshape(-1)[:n]
+
+        return rows(0), rows(1)
 
     def _load_chunk(self, root: str | None, start: int,
                     end: int) -> tuple[list[str], np.ndarray]:
@@ -446,7 +551,7 @@ class InferenceEngine:
         all overlap."""
         t0 = time.time()
         self.load(name)
-        bs = self.config.batch_size
+        bs = self._device_batch()
         bounds = [(s, min(s + bs - 1, end)) for s in range(start, end + 1, bs)]
         names: list[str] = []
         out_idx: list[np.ndarray] = []
@@ -458,9 +563,10 @@ class InferenceEngine:
         pending: deque = deque()
 
         def drain_one() -> None:
-            di, dp, n = pending.popleft()       # .cpu() waits for the batch
-            out_idx.append(di.cpu().numpy()[:n])
-            out_prob.append(dp.cpu().numpy()[:n])
+            outs, n = pending.popleft()         # .cpu() waits for the batch
+            idx, prob = self._host(outs, n)
+            out_idx.append(idx)
+            out_prob.append(prob)
 
         if bounds:
             with ThreadPoolExecutor(max_workers=1,
@@ -471,10 +577,10 @@ class InferenceEngine:
                     if i + 1 < len(bounds):      # prefetch the next chunk
                         fut = pool.submit(self._load_chunk, dataset_root,
                                           *bounds[i + 1])
-                    batch = self._to_device(self._pad(images, bs))
-                    idx, prob = self._predict(name, batch)
+                    parts = self._to_groups(self._pad(images, bs))
                     names.extend(chunk_names)
-                    pending.append((idx, prob, len(chunk_names)))
+                    pending.append((self._predict_groups(name, parts),
+                                    len(chunk_names)))
                     if len(pending) >= max_inflight:
                         drain_one()
         while pending:
@@ -491,9 +597,8 @@ class InferenceEngine:
         """Load and run one full batch; returns the seconds it took."""
         self.load(name)
         t0 = time.time()
-        bs = self.config.batch_size
+        bs = self._device_batch()
         size = self.config.resize_size
         dummy = np.zeros((bs, size, size, 3), np.uint8)
-        idx, _ = self._predict(name, self._to_device(dummy))
-        idx.cpu()
+        self._host(self._predict_groups(name, self._to_groups(dummy)), bs)
         return time.time() - t0

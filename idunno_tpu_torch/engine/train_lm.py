@@ -4,17 +4,23 @@ Next-token cross-entropy over a ``TransformerLM``, backward (through the
 flash kernels K2, K4 and K5 when the model attends with ``flash`` on a
 card), and one optimizer update, in place (``engine/train.py``). The
 routed FFN's balance loss (``models/moe.py:moe_aux_loss``) is added with a
-coefficient; it is 0 for the dense model. ``jit_lm_train_step`` has no counterpart: its mesh is slice 4.
+coefficient; it is 0 for the dense model. `jit_lm_train_step` runs the
+same step over a mesh (``engine/train.py:run_mesh_step``): the tokens are
+cut on the batch over the data groups, each group's attention runs the
+flash kernels on its own device, and the gradients are summed over the
+groups.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from idunno_tpu_torch.engine.train import (TrainState, check_state,
-                                           create_train_state)
+from idunno_tpu_torch.engine.train import (MeshTrainState, TrainState,
+                                           _check_mesh_state, check_state,
+                                           create_train_state, run_mesh_step)
 from idunno_tpu_torch.models.moe import moe_aux_loss
 from idunno_tpu_torch.models.transformer import TransformerLM
+from idunno_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 # The LM's state is made as the CNN's: ``model`` on ``device`` (``None``:
 # the card), seeded with flax's initialisers (``models/init.py``) from
@@ -85,6 +91,51 @@ def make_lm_train_step(model: TransformerLM,
         optimizer.step()
         state.step += 1
         loss, ce, aux, acc = sums.unbind()
+        return {"loss": loss, "ce": ce, "aux": aux, "accuracy": acc}
+
+    return train_step
+
+
+def jit_lm_train_step(model: TransformerLM, optimizer: torch.optim.Optimizer,
+                      mesh: Mesh, aux_coef: float = 0.01, *,
+                      sequence_parallel: bool = False, axis: str = DATA_AXIS,
+                      accum_steps: int = 1):
+    """`make_lm_train_step` over ``mesh`` (the JAX ``jit_lm_train_step``)
+    for a state placed by ``shard_train_state`` or
+    ``fsdp_shard_train_state``: ``step(state, tokens) -> metrics``, the
+    tokens ``[B, T]`` (the global batch, or the local groups' parts) cut
+    on the batch over the data axis. The loss is the global batch's mean
+    next-token cross-entropy plus ``aux_coef`` × the balance loss (for a
+    routed model each group's balance loss weighted by its share, as
+    ``accum_steps`` averages chunks: not the global batch's routing
+    statistics). ``sequence_parallel=True`` (tokens cut on the sequence,
+    ring or Ulysses attention) is ROADMAP.md §1 step 3c and raises."""
+    if sequence_parallel:
+        raise ValueError("sequence_parallel=True (ring/Ulysses attention "
+                         "over the sequence) is not ported yet: ROADMAP.md "
+                         "§1 step 3c")
+    if axis != DATA_AXIS:
+        raise ValueError(f"axis {axis!r}: the batch is cut over "
+                         f"{DATA_AXIS!r}")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps={accum_steps}: must be >= 1")
+
+    def loss_fn(m, params, tokens):
+        if params is None:
+            logits = m(tokens)
+        else:
+            logits = torch.func.functional_call(m, params, (tokens,),
+                                                strict=False)
+        ce, acc = next_token_loss(logits, tokens)
+        aux = moe_aux_loss(m)
+        loss = ce + aux_coef * aux
+        return loss, torch.stack([loss.detach(), ce.detach(), aux.detach(),
+                                  acc])
+
+    def train_step(state: MeshTrainState, tokens) -> dict:
+        _check_mesh_state(state, model, optimizer, mesh)
+        loss, ce, aux, acc = run_mesh_step(state, [tokens], loss_fn,
+                                           accum_steps).unbind()
         return {"loss": loss, "ce": ce, "aux": aux, "accuracy": acc}
 
     return train_step

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from idunno_tpu_torch.models.init import init_like_flax
-from idunno_tpu_torch.models.mixed import Conv2d, Dense
+from idunno_tpu_torch.models.mixed import Conv2d, Dense, Dropout
 from idunno_tpu_torch.models.stem_fold import FoldedStemConv
 from idunno_tpu_torch.ops.pooling import adaptive_avg_pool
 
@@ -40,9 +40,9 @@ class AlexNet(nn.Module):
             Conv2d(256, 256, 3, padding=1), nn.ReLU(inplace=True),
             nn.MaxPool2d(3, 2))
         self.classifier = nn.Sequential(
-            nn.Dropout(dropout_rate), Dense(256 * 6 * 6, 4096),
+            Dropout(dropout_rate), Dense(256 * 6 * 6, 4096),
             nn.ReLU(inplace=True),
-            nn.Dropout(dropout_rate), Dense(4096, 4096),
+            Dropout(dropout_rate), Dense(4096, 4096),
             nn.ReLU(inplace=True),
             Dense(4096, num_classes))
 

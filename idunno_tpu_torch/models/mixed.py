@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from idunno_tpu_torch.parallel.data import dropout_plan
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that casts its weight and bias to the input's dtype."""
@@ -34,4 +36,19 @@ class Dense(nn.Linear):
     a no-op when the dtypes agree)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout``, whose masks inside a data-parallel step come from
+    the step's plan (``parallel/data.py:DropoutPlan``: the global batch's
+    mask, this group's rows), so every mesh shape draws the same masks;
+    elsewhere torch's generator draws them, as ``nn.Dropout`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        plan = dropout_plan() if self.training and self.p > 0 else None
+        if plan is None:
+            return super().forward(x)
+        keep = plan.keep(x, self.p)
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))

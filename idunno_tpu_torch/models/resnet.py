@@ -31,6 +31,7 @@ from torch import nn
 from idunno_tpu_torch.models.init import init_like_flax
 from idunno_tpu_torch.models.mixed import Conv2d, Dense
 from idunno_tpu_torch.models.stem_fold import FoldedStemConv
+from idunno_tpu_torch.parallel.data import group_sum
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -47,11 +48,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     the per-channel vectors: with ``keep = (1 - momentum) * var0``, torch
     leaves ``keep + momentum * var * n / (n - 1)``, so ``(rv - keep) *
     (n - 1) / n + keep`` is flax's value, and no second pass over the
-    activations is needed."""
+    activations is needed.
+
+    Inside a data-parallel step over more than one group
+    (``parallel/data.py:group_sum``), training normalizes with the
+    statistics of the global batch, as ``jit`` over a data-sharded batch
+    does: `global_batch_norm`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        reduce = group_sum()
+        if reduce is not None:
+            return global_batch_norm(self, x, reduce)
         keep = (1.0 - self.momentum) * self.running_var
         y = super().forward(x)
         n = x.numel() // x.shape[1]
@@ -60,6 +69,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var = (self.running_var - keep) * ((n - 1) / n) + keep
         return y
+
+
+def global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
+                      reduce) -> torch.Tensor:
+    """Training BatchNorm over the global batch: each group's per-channel
+    sum, sum of squares and count (f32) are summed over every data group
+    by ``reduce`` (differentiable, so the backward takes the other groups'
+    share too); mean and variance are flax's (``E[x²] - E[x]²``, the
+    biased variance), and the running statistics fold them in with ``n``
+    the global count. The output is in the input's dtype."""
+    c = x.shape[1]
+    xf = x.float()
+    count = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                       device=x.device)
+    stats = reduce(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                              count]))
+    n = stats[-1]
+    mean = stats[:c] / n
+    var = (stats[c:2 * c] / n - mean * mean).clamp_min(0.0)
+    shape = (1, c, 1, 1)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean.view(shape)) * scale.view(shape) + bn.bias.float().view(shape)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        bn.num_batches_tracked.add_(1)
+    return y.to(x.dtype)
 
 
 class _S2DStem(Conv2d):

@@ -18,12 +18,17 @@ must be asked for (``virtual=True``): every shard then runs on that one
 device, so the split math runs whole on a CPU or on one card. It is the
 counterpart of the JAX tests' ``--xla_force_host_platform_device_count``.
 
-Collectives over ``torch.distributed`` processes, multi-host bring-up
-(`initialize_distributed`, `global_mesh`, `process_info`) come with data
-parallelism (ROADMAP.md §1, step 3b) and raise until then.
+Several processes (hosts, or processes sharing a host) join through
+`initialize_distributed`, a ``torch.distributed`` process group. A mesh
+across them (`global_mesh`) names the whole ``(data, model)`` grid, but
+each process owns only its own rows, ``Mesh.local_groups``: it runs
+those data groups, and the data-axis collectives
+(``parallel/data.py``) reduce over its rows in process and then over the
+processes with ``torch.distributed``.
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 
 import torch
@@ -58,10 +63,21 @@ class MeshShapeError(ValueError):
 class Mesh:
     """A ``(data, model)`` grid of torch devices: ``devices[d][m]`` holds
     model shard ``m`` of data group ``d``. ``virtual`` marks a grid that
-    names a device more than once (module docstring)."""
+    names a device more than once (module docstring). ``local`` lists the
+    data groups this process runs (None: every group, a mesh of one
+    process); the rows of other processes name their devices as those
+    processes do, and this process never touches them."""
 
     devices: tuple[tuple[torch.device, ...], ...]
     virtual: bool = False
+    local: tuple[int, ...] | None = None
+
+    @property
+    def local_groups(self) -> tuple[int, ...]:
+        """The data groups this process runs, in grid order."""
+        if self.local is None:
+            return tuple(range(len(self.devices)))
+        return self.local
 
     @property
     def shape(self) -> dict[str, int]:
@@ -76,10 +92,10 @@ class Mesh:
         return self.devices[0][0]
 
     def distinct(self) -> list[torch.device]:
-        """The mesh's devices, each once, in grid order."""
+        """This process's devices of the mesh, each once, in grid order."""
         out: list[torch.device] = []
-        for row in self.devices:
-            for dev in row:
+        for d in self.local_groups:
+            for dev in self.devices[d]:
                 if dev not in out:
                     out.append(dev)
         return out
@@ -167,25 +183,123 @@ def check_head_divisibility(num_heads: int, n_model: int) -> None:
                        f"(got {num_heads} % {n_model})")
 
 
-def _step_3b(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it comes with data "
-                      "parallelism and multi-host init (ROADMAP.md §1, "
-                      "step 3b)")
+# -- several processes ------------------------------------------------------
+#
+# The JAX package joins hosts with ``jax.distributed.initialize``, after
+# which ``jax.devices()`` is the global device set. The port joins
+# processes in a ``torch.distributed`` process group; each keeps its own
+# devices (``_DIST["devices"]``: per process, as the group itself is),
+# and `global_mesh` stacks every process's rows into one grid.
+
+_DIST: dict = {}
+
+
+def _card_id(device: torch.device) -> str:
+    props = torch.cuda.get_device_properties(device)
+    return str(getattr(props, "uuid", "")) or f"{props.name}:{device.index}"
 
 
 def initialize_distributed(coordinator_address: str,
                            num_processes: int | None = None,
                            process_id: int | None = None,
                            local_device_ids=None) -> None:
-    """Multi-host bring-up: raises until step 3b."""
-    raise _step_3b("initialize_distributed (multi-host init)")
+    """Join this process to the others (idempotent: a second call keeps
+    the first group). ``coordinator_address`` is ``host:port`` (or
+    ``tcp://host:port``) where process 0 listens; ``num_processes`` and
+    ``process_id`` are this group's size and this process's rank (``python
+    -m idunno_tpu_torch --dist-coordinator host:port --dist-num-processes N
+    --dist-process-id I``). ``local_device_ids`` are the cards this process
+    runs on (default: every visible card; the CPU where there is none).
 
+    Backend rule: NCCL refuses two ranks on one card ("duplicate GPU"), so
+    the group takes NCCL only when NCCL is built in and every rank has a
+    card of its own (the ranks compare their first cards' identities
+    through the coordinator's store before the group is made), and gloo
+    otherwise: always on the CPU, and for ranks that share a card, where
+    gloo reduces CUDA tensors through the host (correct, slow). The chosen
+    backend is printed to standard error."""
+    import torch.distributed as dist
 
-def global_mesh(n_model: int = 1) -> Mesh:
-    """A mesh over every process's devices: raises until step 3b."""
-    raise _step_3b("global_mesh (a mesh across processes)")
+    if dist.is_available() and dist.is_initialized():
+        return
+    if num_processes is None or process_id is None:
+        raise ValueError("initialize_distributed needs num_processes and "
+                         "process_id: nothing on this machine tells a "
+                         "process its rank")
+    addr = coordinator_address.removeprefix("tcp://")
+    host, _, port = addr.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator_address {coordinator_address!r}: "
+                         "want host:port")
+    if torch.cuda.is_available():
+        ids = (list(local_device_ids) if local_device_ids is not None
+               else list(range(torch.cuda.device_count())))
+        devices = [torch.device("cuda", i) for i in ids]
+        torch.cuda.set_device(devices[0])
+    else:
+        devices = [torch.device("cpu")]
+    store = dist.TCPStore(host, int(port), num_processes,
+                          is_master=process_id == 0)
+    card = _card_id(devices[0]) if devices[0].type == "cuda" else ""
+    store.set(f"idunno/card/{process_id}", card)
+    cards = [store.get(f"idunno/card/{r}").decode()
+             for r in range(num_processes)]
+    own_cards = all(cards) and len(set(cards)) == len(cards)
+    backend = ("nccl" if own_cards and dist.is_nccl_available()
+               else "gloo")
+    dist.init_process_group(backend, store=dist.PrefixStore("pg", store),
+                            rank=process_id, world_size=num_processes)
+    _DIST["devices"] = devices
+    print(f"initialize_distributed: process {process_id} of "
+          f"{num_processes}, backend {backend} (devices "
+          f"{[str(d) for d in devices]})", file=sys.stderr, flush=True)
 
 
 def process_info() -> tuple[int, int]:
-    """(process_index, process_count): raises until step 3b."""
-    raise _step_3b("process_info (the multi-process runtime)")
+    """(process_index, process_count): (0, 1) outside a process group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _local_devices() -> list[torch.device]:
+    """This process's devices: those it joined the group with, else every
+    visible card, else the CPU."""
+    return list(_DIST.get("devices") or _visible_devices()
+                or [torch.device("cpu")])
+
+
+def global_mesh(n_model: int = 1) -> Mesh:
+    """A (data, model) mesh over every process's devices: each process's
+    devices fill its rows (``n_model`` to a row; process ``r``'s rows come
+    after process ``r - 1``'s), and the mesh's ``local_groups`` are this
+    process's rows. Call after `initialize_distributed`; outside a group it
+    is the mesh of this process's devices alone."""
+    import torch.distributed as dist
+
+    devices = _local_devices()
+    if n_model < 1 or len(devices) % n_model:
+        raise MeshShapeError(
+            f"{len(devices)} local devices not divisible by model axis "
+            f"{n_model}", n_devices=len(devices), n_model=n_model,
+            constraint=f"n_model must divide {len(devices)} devices a "
+                       "process")
+    rank, world = process_info()
+    if world == 1:
+        return make_mesh(len(devices) // n_model, n_model, devices=devices)
+    names: list[list[str]] = [None] * world
+    dist.all_gather_object(names, [str(d) for d in devices])
+    if len({len(n) for n in names}) != 1:
+        raise MeshShapeError(
+            f"processes hold {[len(n) for n in names]} devices; a global "
+            "mesh needs the same count in each", n_devices=len(devices),
+            n_model=n_model, constraint="equal devices per process")
+    rows_per = len(devices) // n_model
+    grid = tuple(tuple(torch.device(n) for n in proc[r * n_model:
+                                                      (r + 1) * n_model])
+                 for proc in names for r in range(rows_per))
+    local = tuple(range(rank * rows_per, (rank + 1) * rows_per))
+    mine = [dev for d in local for dev in grid[d]]
+    return Mesh(grid, virtual=len(set(mine)) < len(mine), local=local)

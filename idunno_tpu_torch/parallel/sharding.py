@@ -6,8 +6,8 @@ split out: a spec names, per parameter of the port's module (its name in
 an unquantized ``state_dict``), the dimension of the torch tensor that is
 split over the mesh's model axis, or ``None`` when the parameter is
 replicated. `param_shard` cuts shard ``s`` of ``n`` out of a tensor (or
-an int8 weight), and `shard_lm_params`/`shard_cnn_variables` place every
-shard on its device.
+an int8 weight), and `shard_lm_params` places every shard on its device;
+a CNN's wide layers are cut by `split_columns` (`ColumnSplit`).
 
 LM tensor parallelism (Megatron, Shoeybi et al. 2019; Pope et al. MLSys
 2023 for the inference variant): Q/K/V and ``mlp_up`` are COLUMN shards
@@ -254,14 +254,91 @@ def cnn_tp_specs(state_dict: dict[str, torch.Tensor], *, n_model: int,
     return out
 
 
-def shard_cnn_variables(mesh: Mesh, state_dict: dict[str, torch.Tensor]
-                        ) -> list[dict[str, torch.Tensor]]:
-    """CNN weights cut by `cnn_tp_specs` and placed: one dict per model
-    shard, on the device of data group 0's shard ``m`` (every tensor
-    whole on each shard when the mesh has no model-axis extent)."""
-    n_model = mesh.shape[MODEL_AXIS]
-    specs = cnn_tp_specs(state_dict, n_model=n_model)
-    return [{name: place_shard(param_shard(leaf, specs[name], m, n_model),
-                          mesh.devices[0][m])
-             for name, leaf in state_dict.items()}
-            for m in range(n_model)]
+def tp_param_spec(name: str, shape) -> int | None:
+    """The tensor-parallel split of a CNN training parameter (JAX
+    ``parallel/sharding.py:tp_param_spec``): the output-features dim of a
+    large fully connected kernel (more than 2^20 elements, an even
+    feature count) is cut over the model axis; everything else, biases
+    included, replicates. The port's FC layers are ``fc`` (the ResNets)
+    and ``classifier.<i>`` (AlexNet: flax's ``fc0``-``fc2``), their
+    weights ``[out, in]``, so the cut is torch dim 0."""
+    fc = name.startswith(("fc.", "classifier.")) or ".fc." in name
+    numel = 1
+    for d in shape:
+        numel *= d
+    if (fc and name.endswith(".weight") and len(shape) >= 2
+            and shape[0] % 2 == 0 and numel > 1 << 20):
+        return 0
+    return None
+
+
+# -- the column split: a layer's output features over the model axis -----
+
+def _splittable(layer: nn.Module) -> bool:
+    from idunno_tpu_torch.models.mixed import Conv2d, Dense
+    return type(layer) in (Conv2d, Dense, nn.Conv2d, nn.Linear)
+
+
+class ColumnSplit(nn.Module):
+    """A conv or fully connected layer whose output features are cut over
+    the model axis: part ``m`` (the same layer type, output features
+    ``m·F/n ... (m+1)·F/n``, no bias) lives on ``devices[m]`` and reads the
+    input there; the parts' outputs are gathered on the input's device in
+    order and the layer's bias (replicated, whole on the first device) is
+    added after. The output equals the unsplit layer's up to where the
+    bias is added; autograd carries the gradients across devices."""
+
+    def __init__(self, layer: nn.Module, weights: list[torch.Tensor],
+                 devices: list[torch.device]) -> None:
+        super().__init__()
+        self.conv = isinstance(layer, nn.Conv2d)
+        self.parts = nn.ModuleList()
+        for w, dev in zip(weights, devices):
+            if self.conv:
+                part = nn.utils.skip_init(
+                    type(layer), layer.in_channels, w.shape[0],
+                    layer.kernel_size, layer.stride, layer.padding,
+                    layer.dilation, layer.groups, bias=False,
+                    padding_mode=layer.padding_mode, device=dev,
+                    dtype=w.dtype)
+            else:
+                part = nn.utils.skip_init(type(layer), layer.in_features,
+                                          w.shape[0], bias=False,
+                                          device=dev, dtype=w.dtype)
+            part.weight = nn.Parameter(w.detach().to(dev, copy=True))
+            self.parts.append(part)
+        bias = getattr(layer, "bias", None)
+        self.bias = (None if bias is None else
+                     nn.Parameter(bias.detach().to(devices[0], copy=True)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        home = x.device
+        outs = [part(x.to(part.weight.device)).to(home)
+                for part in self.parts]
+        y = torch.cat(outs, dim=1 if self.conv else -1)
+        if self.bias is not None:
+            b = self.bias.to(y.dtype)
+            y = y + (b.view(1, -1, 1, 1) if self.conv else b)
+        return y
+
+
+def split_columns(model: nn.Module, specs: dict[str, int | None],
+                  devices: list[torch.device]) -> nn.Module:
+    """Replace, in ``model``, each conv or fully connected layer whose
+    ``<name>.weight`` spec cuts dim 0 (the output features) by a
+    `ColumnSplit` over ``devices`` (the model shards of one data group);
+    returns ``model``. A spec on any other parameter, or on a layer of
+    another type (the folded or space-to-depth stems), leaves it whole."""
+    n = len(devices)
+    if n <= 1:
+        return model
+    for name, mod in list(model.named_modules()):
+        if not name or not _splittable(mod) or \
+                specs.get(f"{name}.weight") != 0:
+            continue
+        w = mod.weight.detach()
+        weights = [param_shard(w, 0, m, n) for m in range(n)]
+        parent, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(parent) if parent else model
+        setattr(owner, leaf, ColumnSplit(mod, weights, devices))
+    return model

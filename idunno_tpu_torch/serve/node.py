@@ -10,8 +10,11 @@ only the real runtime sleeps.
 
 A port of ``idunno_tpu/serve/node.py``. The node has one device
 (``device``, the card unless the caller passes ``device="cpu"``; no card
-raises): its engine runs the CNN queries there, and the control service
-loads every LM it generates with or serves onto it.
+raises): the control service loads every LM it generates with or serves
+onto it. Its engine runs the CNN queries over the local mesh (one data
+group per visible card, as the JAX node's engine runs over
+``local_mesh()``) when the device is the card (``cuda`` with no index),
+and on the device alone otherwise (``--cpu``: one group on the CPU).
 """
 from __future__ import annotations
 
@@ -64,8 +67,11 @@ class Node:
                                       self.membership, data_dir)
         self.store.spans = self.spans
         if engine is None:
-            engine = InferenceEngine(engine_config or EngineConfig(),
-                                     device=self.device, store=self.store)
+            over_cards = (self.device.type == "cuda"
+                          and self.device.index is None)
+            engine = InferenceEngine(
+                engine_config or EngineConfig(), store=self.store,
+                **({} if over_cards else {"device": self.device}))
         self.engine = engine
         self.metrics = MetricsTracker()
         self.inference = InferenceService(host, config, transport,

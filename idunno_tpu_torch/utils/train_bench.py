@@ -10,14 +10,28 @@
           (forward 2N + backward 4N) plus the attention term, against the
           card's bf16 dense peak.
   accum — the same step with ``accum_steps=2``.
-  fsdp  — sharded parameters and optimizer state: slice 4; recorded as
-          skipped, never as a number.
+  fsdp  — the LM step with every parameter and its optimizer moments cut
+          over the data axis (``engine/train.py:fsdp_shard_train_state``,
+          ZeRO-3) and the per-tensor ``adamw(3e-4)`` (a flat optimizer
+          leaf is not what FSDP shards): trained tokens/s, ``vs_plain``
+          against the LM point, and one data group's resident bytes
+          against a replica's. Only where the mesh's data axis is larger
+          than 1; absent otherwise, as in the JAX record.
   cnn   — ``engine/train.py`` step on ResNet-18, ``flat_tx(sgd(0.1,
           momentum=0.9))``, with f32 parameters and bf16 compute (the JAX
           module's default split; BatchNorm statistics in f32): images/s,
           with MFU by the JAX bench's formula, 3 × the analytic forward
           FLOPs an image (``bench.py:resnet_forward_flops``; forward +
           backward) × images/s over the card's bf16 dense peak.
+
+Every point runs over a mesh (``parallel/mesh.py``): ``local_mesh()`` on
+the card (one data group per visible card), one group on the CPU, or the
+caller's; the batches are rounded up to a multiple of its data axis and
+cut over its groups once, before the timed steps. A mesh of one group
+runs the one-device steps (``make_lm_train_step``, ``make_train_step``),
+a larger one their mesh counterparts (``jit_lm_train_step``,
+``jit_train_step``: gradients summed over the groups, BatchNorm over the
+global batch).
 
 Every knob is env-overridable (``BENCH_TRAIN_*``). Only a run on the card
 gives device numbers: on the CPU the record carries no MFU.
@@ -31,6 +45,10 @@ import time
 import torch
 
 H100_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
 
 
 def _env_int(name: str, default: int) -> int:
@@ -89,43 +107,74 @@ def _error(e: Exception) -> dict:
     return {"error": f"{type(e).__name__}: {e}"}
 
 
-def run_train_bench(*, device: str | torch.device | None = None) -> dict:
-    """One measured training record on ``device`` (``None``: the card,
-    which must be present), every model seeded with 0. A point that fails
-    records its error, and an LM failure ends the record."""
-    from idunno_tpu_torch.engine.inference import resolve_device
-    from idunno_tpu_torch.engine.train import (adamw, create_train_state,
-                                               flat_tx, make_train_step, sgd)
-    from idunno_tpu_torch.engine.train_lm import (create_lm_train_state,
-                                                  make_lm_train_step)
-    from idunno_tpu_torch.models.resnet import resnet18
+def _lm_model(cfg: dict) -> torch.nn.Module:
     from idunno_tpu_torch.models.transformer import (TransformerLM,
                                                      make_attn_fn)
+    return TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"],
+                         depth=cfg["depth"], num_heads=cfg["heads"],
+                         causal=True, attn_fn=make_attn_fn("flash"),
+                         dtype=torch.float32, compute_dtype=torch.bfloat16)
 
-    dev = resolve_device(device)
+
+def run_train_bench(*, device: str | torch.device | None = None,
+                    mesh=None) -> dict:
+    """One measured training record on ``device`` (``None``: the card,
+    which must be present) over ``mesh`` (module docstring; ``None``:
+    ``local_mesh()`` on the card, one group elsewhere), every model seeded
+    with 0. A point that fails records its error, and an LM failure ends
+    the record."""
+    from idunno_tpu_torch.engine.inference import resolve_device
+    from idunno_tpu_torch.engine.train import (
+        adamw, create_train_state, flat_tx, fsdp_shard_train_state,
+        jit_train_step, make_train_step, resident_bytes, sgd,
+        shard_train_state)
+    from idunno_tpu_torch.engine.train_lm import (create_lm_train_state,
+                                                  jit_lm_train_step,
+                                                  make_lm_train_step)
+    from idunno_tpu_torch.models.resnet import resnet18
+    from idunno_tpu_torch.parallel.data import shard_batch
+    from idunno_tpu_torch.parallel.mesh import (DATA_AXIS, local_mesh,
+                                                make_mesh)
+
+    dev = resolve_device(mesh.lead if mesh is not None and device is None
+                         else device)
     card = dev.type == "cuda"
+    if mesh is None:
+        mesh = local_mesh() if card else make_mesh(1, 1, devices=[dev])
+    n_data = mesh.shape[DATA_AXIS]
+    one = len(mesh.distinct()) == 1 and n_data == 1
     cfg = train_bench_config(dev.type)
-    out: dict = {"config": cfg, "platform": dev.type,
+    batch, seq = _round_up(cfg["batch"], n_data), cfg["seq"]
+    out: dict = {"config": dict(cfg, batch=batch), "platform": dev.type,
                  "device_kind": (torch.cuda.get_device_name(dev) if card
                                  else "cpu"),
-                 "n_devices": 1}
+                 "n_devices": len(mesh.distinct()),
+                 "mesh": dict(mesh.shape, virtual=mesh.virtual)}
+
+    def placed(state):
+        return state if one else shard_train_state(state, mesh)
+
+    def lm_step(state, **kw):
+        if one:
+            return make_lm_train_step(state.model, state.optimizer, **kw)
+        return jit_lm_train_step(state.model, state.optimizer, mesh, **kw)
+
+    def cut(x):
+        return x if one else shard_batch(mesh, x)
 
     # -- LM train step: flash forward and backward, no fallback -------------
     tx = flat_tx(adamw(3e-4))
-    batch, seq = cfg["batch"], cfg["seq"]
     try:
-        model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"],
-                              depth=cfg["depth"], num_heads=cfg["heads"],
-                              causal=True, attn_fn=make_attn_fn("flash"),
-                              dtype=torch.float32,
-                              compute_dtype=torch.bfloat16)
+        model = _lm_model(cfg)
         state = create_lm_train_state(
             model, torch.Generator(device=dev).manual_seed(0), tx,
             device=dev)
         n_params = sum(p.numel() for p in model.parameters())
         out["n_params"] = n_params
-        tokens = torch.ones((batch, seq), dtype=torch.int64, device=dev)
-        step = make_lm_train_step(state.model, state.optimizer)
+        state = placed(state)
+        tokens = cut(torch.ones((batch, seq), dtype=torch.int64,
+                                device=dev))
+        step = lm_step(state)
         per_step, first_s, loss = _timed_steps(
             step, state, (tokens,), cfg["iters"],
             trace_name="train_lm" if card else None)
@@ -148,9 +197,9 @@ def run_train_bench(*, device: str | torch.device | None = None) -> dict:
 
     # -- gradient accumulation point -----------------------------------------
     try:
-        step2 = make_lm_train_step(state.model, state.optimizer,
-                                   accum_steps=2)
-        per2, first2, _ = _timed_steps(step2, state, (tokens,), cfg["iters"])
+        step2 = lm_step(state, accum_steps=2)
+        per2, first2, _ = _timed_steps(step2, state, (tokens,),
+                                       cfg["iters"])
         out["accum"] = {"accum_steps": 2,
                         "tokens_per_s": batch * seq / per2,
                         "vs_plain": per_step / per2,
@@ -158,19 +207,49 @@ def run_train_bench(*, device: str | torch.device | None = None) -> dict:
     except Exception as e:  # noqa: BLE001
         out["accum"] = _error(e)
     del state, model, step
-    out["fsdp"] = {"skipped": "slice 4"}
+
+    # -- FSDP (ZeRO-3): only where the data axis is larger than 1. The
+    # per-tensor optimizer on purpose: its point is sharded moments, and
+    # a flat [N] leaf shards only where N divides the axis --------------------
+    if n_data > 1:
+        try:
+            fstate = create_lm_train_state(
+                _lm_model(cfg), torch.Generator(device=dev).manual_seed(0),
+                adamw(3e-4), device=dev)
+            fstate = fsdp_shard_train_state(fstate, mesh)
+            fstep = jit_lm_train_step(fstate.model, fstate.optimizer, mesh)
+            perf, firstf, _ = _timed_steps(fstep, fstate, (tokens,),
+                                           cfg["iters"])
+            out["fsdp"] = {
+                "tokens_per_s": batch * seq / perf,
+                "vs_plain": per_step / perf, "step_s": perf,
+                "first_step_s": firstf,
+                "optimizer_layout":
+                    "per-tensor (ZeRO-3 shards opt-state leaves)",
+                "note": "vs_plain's numerator is the FUSED-optimizer "
+                        "plain step (the shipped default): it folds the "
+                        "per-tensor layout cost in with the sharding "
+                        "cost, not a same-layout A/B",
+                "resident_bytes_per_group": resident_bytes(fstate, 0),
+                # a replica: each f32 parameter and its two AdamW moments
+                "replicated_resident_bytes": 3 * 4 * n_params,
+            }
+            del fstate, fstep
+        except Exception as e:  # noqa: BLE001
+            out["fsdp"] = _error(e)
 
     # -- CNN train step (the reference's model family) -----------------------
     try:
-        cb, size = cfg["cnn_batch"], cfg["cnn_image"]
-        cstate = create_train_state(
+        cb, size = _round_up(cfg["cnn_batch"], n_data), cfg["cnn_image"]
+        cstate = placed(create_train_state(
             resnet18(compute_dtype=torch.bfloat16),
             torch.Generator(device=dev).manual_seed(0),
-            flat_tx(sgd(0.1, momentum=0.9)), device=dev)
-        images = torch.zeros((cb, 3, size, size), device=dev).to(
-            memory_format=torch.channels_last)
-        labels = torch.zeros((cb,), dtype=torch.int64, device=dev)
-        cstep = make_train_step(cstate.model, cstate.optimizer)
+            flat_tx(sgd(0.1, momentum=0.9)), device=dev))
+        images = cut(torch.zeros((cb, 3, size, size), device=dev).to(
+            memory_format=torch.channels_last))
+        labels = cut(torch.zeros((cb,), dtype=torch.int64, device=dev))
+        cstep = (make_train_step(cstate.model, cstate.optimizer) if one
+                 else jit_train_step(cstate.model, cstate.optimizer, mesh))
         perc, firstc, closs = _timed_steps(
             cstep, cstate, (images, labels), cfg["iters"],
             trace_name="train_cnn" if card else None)

@@ -107,7 +107,8 @@ def test_batch_and_staged_paths_agree_with_infer(engines, name):
     _, images = data_lib.load_range(None, 0, 11, size=SMALL["resize_size"])
     idx_b, prob_b = peng.infer_batch(name, images)
     staged, n = peng.stage(images)
-    assert tuple(staged.shape) == (2, 8, 64, 64, 3) and n == 12
+    assert [tuple(s.shape) for s in staged] == [(2, 8, 64, 64, 3)]
+    assert n == 12
     idx_s, prob_s = peng.infer_staged(name, staged, n)
     cats = [peng.categories[i] for i in idx_b]
     assert cats == [r[1] for r in res.records]

@@ -751,3 +751,39 @@ def test_tp_pool_on_the_card_matches_n_model_one(cuda_device, n_model):
         assert srv.graph_stats()["replayed"] > 0
     assert streams[n_model] == streams[1]
     assert launches[n_model] == n_model * launches[1] > 0
+
+
+# -- data parallelism: K1 per data group ---------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_data", [2, 4])
+def test_preprocess_kernel_per_group_of_a_virtual_mesh(cuda_device, n_data,
+                                                       monkeypatch):
+    """The engine over a virtual mesh of the card: each data group's slice
+    of a batch goes through K1 on ``cuda:0`` (one launch a group), bit for
+    bit the plain version of that slice, and the groups' top-1 equal the
+    one-group engine's (f32 compute, TF32 off)."""
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dict(batch_size=16, image_size=224, resize_size=256,
+               compute_dtype="float32", preprocess="kernel")
+    mesh = virtual_mesh(n_data, 1, "cuda:0")
+    eng = InferenceEngine(EngineConfig(**cfg), mesh=mesh)
+    one = InferenceEngine(EngineConfig(**cfg))
+    eng.load("resnet")
+    one.load("resnet", state_dict=eng._models["resnet"].state_dict())
+    _, images = data_lib.load_range(None, 0, 15)
+    parts = eng._to_groups(images)
+    assert len(parts) == n_data
+    for part in parts:
+        assert part.device == torch.device("cuda", 0)
+        out = preprocess_batch_kernel(part, 224)
+        ref = preprocess_batch_plain(part, 224)
+        assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    before = preprocess_batch_kernel.launches
+    idx, prob = eng.infer_batch("resnet", images)
+    assert preprocess_batch_kernel.launches == before + n_data
+    want_idx, want_prob = one.infer_batch("resnet", images)
+    np.testing.assert_array_equal(idx, want_idx)
+    np.testing.assert_allclose(prob, want_prob, rtol=0, atol=1e-5)

@@ -38,8 +38,8 @@ from idunno_tpu_torch.parallel.sharding import (QParam, cnn_tp_specs,
                                                 lm_cache_specs, lm_tp_specs,
                                                 module_params, param_shard,
                                                 sampling_collective_bytes,
-                                                shard_cnn_variables,
                                                 shard_lm_params,
+                                                split_columns,
                                                 tp_collective_bytes)
 
 VOCAB = 61
@@ -301,9 +301,21 @@ def test_cnn_tp_specs_wide_shard_narrow_replicate():
     js = jax_cnn_tp_specs(flax, n_model=4)
     assert js["fc"]["kernel"] == P(None, M)
     assert js["stem"]["kernel"] == P() and js["odd"]["kernel"] == P()
-    placed = shard_cnn_variables(virtual_mesh(1, 4, "cpu"), state)
-    assert tuple(placed[3]["fc.weight"].shape) == (128, 256)
-    assert tuple(placed[3]["stem.weight"].shape) == (64, 3, 7, 7)
+    # the cut on a module: the wide layer's four column parts, the
+    # narrow ones whole
+    net = torch.nn.Module()
+    net.stem = torch.nn.Conv2d(3, 64, 7)
+    net.fc = torch.nn.Linear(256, 512)
+    net.odd = torch.nn.Linear(16, 130)
+    fc_w = net.fc.weight.detach().clone()
+    split_columns(net, cnn_tp_specs(net.state_dict(), n_model=4),
+                  list(virtual_mesh(1, 4, "cpu").devices[0]))
+    parts = [p.weight for p in net.fc.parts]
+    assert [tuple(w.shape) for w in parts] == [(128, 256)] * 4
+    assert torch.equal(parts[3], param_shard(fc_w, 0, 3, 4))
+    assert isinstance(net.stem, torch.nn.Conv2d)
+    assert tuple(net.stem.weight.shape) == (64, 3, 7, 7)
+    assert isinstance(net.odd, torch.nn.Linear)
 
 
 # -- gauges -----------------------------------------------------------------
@@ -321,15 +333,25 @@ def test_tp_collective_bytes():
 
 
 def test_multi_host_init_names_the_roadmap():
-    """Multi-host bring-up and a mesh across processes wait for data
-    parallelism (step 3b): they raise naming ROADMAP.md."""
+    """Multi-host bring-up landed with data parallelism (step 3b; the two
+    processes of ``tests/test_torch_multiprocess.py`` join through it):
+    outside a process group ``process_info`` is (0, 1) and ``global_mesh``
+    is this process's devices, and a rank-less call raises. What still
+    waits, the sequence-parallel LM step, raises naming ROADMAP.md."""
+    from idunno_tpu_torch.engine.train_lm import jit_lm_train_step
     from idunno_tpu_torch.parallel.mesh import (global_mesh,
                                                 initialize_distributed,
-                                                process_info)
-    for call in (lambda: initialize_distributed("localhost:1234", 2, 0),
-                 global_mesh, process_info):
-        with pytest.raises(ValueError, match="ROADMAP.md.*3b"):
-            call()
+                                                process_info, virtual_mesh)
+    assert process_info() == (0, 1)
+    if not torch.cuda.is_available():
+        mesh = global_mesh()
+        assert mesh.shape == {DATA_AXIS: 1, MODEL_AXIS: 1}
+        assert mesh.local_groups == (0,)
+    with pytest.raises(ValueError, match="process_id"):
+        initialize_distributed("localhost:1234")
+    with pytest.raises(ValueError, match="ROADMAP.md.*3c"):
+        jit_lm_train_step(None, None, virtual_mesh(2, 1, "cpu"),
+                          sequence_parallel=True)
 
 
 def test_local_mesh_spans_the_visible_cards():

@@ -495,7 +495,7 @@ def test_train_bench_record_at_cpu_miniature():
     assert lm["flops_per_token_gf"] == pytest.approx(
         (6 * rec["n_params"] + 12 * 32 * 64 * 1) / 1e9)
     assert rec["accum"]["accum_steps"] == 2 and rec["accum"]["tokens_per_s"] > 0
-    assert rec["fsdp"] == {"skipped": "slice 4"}
+    assert "fsdp" not in rec        # one data group on the CPU, as JAX
     assert rec["cnn"]["model"] == "resnet18" and rec["cnn"]["images_per_s"] > 0
     assert not any("error" in v for v in rec.values() if isinstance(v, dict))
 
