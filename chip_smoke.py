@@ -50,6 +50,10 @@ through the control RPC:
   ResNet-18 trained over two groups (K2, K4, K5 per group; BatchNorm over
   the global batch), FSDP, two processes joined over gloo, and the dry
   run;
+- sequence and pipeline parallelism on virtual meshes of the card: the
+  LM attending by ring attention (K2 per block pair, K4/K5 in its
+  backward) and by Ulysses (K2/K4/K5 per head group), and the GPipe-
+  pipelined LM (K2/K4/K5 per stage and microbatch), trained;
 - the routed FFN (switch MoE): the same LM widths with a switch FFN of 8
   experts on every other block (570,884,144 parameters, seeded): its
   prefill through K2, its training through K2, K4 and K5 (``remat`` held
@@ -114,8 +118,7 @@ Phases:
    flash backward through K4 and K5, steady decode of 128-step replayed
    dispatches from the contiguous cache and, in its ``paged_k3`` arm,
    through K3) and ``lm_prefix`` (radix cache on and off, and on through
-   K3) at
-   full width: each exits 0 with one JSON line, a value, no error,
+   K3; depth 6) at full width: each exits 0 with one JSON line, a value, no error,
    provenance naming this card, K3 launches > 0 (K2 > 0 for ``lm``), a
    ``paged_k3`` arm beside the headline (which serves from the JAX
    suite's pool: contiguous for ``lm``, gathered for ``lm_prefix``), and
@@ -198,19 +201,37 @@ Phases:
     statistics and the update within their stated tolerances, and a
     control run with BatchNorm over each group alone outside all three;
     (d) the train bench's record over a virtual (2, 1)
-    mesh: no point in error, the ``fsdp`` point's group holding about
+    mesh at depth 6: no point in error, the ``fsdp`` point's group holding about
     half a replica's resident bytes; (e) two processes of ``python -m idunno_tpu_torch.dryrun``
     joined over gloo on the card: ``process_info``, ``global_mesh``, and
     one ResNet-18 step across them equal to one process's; (f) ``python
-    -m idunno_tpu_torch.dryrun 4 --device cuda`` exits 0;
-14. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+    -m idunno_tpu_torch.dryrun 4 --device cuda`` exits 0 with its
+    ring-attention and pipeline sections;
+14. sequence and pipeline parallelism (``seq_pipeline``) on virtual
+    meshes of the card (``SEQ``): the full-width LM (f32 parameters,
+    bf16 compute) attending by ring attention (4 groups, causal; K2 on
+    each of the 10 live block pairs, K4/K5 on each in the backward) and
+    by Ulysses (4 groups of 4 heads; K2/K4/K5 per group) at batch 2 x
+    seq 4096, and pipelined by GPipe (4 stages x 3 blocks, 8
+    microbatches) at batch 8 x seq 1024, each against the one-device
+    model on the same weights and tokens: logits within 2% of the largest
+    |logit|, the loss within 5e-3, every parameter's gradient cosine >=
+    0.999 and norm within 2%, K2 launches per forward exactly 12 x 10,
+    12 x 4 and 12 x 8, and K2/K4/K5 per train step the same through
+    ``jit_lm_train_step(sequence_parallel=True)`` and
+    ``jit_pipelined_lm_train_step`` (step ms and tokens/s printed); each
+    with a control that must fail the logit and gradient gates (K/V never
+    rotated; the head groups regrouped in reverse; the last microbatch
+    dropped); then each at depth 2 in f32 (TF32 off): the loss within
+    1e-5 relative, every gradient within 1e-4 of its tensor's largest;
+15. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
     ten steps on that batch with finite, falling loss, K2, K4 and K5
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-15. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
+16. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
     full-width routed forward on [4, 1024] tokens, bf16, through
     ``make_attn_fn("auto")``: K2 launches (zeroed just before) equal
     depth × forwards, logits within 2% of the ``full`` forward's largest,
@@ -226,17 +247,18 @@ Phases:
     gathered block pool: a ``paged_kernel`` pool raises, replayed and
     eager pools give equal greedy streams, then the 48 shared-prefix
     prompts from two threads: tokens/s, TTFT p50/p95;
-16. ``failed_capture``: after a provoked failed CUDA-graph capture the
+17. ``failed_capture``: after a provoked failed CUDA-graph capture the
     pool serves a sampled request equal to an eager pool's, and a random
     draw on the card succeeds;
-17. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+18. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-18. the last line, ``{"ok": true, "device": {...}}``.
+19. the last line, ``{"ok": true, "device": {...}}``.
 
 Every ``torch.profiler`` window (``device_profile``) prints a
 ``profile_window`` line: when it opened after the previous window
 closed, the CUDA activities Kineto returned, the kernels recorded and
-those the window's labels matched.
+those the window's labels matched. Before the ``kernels`` line a
+``phase_seconds`` line gives each stretch of the run its host seconds.
 
 Any failure raises, and the script exits non-zero without the last line.
 It also exits non-zero when no CUDA card is present, or when the package
@@ -348,6 +370,20 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+class PhaseClock:
+    """Seconds each stretch of ``main`` took (host clock), printed on one
+    ``phase_seconds`` line at the end."""
+
+    def __init__(self) -> None:
+        self.t = time.perf_counter()
+        self.laps: dict = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = round(now - self.t, 1)
+        self.t = now
 
 
 class StepClock:
@@ -1073,12 +1109,15 @@ def time_dispatch(srv, prompts, max_new: int, card: str) -> None:
 
 
 # the bench runs of the `bench` phase: (BENCH_SUITE, extra environment)
-BENCH_RUNS = (("lm", {"BENCH_LM_COMPACT": "1"}), ("lm_prefix", {}))
+# ``lm_prefix`` at depth 6 of 12 (full width), for the script's time
+BENCH_RUNS = (("lm", {"BENCH_LM_COMPACT": "1"}),
+              ("lm_prefix", {"BENCH_LM_DEPTH": "6"}))
 
 
 def phase_bench(card: str) -> dict:
     """``python -m idunno_tpu_torch.bench`` as a subprocess for each of
-    ``BENCH_RUNS`` at full width: each must exit 0 with exactly one JSON
+    ``BENCH_RUNS`` at full width (``lm_prefix`` at depth 6): each must
+    exit 0 with exactly one JSON
     line on stdout, a non-null value, no ``error`` anywhere, provenance
     naming this card, K3 launches > 0 (K2 > 0 for ``lm``) and, for
     ``lm_prefix``, a radix prefill-token ratio below 1. Returns the
@@ -3160,7 +3199,12 @@ def phase_data_parallel(card: str) -> dict:
 
     torch.cuda.synchronize()
     zero_launches()
-    rec = run_train_bench(mesh=virtual_mesh(2, 1, "cuda:0"))
+    # depth 6 of 12 (full width), for the script's time
+    os.environ["BENCH_TRAIN_DEPTH"] = "6"
+    try:
+        rec = run_train_bench(mesh=virtual_mesh(2, 1, "cuda:0"))
+    finally:
+        del os.environ["BENCH_TRAIN_DEPTH"]
     counted = read_launches()
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
@@ -3196,12 +3240,446 @@ def phase_data_parallel(card: str) -> dict:
     say("data_parallel_dryrun", card=card, rc=dry.returncode,
         seconds=time.perf_counter() - t0, lines=lines[-4:])
     if dry.returncode != 0 or not lines or \
-            not lines[-1].startswith("dryrun_multichip ok"):
+            not lines[-1].startswith("dryrun_multichip ok") or \
+            "ring seq=32" not in lines[-1] or "pp stages=4" not in lines[-1]:
         raise AssertionError(f"dryrun 4 --device cuda failed: "
                              f"{dry.stderr[-3000:]}")
     say("data_parallel", card=card, seconds=time.perf_counter() - t_phase,
         launches=out)
     return out
+
+
+# -- sequence and pipeline parallelism on a virtual mesh of the card ----
+
+# The full-width LM attending by ring (causal, 4 groups) and by Ulysses
+# (4 groups, 4 heads a group) at batch 2 x seq 4096, and pipelined by
+# GPipe (4 stages x 3 blocks, 8 microbatches) at batch 8 x seq 1024, bf16
+# compute over f32 parameters; then each at depth 2 in f32 (TF32 off).
+# The bf16 logits are held to the bound phase 7 holds flash to against
+# ``full`` (2% of the largest |logit|) and the gradients to the flash-vs-
+# ``full`` gate of ``lm_train``; the f32 gradients to 1e-4 of each
+# tensor's largest (f32 sums in another order: the ring's merges and
+# partial dK/dV, the microbatches' gradient sums).
+SEQ = {"groups": 4, "batch": 2, "seq": 4096, "stages": 4,
+       "microbatches": 8, "pp_batch": 8, "pp_seq": 1024, "steps": 3,
+       "logit_rel": 0.02, "grad_cosine": 0.999, "grad_norm_rel": 0.02,
+       "loss_rel": 5e-3, "f32_depth": 2, "f32_loss_rel": 1e-5,
+       "f32_grad_rel": 1e-4}
+TRAINED = ("flash_attention", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv")
+
+
+def lm_loss_grads(model, tokens, apply=None) -> tuple[float, dict]:
+    """The next-token loss of one batch through ``apply`` (default:
+    ``model``) and every parameter's gradient of it, before any update."""
+    from idunno_tpu_torch.engine.train_lm import next_token_loss
+
+    model.zero_grad(set_to_none=True)
+    ce, _ = next_token_loss((apply or model)(tokens), tokens)
+    ce.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(ce.detach()), grads
+
+
+def grad_gaps(got: dict, ref: dict) -> dict:
+    """The smallest cosine, the largest relative difference in norm and
+    the largest elementwise gap over the reference tensor's largest
+    |value|, over every parameter."""
+    import torch
+
+    cos, norm, elem = 1.0, 0.0, 0.0
+    for name, g in got.items():
+        r = ref[name].double()
+        g = g.double()
+        cos = min(cos, float(torch.nn.functional.cosine_similarity(
+            g.flatten(), r.flatten(), dim=0)))
+        norm = max(norm, abs(float(g.norm() / r.norm()) - 1.0))
+        elem = max(elem, float((g - r).abs().max() / r.abs().max()))
+    return {"min_cosine": cos, "max_norm_rel_diff": norm,
+            "max_elem_rel_gap": elem}
+
+
+def logit_gap(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def seq_tokens(vocab: int, shape, seed: int):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, shape)).to("cuda")
+
+
+def seq_model(cfg: dict, depth: int, f32: bool, attn_fn):
+    """The LM widths at ``depth``, f32 parameters, bf16 compute (f32 with
+    ``f32``), seeded on the card, with a fused-AdamW train state."""
+    import torch
+
+    from idunno_tpu_torch.engine.train import adamw, flat_tx
+    from idunno_tpu_torch.engine.train_lm import create_lm_train_state
+    from idunno_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
+                          num_heads=cfg["heads"], attn_fn=attn_fn,
+                          dtype=torch.float32,
+                          compute_dtype=None if f32 else torch.bfloat16)
+    return create_lm_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0),
+        flat_tx(adamw(3e-4)))
+
+
+def timed_steps(step, state, tokens, n: int) -> tuple[list, list, dict]:
+    """One warm step, then ``n`` counted steps (launches zeroed just
+    before, read just after): (losses, seconds a step, launches)."""
+    import torch
+
+    step(state, tokens)
+    torch.cuda.synchronize()
+    zero_launches()
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, tokens)["loss"]))
+        times.append(time.perf_counter() - t0)
+    return losses, times, read_launches()
+
+
+def hold_path(name: str, card: str, f32: bool, *, one: tuple, got: tuple,
+              control: tuple | None, fwd_k2: int, want_k2: int,
+              **fields) -> None:
+    """The gates of one path: its logits, loss and gradients (``got``)
+    against the reference's (``one``), each a (logits, loss, grads); the
+    control, which must fail the logit and gradient gates; the forward's
+    K2 launches."""
+    lg, lr_ = logit_gap(got[0], one[0]), abs(got[1] - one[1]) / abs(one[1])
+    gg = grad_gaps(got[2], one[2])
+    rec = {"logit_rel_gap": lg, "loss": got[1], "reference_loss": one[1],
+           "loss_rel_gap": lr_, **gg, "forward_k2_launches": fwd_k2,
+           "forward_k2_expected": want_k2}
+    if f32:
+        ok = lr_ <= SEQ["f32_loss_rel"] and gg["max_elem_rel_gap"] <= \
+            SEQ["f32_grad_rel"]
+        tol = {"loss_rel": SEQ["f32_loss_rel"],
+               "grad_elem_rel": SEQ["f32_grad_rel"]}
+    else:
+        ok = (lg <= SEQ["logit_rel"] and lr_ <= SEQ["loss_rel"]
+              and gg["min_cosine"] >= SEQ["grad_cosine"]
+              and gg["max_norm_rel_diff"] <= SEQ["grad_norm_rel"])
+        tol = {"logit_rel": SEQ["logit_rel"], "loss_rel": SEQ["loss_rel"],
+               "min_cosine": SEQ["grad_cosine"],
+               "max_norm_rel_diff": SEQ["grad_norm_rel"]}
+    if control is not None:
+        cg = grad_gaps(control[2], one[2])
+        rec.update(control_logit_rel_gap=logit_gap(control[0], one[0]),
+                   control_loss=control[1], control_min_cosine=
+                   cg["min_cosine"], control_max_norm_rel_diff=
+                   cg["max_norm_rel_diff"])
+    say(f"seq_pipeline_{name}", card=card, dtype="float32" if f32 else
+        "bf16", tolerance=tol, **rec, **fields)
+    if not ok:
+        raise AssertionError(f"seq_pipeline {name}: {rec}")
+    if fwd_k2 != want_k2:
+        raise AssertionError(f"seq_pipeline {name}: K2 launched {fwd_k2} "
+                             f"times in a forward, want {want_k2}")
+    if control is not None and not (
+            rec["control_logit_rel_gap"] > SEQ["logit_rel"]
+            and (cg["min_cosine"] < SEQ["grad_cosine"]
+                 or cg["max_norm_rel_diff"] > SEQ["grad_norm_rel"])):
+        raise AssertionError(f"seq_pipeline {name}: the control passed the "
+                             f"gates: {rec}")
+
+
+def seq_parallel_path(kind: str, cfg: dict, card: str, f32: bool) -> dict:
+    """Ring or Ulysses (``kind``) attention over 4 groups of a virtual mesh
+    of the card, held to the one-device flash model on the same weights
+    and tokens; a control with the fault its gates must catch (a ring
+    that never rotates K/V; Ulysses regrouping the heads back in the
+    wrong order); in bf16 the steps of ``jit_lm_train_step(
+    sequence_parallel=True)``. Returns the counted steps' launches."""
+    import torch
+
+    from idunno_tpu_torch.engine.train_lm import jit_lm_train_step
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+    from idunno_tpu_torch.parallel import ring_attention as ring_lib
+    from idunno_tpu_torch.parallel import ulysses as ulysses_lib
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+
+    p, depth = SEQ["groups"], SEQ["f32_depth"] if f32 else cfg["depth"]
+    mesh = virtual_mesh(p, 1, "cuda:0")
+    flash, sp_fn = make_attn_fn("flash"), make_attn_fn(kind, mesh=mesh)
+    state = seq_model(cfg, depth, f32, flash)
+    model = state.model
+    tokens = seq_tokens(cfg["vocab"], (SEQ["batch"], SEQ["seq"]), 21)
+
+    def run(attn_fn):
+        model.set_attn_fn(attn_fn)
+        with torch.no_grad():
+            logits = model(tokens)
+        return (logits,) + lm_loss_grads(model, tokens)
+
+    one = run(flash)
+    torch.cuda.synchronize()
+    zero_launches()
+    model.set_attn_fn(sp_fn)
+    with torch.no_grad():
+        got_logits = model(tokens)
+    fwd_k2 = read_launches()["flash_attention"]
+    got = (got_logits,) + lm_loss_grads(model, tokens)
+    per_call = p * (p + 1) // 2 if kind == "ring" else p
+    control = None
+    if not f32:
+        real = ulysses_lib._to_seq
+        fault = (patched(ring_lib, "_rotate", lambda held, devices: held)
+                 if kind == "ring" else patched(
+                     ulysses_lib, "_to_seq",
+                     lambda parts, devices: real(parts[::-1], devices)))
+        with fault:
+            control = run(sp_fn)
+    fields = {"mesh": f"virtual {p} x 1 over cuda:0", "depth": depth,
+              "batch": SEQ["batch"], "seq": SEQ["seq"],
+              "k2_calls_per_attention": per_call,
+              "control_fault": ("K/V never rotate" if kind == "ring" else
+                          "head groups regrouped in reverse order")}
+    launches = dict.fromkeys(KERNELS, 0)
+    if not f32:
+        model.set_attn_fn(sp_fn)
+        step = jit_lm_train_step(model, state.optimizer, mesh,
+                                 sequence_parallel=True)
+        losses, times, counted = timed_steps(step, state, tokens,
+                                             SEQ["steps"])
+        step_s = sorted(times)[len(times) // 2]
+        for k in TRAINED:
+            launches[k] = counted[k]
+        fields.update(train_losses=losses, step_ms_median=step_s * 1e3,
+                      tokens_per_s=SEQ["batch"] * SEQ["seq"] / step_s,
+                      step_launches={k: counted[k] for k in TRAINED},
+                      step_note="informational, a virtual mesh on one card")
+    hold_path(kind, card, f32, one=one, got=got, control=control,
+              fwd_k2=fwd_k2, want_k2=depth * per_call, **fields)
+    want = depth * per_call * SEQ["steps"]
+    if not f32 and any(launches[k] != want for k in TRAINED):
+        raise AssertionError(f"seq_pipeline {kind}: steps launched "
+                             f"{launches}, want {want} each")
+    del state, model, one, got, control
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipeline_path(cfg: dict, card: str, f32: bool) -> dict:
+    """The GPipe-pipelined LM (``engine/pipeline_lm.py``; its blocks attend
+    through ``make_attn_fn("auto")``, K2/K4/K5 on the card) on a virtual
+    stage mesh of the card, held to the dense model it was cut from (the
+    same modules); a control whose schedule drops the last microbatch; in
+    bf16 the steps of ``jit_pipelined_lm_train_step``. Returns the counted
+    steps' launches."""
+    import torch
+
+    from idunno_tpu_torch.engine.pipeline_lm import (
+        create_pipelined_lm_train_state, jit_pipelined_lm_train_step,
+        make_pipelined_lm_apply, shard_pipelined_state)
+    from idunno_tpu_torch.engine.train import adamw, flat_tx
+    from idunno_tpu_torch.models.transformer import (TransformerLM,
+                                                     make_attn_fn)
+    from idunno_tpu_torch.parallel import pipeline as pipeline_lib
+    from idunno_tpu_torch.parallel.mesh import STAGE_AXIS, virtual_mesh
+
+    depth = SEQ["f32_depth"] if f32 else cfg["depth"]
+    stages = min(SEQ["stages"], depth)
+    m = SEQ["microbatches"]
+    mesh = virtual_mesh(1, stages, "cuda:0", axis=STAGE_AXIS)
+    model = TransformerLM(vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
+                          num_heads=cfg["heads"],
+                          attn_fn=make_attn_fn("auto"), dtype=torch.float32,
+                          compute_dtype=None if f32 else torch.bfloat16)
+    state = shard_pipelined_state(create_pipelined_lm_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0),
+        flat_tx(adamw(3e-4)), stages), mesh)
+    apply_fn = make_pipelined_lm_apply(model, mesh, m)
+    tokens = seq_tokens(cfg["vocab"], (SEQ["pp_batch"], SEQ["pp_seq"]), 22)
+
+    def run(fn):
+        with torch.no_grad():
+            logits = fn(tokens)
+        return (logits,) + lm_loss_grads(model, tokens, fn)
+
+    def piped(t):
+        return apply_fn(state.model, t)
+
+    one = run(model)
+    torch.cuda.synchronize()
+    zero_launches()
+    with torch.no_grad():
+        got_logits = piped(tokens)
+    fwd_k2 = read_launches()["flash_attention"]
+    got = (got_logits,) + lm_loss_grads(model, tokens, piped)
+    control = None
+    if not f32:
+        real = pipeline_lib.gpipe_slots
+        with patched(pipeline_lib, "gpipe_slots",
+                     lambda mb, p: real(mb - 1, p)):
+            control = run(piped)
+    fields = {"mesh": f"virtual 1 x {stages} (stage) over cuda:0",
+              "depth": depth, "stages": stages, "microbatches": m,
+              "batch": SEQ["pp_batch"], "seq": SEQ["pp_seq"],
+              "control_fault": "the schedule drops the last microbatch"}
+    launches = dict.fromkeys(KERNELS, 0)
+    if not f32:
+        step = jit_pipelined_lm_train_step(state.model, state.optimizer,
+                                           mesh, m)
+        losses, times, counted = timed_steps(step, state, tokens,
+                                             SEQ["steps"])
+        step_s = sorted(times)[len(times) // 2]
+        for k in TRAINED:
+            launches[k] = counted[k]
+        fields.update(train_losses=losses, step_ms_median=step_s * 1e3,
+                      tokens_per_s=SEQ["pp_batch"] * SEQ["pp_seq"] / step_s,
+                      step_launches={k: counted[k] for k in TRAINED},
+                      step_note="informational, a virtual mesh on one card")
+    hold_path("pipeline", card, f32, one=one, got=got, control=control,
+              fwd_k2=fwd_k2, want_k2=depth * m, **fields)
+    want = depth * m * SEQ["steps"]
+    if not f32 and any(launches[k] != want for k in TRAINED):
+        raise AssertionError(f"seq_pipeline pipeline: steps launched "
+                             f"{launches}, want {want} each")
+    del state, model, one, got, control
+    torch.cuda.empty_cache()
+    return launches
+
+
+def seq_kernels_vs_plain(cfg: dict) -> dict:
+    """K2, K4 and K5 (bf16, causal) at the inputs the phase's paths give
+    them, seeded, against their plain versions, each element within
+    ``tensor_core_bound`` (K2's lse within 1e-3): a Ulysses group's local
+    attention [batch, seq, heads / p, head_dim] and a pipeline stage's
+    microbatch [pp_batch / M, pp_seq, heads, head_dim], K4/K5 from K2's
+    lse; the ring's blocks of [batch, seq, heads, head_dim] over p groups,
+    K2 on every live pair (the diagonal causal, the others not), K4/K5 on
+    every live pair from the ring's merged lse and the delta of its
+    merged output, and that output against the f32 attention over the
+    whole sequence within ``tensor_core_bound("out")`` plus one bf16 ulp
+    of max|v| (each pair's partial is rounded to bf16 before the f32
+    merge). Returns the largest |difference| of each kernel's outputs."""
+    import torch
+
+    from idunno_tpu_torch.ops.flash_attention import (
+        _dkv_plain, _dq_plain, attention_delta, bf16_ulp,
+        flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
+        flash_attention_kernel, flash_attention_plain, tensor_core_bound)
+    from idunno_tpu_torch.parallel import ring_attention as ring_lib
+
+    p, hd, heads = SEQ["groups"], cfg["dim"] // cfg["heads"], cfg["heads"]
+    worst = dict.fromkeys(TRAINED, 0.0)
+    tol = "tensor_core_bound (ops/flash_attention.py), per element"
+
+    def hold(kernel, name, where, got, ref, q, k, v, causal, extra=0.0,
+             **bwd):
+        bound = tensor_core_bound(name, got, ref, q, k, v, causal=causal,
+                                  **bwd) + extra
+        diff = (got.float() - ref.float()).abs()
+        ratio = float((diff.double() / bound).max())
+        say("kernel_vs_plain", kernel=kernel, output=name, path=where,
+            shape=list(q.shape), dtype="bf16", causal=causal,
+            max_abs_err=float(diff.max()),
+            max_abs_ref=float(ref.float().abs().max()),
+            max_err_over_tolerance=ratio, tolerance=tol)
+        if not (ratio <= 1.0 and got.shape == ref.shape):
+            raise AssertionError(f"seq_pipeline {where}: {name} of {kernel} "
+                                 f"at {ratio} of its bound")
+        if kernel in worst:
+            worst[kernel] = max(worst[kernel], float(diff.max()))
+
+    def forward(where, q, k, v, causal):
+        out, lse = flash_attention_kernel(q, k, v, causal=causal)
+        ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+        hold("flash_attention", "out", where, out, ref, q, k, v, causal)
+        lse_err = float((lse - ref_lse).abs().max())
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"seq_pipeline {where}: K2's lse off by "
+                                 f"{lse_err} > 1e-3")
+        return out, lse
+
+    def backward(where, q, k, v, do, lse, delta, causal):
+        args = (q, k, v, do, lse, delta)
+        dq = flash_attention_bwd_dq_kernel(*args, causal=causal)
+        dk, dv = flash_attention_bwd_dkv_kernel(*args, causal=causal)
+        want_dk, want_dv = _dkv_plain(*args, causal=causal)
+        for kernel, name, got, ref in (
+                ("flash_attention_bwd_dq", "dq", dq,
+                 _dq_plain(*args, causal=causal)),
+                ("flash_attention_bwd_dkv", "dk", dk, want_dk),
+                ("flash_attention_bwd_dkv", "dv", dv, want_dv)):
+            hold(kernel, name, where, got, ref, q, k, v, causal, do=do,
+                 lse=lse, delta=delta)
+
+    g = torch.Generator(device="cuda").manual_seed(70)
+
+    def inputs(shape):
+        return [torch.randn(shape, generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in range(4)]
+
+    for where, shape in (
+            ("ulysses", (SEQ["batch"], SEQ["seq"], heads // p, hd)),
+            ("pipeline", (SEQ["pp_batch"] // SEQ["microbatches"],
+                          SEQ["pp_seq"], heads, hd))):
+        q, k, v, do = inputs(shape)
+        out, lse = forward(where, q, k, v, True)
+        backward(where, q, k, v, do, lse, attention_delta(out, do), True)
+    q, k, v, do = inputs((SEQ["batch"], SEQ["seq"], heads, hd))
+    devices = [torch.device("cuda", torch.cuda.current_device())] * p
+    qs, ks, vs, dos = (ring_lib._blocks(x, devices) for x in (q, k, v, do))
+    outs, lses = ring_lib._ring_forward(qs, ks, vs, devices, True)
+    merged = torch.cat(outs, dim=1)
+    ref, _ = flash_attention_plain(q.float(), k.float(), v.float(),
+                                   causal=True)
+    hold("ring_attention", "out", "ring merged", merged, ref, q, k, v, True,
+         extra=float(bf16_ulp(v.float().abs().max())))
+    del ref
+    deltas = [attention_delta(o, d) for o, d in zip(outs, dos)]
+    for _, my, src, diag in ring_lib.ring_pairs(p, True):
+        where = f"ring pair q{my} kv{src}"
+        forward(where, qs[my], ks[src], vs[src], diag)
+        backward(where, qs[my], ks[src], vs[src], dos[my], lses[my],
+                 deltas[my], diag)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_seq_pipeline(card: str) -> tuple[dict, dict]:
+    """(``seq_pipeline``) Sequence and pipeline parallelism on virtual
+    meshes of the card (``SEQ``): K2/K4/K5 at the paths' inputs against
+    their plain versions (`seq_kernels_vs_plain`); ring, Ulysses and the
+    pipeline in bf16 at full width with their controls and train steps,
+    then each at depth 2 in f32 with TF32 off. Returns the counted steps'
+    launches and the kernels' largest |difference| from plain."""
+    import torch
+
+    from idunno_tpu_torch.utils.lm_bench import lm_bench_config
+
+    t_phase = time.perf_counter()
+    cfg = lm_bench_config()
+    worst = seq_kernels_vs_plain(cfg)
+    out = dict.fromkeys(KERNELS, 0)
+    for f32 in (False, True):
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        if f32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        try:
+            for run in (lambda: seq_parallel_path("ring", cfg, card, f32),
+                        lambda: seq_parallel_path("ulysses", cfg, card, f32),
+                        lambda: pipeline_path(cfg, card, f32)):
+                for k, n in run().items():
+                    out[k] += n
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.backends.cudnn.allow_tf32 = prev[1]
+    say("seq_pipeline", card=card, seconds=time.perf_counter() - t_phase,
+        launches=out, kernel_max_abs_err=worst)
+    return out, worst
 
 
 # -- the cluster: nodes as ``python -m idunno_tpu_torch`` builds them -----
@@ -4127,6 +4605,7 @@ def main() -> int:
         return 2
     say("start", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda)
+    clock = PhaseClock()
     smi = phase_build()
     kind = torch.cuda.get_device_name(0)
     err = {"preprocess": phase_kernel_vs_plain(),
@@ -4138,6 +4617,7 @@ def main() -> int:
               "paged_attention": phase_paged_timing(),
               **phase_flash_bwd_timing()}
     torch.cuda.empty_cache()
+    clock.lap("build_kernels_timing")
 
     cfg = dict(batch_size=BATCH, image_size=CROP, resize_size=SIDE)
     engines = {mode: InferenceEngine(EngineConfig(preprocess=mode, **cfg),
@@ -4153,9 +4633,11 @@ def main() -> int:
     launches["preprocess"] += phase_cnn_int8_s2d(engines["kernel"], smi)
     del engines
     torch.cuda.empty_cache()
+    clock.lap("cnn")
     for name, n in phase_vit_serving(smi).items():
         launches[name] += n
     torch.cuda.empty_cache()
+    clock.lap("vit")
 
     lm_cfg = lm_bench_config()
     lm = build_lm(lm_cfg, "bf16", depth=lm_cfg["depth"], seed=0)
@@ -4177,26 +4659,40 @@ def main() -> int:
     phase_beam(lm, lm_cfg, smi)
     del lm
     torch.cuda.empty_cache()
+    clock.lap("lm_prefill_serving_beam")
     for name, n in phase_bench(smi).items():
         launches[name] += n
+    clock.lap("bench")
     phase_lm_exactness(lm_cfg)
     phase_lm_exactness(lm_cfg, quantize="int8")
     phase_spec_exactness(lm_cfg)                              # (a)
     torch.cuda.empty_cache()
+    clock.lap("lm_exactness")
     for name, n in phase_cluster(lm_cfg, smi).items():
         launches[name] += n
     torch.cuda.empty_cache()
+    clock.lap("cluster")
     launches["paged_attention"] += phase_default_pool(smi)
     torch.cuda.empty_cache()
     launches["paged_attention"] += phase_tp_decode(lm_cfg, smi)
     torch.cuda.empty_cache()
+    clock.lap("default_pool_tp_decode")
     for name, n in phase_data_parallel(smi).items():
         launches[name] += n
     torch.cuda.empty_cache()
+    clock.lap("data_parallel")
+    seq_launches, seq_err = phase_seq_pipeline(smi)
+    for name, n in seq_launches.items():
+        launches[name] += n
+    for name, e in seq_err.items():
+        err[name] = max(err[name], e)
+    torch.cuda.empty_cache()
+    clock.lap("seq_pipeline")
     train = phase_lm_train(smi)
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         launches[name] += train[name]
+    clock.lap("lm_train")
     # the routed FFN: prefill through K2, training through K2/K4/K5, served
     launches["flash_attention"] += phase_moe_prefill(lm_cfg, smi)
     moe = phase_moe_train(smi)
@@ -4205,6 +4701,8 @@ def main() -> int:
         launches[name] += moe[name]
     phase_moe_serving(lm_cfg, smi)
     phase_failed_capture(smi)
+    clock.lap("moe_failed_capture")
+    say("phase_seconds", card=smi, **clock.laps)
 
     replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",
                 "flash_attention": "idunno_tpu/ops/flash_attention.py:71",

@@ -17,12 +17,17 @@ by default, which must be present; ``cpu`` as the tests run it;
 - tensor-parallel decode token-exact against n_model 1 (greedy, seeded
   sampled, filtered, penalized and logprob rows), a vocab that does not
   divide the model axis (the head replicates), and an oversized mesh
-  raising ``MeshShapeError``.
+  raising ``MeshShapeError``;
+- sequence parallelism: a ring-attention LM forward over the full ring
+  of N groups (vocab 128, dim 64, depth 1, 2 heads, seq 8·N:
+  ``make_attn_fn("ring", mesh=)``, K2 per block pair on the card);
+- pipeline parallelism: one pipelined-LM train step over N stages
+  (``engine/pipeline_lm.py``), and a PP × DP step over a (2, N/2)
+  (data, stage) mesh when N ≥ 4 and even.
 
-The JAX dry run's ring attention, pipeline and expert sections are not
-ported: each prints ``not ported: step 3x`` (ROADMAP.md §1) on a line of
-its own. The last line is ``dryrun_multichip ok: ...``; any failure
-raises and exits non-zero.
+The JAX dry run's expert section is not ported: it prints ``not ported:
+step 3e`` (ROADMAP.md §1) on a line of its own. The last line is
+``dryrun_multichip ok: ...``; any failure raises and exits non-zero.
 
 `two_process_check(device)` starts two processes of this module (its
 ``--process-id`` mode) that join through
@@ -47,9 +52,7 @@ import time
 
 import torch
 
-NOT_PORTED = (("ring attention / sequence parallelism", "3c"),
-              ("pipeline parallelism", "3d"),
-              ("expert parallelism", "3e"))
+NOT_PORTED = (("expert parallelism", "3e"),)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -108,6 +111,8 @@ def dryrun_multichip(n_devices: int, device: str | None = None) -> str:
     _check(len(res_s2d.records) == n_data, "s2d engine records")
     del eng, eng_s2d
 
+    sp_note = _sequence_parallel(n_devices, dev)
+    pp_note = _pipeline(n_devices, dev)
     for what, step_id in NOT_PORTED:
         print(f"not ported: step {step_id} ({what}; ROADMAP.md §1)",
               flush=True)
@@ -178,7 +183,64 @@ def dryrun_multichip(n_devices: int, device: str | None = None) -> str:
             f"{dev}, train loss={loss:.4f}, inference records="
             f"{len(res.records)} (+{len(res_s2d.records)} s2d), decode "
             f"pool slots={n_devices} over {n_devices} data groups (mqa kv "
-            f"+ int8 cache), {tp_note}")
+            f"+ int8 cache), {tp_note}, {sp_note}, {pp_note}")
+
+
+def _sequence_parallel(n_devices: int, dev) -> str:
+    """The ring-attention LM forward over the full ring of ``n_devices``
+    groups (the JAX section's shapes)."""
+    from idunno_tpu_torch.models.transformer import (TransformerLM,
+                                                     make_attn_fn)
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+
+    sp_mesh = virtual_mesh(n_devices, 1, dev)
+    lm = _seeded(TransformerLM(vocab=128, dim=64, depth=1, num_heads=2,
+                               attn_fn=make_attn_fn("ring", mesh=sp_mesh)),
+                 0, dev)
+    seq_len = 8 * n_devices
+    with torch.no_grad():
+        logits = lm(torch.zeros((1, seq_len), dtype=torch.int64,
+                                device=dev))
+    _check(logits.shape == (1, seq_len, 128)
+           and bool(torch.isfinite(logits).all()), "ring-attention LM")
+    print(f"sequence parallelism: ring over {n_devices} groups, seq "
+          f"{seq_len}", flush=True)
+    return f"ring seq={seq_len}"
+
+
+def _pipeline(n_devices: int, dev) -> str:
+    """One pipelined-LM train step over ``n_devices`` stages, and a PP x DP
+    step over a (2, n/2) (data, stage) mesh when n >= 4 and even."""
+    from idunno_tpu_torch.engine.pipeline_lm import (
+        create_pipelined_lm_train_state, jit_pipelined_lm_train_step,
+        shard_pipelined_state)
+    from idunno_tpu_torch.engine.train import adam
+    from idunno_tpu_torch.models.transformer import TransformerLM
+    from idunno_tpu_torch.parallel.mesh import STAGE_AXIS, virtual_mesh
+
+    def one_step(n_data: int, n_stage: int, seed: int, microbatches: int,
+                 data_axis):
+        mesh = virtual_mesh(n_data, n_stage, dev, axis=STAGE_AXIS)
+        state = create_pipelined_lm_train_state(
+            TransformerLM(vocab=64, dim=32, depth=n_stage, num_heads=2),
+            torch.Generator(device=dev).manual_seed(seed), adam(1e-3),
+            num_stages=n_stage, device=dev)
+        state = shard_pipelined_state(state, mesh)
+        step = jit_pipelined_lm_train_step(state.model, state.optimizer,
+                                           mesh, microbatches,
+                                           data_axis=data_axis)
+        loss = float(step(state, torch.zeros((4, 8), dtype=torch.int64,
+                                             device=dev))["loss"])
+        _check(state.step == 1 and loss == loss,
+               f"pipelined step {state.step}, loss {loss}")
+
+    one_step(1, n_devices, 4, 4, None)
+    note = f"pp stages={n_devices}"
+    if n_devices >= 4 and n_devices % 2 == 0:
+        one_step(2, n_devices // 2, 5, 2, "data")
+        note += f", pp-x-dp mesh=2x{n_devices // 2}"
+    print(f"pipeline parallelism: {note}", flush=True)
+    return note
 
 
 # -- two processes ------------------------------------------------------------

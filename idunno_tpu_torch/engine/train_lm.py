@@ -8,7 +8,10 @@ coefficient; it is 0 for the dense model. `jit_lm_train_step` runs the
 same step over a mesh (``engine/train.py:run_mesh_step``): the tokens are
 cut on the batch over the data groups, each group's attention runs the
 flash kernels on its own device, and the gradients are summed over the
-groups.
+groups; or, with ``sequence_parallel=True``, cut on the sequence by the
+model's ring or Ulysses attention (``parallel/ring_attention.py``,
+``parallel/ulysses.py``), the rest of the step on the global view on the
+mesh's lead device.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from idunno_tpu_torch.engine.train import (MeshTrainState, TrainState,
                                            create_train_state, run_mesh_step)
 from idunno_tpu_torch.models.moe import moe_aux_loss
 from idunno_tpu_torch.models.transformer import TransformerLM
-from idunno_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from idunno_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, MeshShapeError
 
 # The LM's state is made as the CNN's: ``model`` on ``device`` (``None``:
 # the card), seeded with flax's initialisers (``models/init.py``) from
@@ -108,12 +111,19 @@ def jit_lm_train_step(model: TransformerLM, optimizer: torch.optim.Optimizer,
     next-token cross-entropy plus ``aux_coef`` × the balance loss (for a
     routed model each group's balance loss weighted by its share, as
     ``accum_steps`` averages chunks: not the global batch's routing
-    statistics). ``sequence_parallel=True`` (tokens cut on the sequence,
-    ring or Ulysses attention) is ROADMAP.md §1 step 3c and raises."""
+    statistics).
+
+    ``sequence_parallel=True`` cuts the tokens on the sequence instead:
+    ``axis`` must be the ``seq_axis`` of the model's ring or Ulysses
+    ``attn_fn`` over ``mesh``. The state is the
+    unplaced one (``create_lm_train_state``): the parameters and the
+    residual stream stay on the mesh's lead device (the global view, as
+    the JAX package's jit traces it), and only the attention runs per
+    group, so the step equals the one-device step on the same weights
+    (the loss masks the final position of the whole sequence)."""
     if sequence_parallel:
-        raise ValueError("sequence_parallel=True (ring/Ulysses attention "
-                         "over the sequence) is not ported yet: ROADMAP.md "
-                         "§1 step 3c")
+        return _sequence_parallel_step(model, optimizer, mesh, aux_coef,
+                                       axis, accum_steps)
     if axis != DATA_AXIS:
         raise ValueError(f"axis {axis!r}: the batch is cut over "
                          f"{DATA_AXIS!r}")
@@ -137,5 +147,42 @@ def jit_lm_train_step(model: TransformerLM, optimizer: torch.optim.Optimizer,
         loss, ce, aux, acc = run_mesh_step(state, [tokens], loss_fn,
                                            accum_steps).unbind()
         return {"loss": loss, "ce": ce, "aux": aux, "accuracy": acc}
+
+    return train_step
+
+
+class SequenceAxisError(MeshShapeError):
+    """A sequence-parallel step whose ``axis`` is not the sequence axis of
+    the model's ring or Ulysses attention over the step's mesh."""
+
+
+def _sequence_axis(model: TransformerLM, mesh: Mesh) -> str | None:
+    """The ``seq_axis`` over which ``model``'s blocks attend by ring or
+    Ulysses attention on ``mesh``, as ``make_attn_fn`` tags the function
+    (None when they attend otherwise)."""
+    axes = {getattr(blk.attn.attn_fn, "seq_axis", None)
+            if getattr(blk.attn.attn_fn, "seq_mesh", None) == mesh else None
+            for blk in model.blocks}
+    return axes.pop() if len(axes) == 1 else None
+
+
+def _sequence_parallel_step(model, optimizer, mesh, aux_coef, axis,
+                            accum_steps):
+    seq = _sequence_axis(model, mesh)
+    if seq != axis:
+        raise SequenceAxisError(
+            f"sequence_parallel step over axis {axis!r}, but the model "
+            f"attends over {seq!r} (want ring or Ulysses attention, "
+            "make_attn_fn('ring'|'ulysses', mesh=mesh, axis=axis), on "
+            "this step's mesh)", constraint="axis == the attention's "
+            "seq_axis")
+    p = len(mesh.along(axis))
+    step = make_lm_train_step(model, optimizer, aux_coef, accum_steps)
+
+    def train_step(state: TrainState, tokens: torch.Tensor) -> dict:
+        if tokens.shape[1] % p:
+            raise ValueError(f"sequence {tokens.shape[1]} not divisible by "
+                             f"the {axis!r} axis size {p}")
+        return step(state, tokens.to(mesh.lead))
 
     return train_step

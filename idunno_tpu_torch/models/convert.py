@@ -194,3 +194,16 @@ def lm_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     for i in range(_depth(p)):
         sd.update(_block_state_dict(p[f"block{i}"], f"blocks.{i}"))
     return sd
+
+
+def pipelined_lm_params_from_flax(params: dict, depth: int,
+                                  num_stages: int) -> dict:
+    """The port's pipelined LM params (``engine/pipeline_lm.py:
+    partition_lm_params`` over its state dict) from the JAX package's
+    dense flax params. A JAX pipelined tree comes across through the JAX
+    package's ``merge_lm_params`` first (the caller, which imports it);
+    `PipelinedLM.load_pp_params` takes the result."""
+    from idunno_tpu_torch.engine.pipeline_lm import partition_lm_params
+
+    return partition_lm_params(lm_state_dict_from_flax(params), depth,
+                               num_stages)

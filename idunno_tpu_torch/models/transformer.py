@@ -14,7 +14,8 @@ Two ways through the model:
 - the full forward, ``model(tokens)``: attention through ``attn_fn`` —
   the hand-written CUDA flash kernels on a card (K2 forward, K4/K5
   backward when training), the plain reference attention on the CPU
-  (``make_attn_fn("auto")``);
+  (``make_attn_fn("auto")``), or the sequence cut over a mesh by ring
+  or Ulysses attention (``make_attn_fn("ring"|"ulysses", mesh=)``);
 - the cached decode step, ``decode_apply(model, cache, tokens, cursors,
   paged)``: single tokens or chunks against a depth-stacked KV cache
   ``{"cached_k": [L, S, T, KVH, D], ...}`` (the JAX package's scanned
@@ -43,6 +44,7 @@ import copy
 import dataclasses
 from collections.abc import Callable
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -82,16 +84,37 @@ def make_attn_fn(kind: str = "auto", *, mesh=None, axis: str = "data",
                 (``ops/flash_attention.py``: K2 forward, K4/K5 backward
                 through ``FlashAttention``)
       auto    — flash on a CUDA tensor, full on the CPU
-      ring, ulysses — sequence parallelism: not ported yet, they raise
+      ring    — ring attention, the sequence cut over ``mesh``'s ``axis``
+                (``parallel/ring_attention.py``: K2 per block pair, K4/K5
+                in its backward)
+      ulysses — head regrouping over ``mesh``'s ``axis``
+                (``parallel/ulysses.py``); its local attention is
+                ``auto`` unless ``local_attn`` is given
 
-    The CUDA kernel has fixed 64 x 64 tiles, so no kind takes kwargs."""
-    del axis
+    ring/ulysses require ``mesh`` and pass ``kw`` on, as the JAX
+    package's do; the function they return names its ``seq_mesh`` and
+    ``seq_axis``. The CUDA kernel has fixed 64 x 64 tiles, so the other
+    kinds take no kwargs."""
+    if mesh is not None and kind not in ("ring", "ulysses"):
+        # a mesh means sequence parallelism, which only ring/ulysses do —
+        # silently dropping it would serve single-device attention
+        raise ValueError(f"attn kind {kind!r} ignores mesh; "
+                         "use kind='ring' or 'ulysses'")
     if kind in ("ring", "ulysses"):
-        raise ValueError(f"attn kind {kind!r} comes with the parallelism "
-                         "slice (ROADMAP.md, modules item 10)")
-    if mesh is not None:
-        raise ValueError(f"attn kind {kind!r} ignores mesh; sequence "
-                         "parallelism is not ported yet")
+        if mesh is None:
+            raise ValueError(f"attn kind {kind!r} needs a mesh")
+        if kind == "ring":
+            from idunno_tpu_torch.parallel.ring_attention import \
+                ring_attention
+            fn = partial(ring_attention, mesh=mesh, seq_axis=axis, **kw)
+        else:
+            from idunno_tpu_torch.parallel.ulysses import ulysses_attention
+            kw.setdefault("local_attn", auto_attention)
+            fn = partial(ulysses_attention, mesh=mesh, seq_axis=axis, **kw)
+        # the mesh and axis it cuts the sequence over, which the
+        # sequence-parallel train step checks
+        fn.seq_mesh, fn.seq_axis = mesh, axis
+        return fn
     if kw:
         raise TypeError(f"attn kind {kind!r} takes no kwargs, got {kw}")
     if kind == "full":

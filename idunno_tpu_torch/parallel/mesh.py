@@ -9,8 +9,14 @@ of torch devices (`Mesh`), and the modules that run over it
 cell and write the reductions out themselves.
 
 Axis conventions (the JAX package's):
-    data   — batch-dimension data parallelism (slots of a decode pool)
+    data   — batch-dimension data parallelism (slots of a decode pool),
+             or the sequence of ring and Ulysses attention
     model  — tensor parallelism for wide layers (the Megatron split)
+    stage  — pipeline stages (``parallel/pipeline.py``)
+
+A mesh is a grid of two named axes: ``(data, model)`` by default, or
+``(data, stage)`` for a pipeline (``axis=STAGE_AXIS``), whose 1-D stage
+mesh is the grid of one data row.
 
 A mesh's devices are distinct, as the JAX package's are. The one
 exception is a *virtual* mesh, which names one device more than once and
@@ -35,6 +41,7 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 
 
 class MeshShapeError(ValueError):
@@ -66,11 +73,14 @@ class Mesh:
     names a device more than once (module docstring). ``local`` lists the
     data groups this process runs (None: every group, a mesh of one
     process); the rows of other processes name their devices as those
-    processes do, and this process never touches them."""
+    processes do, and this process never touches them. ``axes`` names
+    the grid's two axes: rows, then columns (``(data, stage)``: stage
+    ``s`` of data group ``d`` on ``devices[d][s]``)."""
 
     devices: tuple[tuple[torch.device, ...], ...]
     virtual: bool = False
     local: tuple[int, ...] | None = None
+    axes: tuple[str, str] = (DATA_AXIS, MODEL_AXIS)
 
     @property
     def local_groups(self) -> tuple[int, ...]:
@@ -82,8 +92,27 @@ class Mesh:
     @property
     def shape(self) -> dict[str, int]:
         """Axis extents by name, as ``jax.sharding.Mesh.shape`` gives them."""
-        return {DATA_AXIS: len(self.devices),
-                MODEL_AXIS: len(self.devices[0])}
+        return {self.axes[0]: len(self.devices),
+                self.axes[1]: len(self.devices[0])}
+
+    def along(self, axis: str, row: int = 0) -> list[torch.device]:
+        """The devices along ``axis``, one a group: each data group's lead
+        device for the row axis, the cells of data group ``row`` for the
+        column axis. The sequence of ring and Ulysses attention and the
+        stages of a pipeline run on them in one process: a mesh across
+        processes raises."""
+        if self.local is not None:
+            raise MeshShapeError(
+                f"the {axis!r} axis of a mesh across processes: sequence "
+                "and pipeline parallelism run in one process (ROADMAP.md "
+                "§1 step 3f)", n_devices=len(self.distinct()),
+                constraint="a mesh of one process (Mesh.local is None)")
+        if axis == self.axes[0]:
+            return [row_devs[0] for row_devs in self.devices]
+        if axis == self.axes[1]:
+            return list(self.devices[row])
+        raise MeshShapeError(f"mesh axes {self.axes} have no {axis!r}",
+                             constraint=f"axis in {self.axes}")
 
     @property
     def lead(self) -> torch.device:
@@ -118,10 +147,13 @@ def _canonical(dev) -> torch.device:
 
 
 def make_mesh(n_data: int, n_model: int = 1, devices: list | None = None,
-              *, virtual: bool = False) -> Mesh:
+              *, virtual: bool = False, axis: str = MODEL_AXIS) -> Mesh:
     """Build a (data, model) mesh over ``devices`` (default: every visible
     card). The first ``n_data * n_model`` devices fill the grid row by
-    row. They must be distinct unless ``virtual=True``."""
+    row. They must be distinct unless ``virtual=True``. ``axis`` names
+    the columns: ``STAGE_AXIS`` makes a (data, stage) mesh of ``n_model``
+    stages (JAX: ``Mesh(devices, ("stage",))`` with ``n_data`` 1, or
+    ``("data", "stage")``)."""
     if n_data < 1 or n_model < 1:
         raise MeshShapeError(
             f"mesh {n_data}x{n_model}: both extents must be >= 1",
@@ -147,15 +179,15 @@ def make_mesh(n_data: int, n_model: int = 1, devices: list | None = None,
                        "(or virtual=True)")
     grid = tuple(tuple(picked[d * n_model:(d + 1) * n_model])
                  for d in range(n_data))
-    return Mesh(grid, virtual=n_distinct < need)
+    return Mesh(grid, virtual=n_distinct < need, axes=(DATA_AXIS, axis))
 
 
-def virtual_mesh(n_data: int, n_model: int,
-                 device: torch.device | str) -> Mesh:
+def virtual_mesh(n_data: int, n_model: int, device: torch.device | str,
+                 *, axis: str = MODEL_AXIS) -> Mesh:
     """A virtual mesh: every cell of the ``n_data x n_model`` grid is
-    ``device`` (module docstring)."""
+    ``device`` (module docstring); ``axis`` names the columns."""
     return make_mesh(n_data, n_model, devices=[device] * (n_data * n_model),
-                     virtual=True)
+                     virtual=True, axis=axis)
 
 
 def local_mesh(n_model: int = 1) -> Mesh:

@@ -19,6 +19,7 @@ from idunno_tpu_torch.engine.generate import (beam_search, gather_beams,
                                               generate, stepwise_logits)
 from idunno_tpu_torch.models.convert import lm_state_dict_from_flax
 from idunno_tpu_torch.models.transformer import TransformerLM
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB = 61
 

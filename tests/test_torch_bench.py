@@ -17,6 +17,7 @@ import torch
 
 import bench as jax_bench
 from idunno_tpu_torch import bench
+from tests.torch_workers import share_cores  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {

@@ -13,6 +13,7 @@ from __future__ import annotations
 import pytest
 
 from idunno_tpu_torch.chaos import ChaosCluster, lm_tokens, run_seeded_schedule
+from tests.torch_workers import share_cores  # noqa: F401
 
 # three distinct seeds, two of which (1, 3) drive schedules that depose
 # the coordinator and mint a new epoch; 2 stays on the bootstrap chain —

@@ -40,6 +40,7 @@ from idunno_tpu_torch.serve.cluster_prefix import (ClusterPrefixCache,
                                                    pool_namespace)
 from idunno_tpu_torch.store.kv_chain import decode_block
 from idunno_tpu_torch.store.sdfs import StoreError
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB, BS, DIM = 61, 2, 64
 # f32 K/V of the port's and the JAX server's exports of one prompt

@@ -22,6 +22,8 @@ from idunno_tpu_torch.engine.train import (TrainState, flat_tx,
                                            make_train_step, sgd)
 from idunno_tpu_torch.models import create_model
 from idunno_tpu_torch.models.convert import state_dict_from_flax
+from tests.test_torch_train import jax_cnn_state
+from tests.torch_workers import share_cores  # noqa: F401
 
 
 def _flax_vars(state) -> dict:
@@ -47,8 +49,7 @@ def test_resnet18_bf16_step_matches_jax_default():
     jmodel = jax_create_model("resnet18")
     assert jmodel.dtype == jnp.bfloat16 and jmodel.param_dtype == jnp.float32
     tx = optax.sgd(0.1, momentum=0.9)
-    jstate = jax_train.create_train_state(jmodel, jax.random.PRNGKey(3), 32,
-                                          tx)
+    jstate = jax_cnn_state(jmodel, jax.random.PRNGKey(3), 32, tx)
     before = state_dict_from_flax("resnet18", _flax_vars(jstate))
     model = create_model("resnet18", compute_dtype=torch.bfloat16)
     model.load_state_dict(before)

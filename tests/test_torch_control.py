@@ -49,6 +49,7 @@ from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.serve.node import Node
 from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
 from idunno_tpu_torch.utils.types import MessageType
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB, BS = 61, 2
 SMALL = dict(batch_size=8, image_size=64, resize_size=64,

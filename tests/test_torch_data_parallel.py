@@ -44,6 +44,8 @@ from idunno_tpu_torch.parallel.data import (from_process_local,
 from idunno_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                             make_mesh, virtual_mesh)
 from idunno_tpu_torch.parallel.sharding import ColumnSplit, tp_param_spec
+from tests.test_torch_train import jax_cnn_state
+from tests.torch_workers import share_cores  # noqa: F401
 
 SMALL = dict(batch_size=6, image_size=64, resize_size=64)
 # f32 on both sides, as tests/test_torch_engine.py
@@ -74,8 +76,7 @@ def test_resnet18_dp_step_matches_jax(eight_devices):
     running variance within 1e-4, on every group's replica."""
     jmodel = jax_create_model("resnet18", dtype=jnp.float32)
     tx = optax.sgd(0.1, momentum=0.9)
-    jstate = jax_train.create_train_state(jmodel, jax.random.PRNGKey(3), 32,
-                                          tx)
+    jstate = jax_cnn_state(jmodel, jax.random.PRNGKey(3), 32, tx)
     variables = jax.tree.map(np.asarray, {"params": jstate.params,
                                           "batch_stats": jstate.batch_stats})
     jmesh = jax_make_mesh(4, 1, devices=eight_devices[:4])

@@ -25,6 +25,7 @@ from idunno_tpu_torch.engine import data as data_lib
 from idunno_tpu_torch.engine.inference import InferenceEngine
 from idunno_tpu_torch.models.convert import state_dict_from_flax
 from idunno_tpu_torch.ops.quantize import dequantize_tree
+from tests.torch_workers import share_cores  # noqa: F401
 
 SMALL = dict(batch_size=8, image_size=64, resize_size=64)
 MODELS = ["resnet", "alexnet", "vit_tiny"]

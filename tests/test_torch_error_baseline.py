@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+from tests.torch_workers import share_cores  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -9,7 +9,8 @@ on the CPU: the counterparts of ``tests/test_fsdp.py`` and of
   (ResNet-18 over four groups; JAX's test runs AlexNet over eight);
 - the port's ``jit_lm_train_step`` on a virtual mesh of two groups
   against the JAX package's on ``make_mesh(2, 1)`` (dim 32, depth 2,
-  three steps); ``sequence_parallel=True`` raises naming step 3c;
+  three steps); ``sequence_parallel=True`` over a model that does not
+  attend by ring or Ulysses raises the typed ``SequenceAxisError``;
 - groups of unequal rows weight their losses by their shares;
 - the train bench over a virtual (2, 1) mesh records its ``fsdp`` point;
 - AlexNet: the port's DP, FSDP and tensor-parallel steps against its own
@@ -34,13 +35,15 @@ from idunno_tpu.parallel.sharding import shard_batch as jax_shard_batch
 from idunno_tpu_torch.engine.train import (
     TrainState, fsdp_param_spec, fsdp_shard_train_state,
     gathered_params, jit_train_step, resident_bytes, sgd, shard_train_state)
-from idunno_tpu_torch.engine.train_lm import jit_lm_train_step
+from idunno_tpu_torch.engine.train_lm import (SequenceAxisError,
+                                              jit_lm_train_step)
 from idunno_tpu_torch.models import create_model
 from idunno_tpu_torch.models.convert import lm_state_dict_from_flax
 from idunno_tpu_torch.models.transformer import TransformerLM, make_attn_fn
 from idunno_tpu_torch.parallel.mesh import virtual_mesh
 from idunno_tpu_torch.parallel.sharding import ColumnSplit
 from idunno_tpu_torch.utils.train_bench import run_train_bench
+from tests.torch_workers import share_cores  # noqa: F401
 
 
 def jax_dim(spec) -> int | None:
@@ -137,7 +140,7 @@ def test_lm_mesh_step_matches_jax(eight_devices):
     for name, p in gathered_params(state).items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=0,
                                    atol=1e-5 * float(want[name].abs().max()))
-    with pytest.raises(ValueError, match="ROADMAP.md §1 step 3c"):
+    with pytest.raises(SequenceAxisError, match="attends over None"):
         jit_lm_train_step(state.model, state.optimizer, mesh,
                           sequence_parallel=True)
     with pytest.raises(ValueError, match="another model"):

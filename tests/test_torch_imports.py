@@ -27,6 +27,7 @@ import os
 import tokenize
 
 import pytest
+from tests.torch_workers import share_cores  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "idunno_tpu_torch")
@@ -112,12 +113,17 @@ def test_port_file_imports_no_jax(path):
                                   "idunno_tpu_torch/parallel/expert.py",
                                   "idunno_tpu_torch/parallel/mesh.py",
                                   "idunno_tpu_torch/parallel/sharding.py",
+                                  "idunno_tpu_torch/parallel/ring_attention.py",
+                                  "idunno_tpu_torch/parallel/ulysses.py",
+                                  "idunno_tpu_torch/parallel/pipeline.py",
+                                  "idunno_tpu_torch/engine/pipeline_lm.py",
                                   "idunno_tpu_torch/analysis/__main__.py",
                                   "idunno_tpu_torch/chaos_soak.py"])
 def test_slice_modules_are_guarded(path):
     """The routed FFN's modules (and the CNNs' compute-dtype layers), the
-    tensor-parallel modules and the analyzer's and chaos soak's drivers
-    are among the files the guard above reads, and import no JAX."""
+    tensor-, sequence- and pipeline-parallel modules and the analyzer's
+    and chaos soak's drivers are among the files the guard above reads,
+    and import no JAX."""
     assert path in PORT_FILES
     test_port_file_imports_no_jax(path)
 

@@ -787,3 +787,91 @@ def test_preprocess_kernel_per_group_of_a_virtual_mesh(cuda_device, n_data,
     want_idx, want_prob = one.infer_batch("resnet", images)
     np.testing.assert_array_equal(idx, want_idx)
     np.testing.assert_allclose(prob, want_prob, rtol=0, atol=1e-5)
+
+
+# -- sequence parallelism: the ring's K2, K4 and K5 ---------------------------
+
+def _ring_counts():
+    from idunno_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
+        flash_attention_kernel)
+    return (flash_attention_kernel.launches,
+            flash_attention_bwd_dq_kernel.launches,
+            flash_attention_bwd_dkv_kernel.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal", [((2, 1024, 4, 64), True),
+                                          ((2, 512, 4, 32), False)])
+def test_f32_ring_on_card_matches_plain_ring(cuda_device, shape, causal):
+    """A 4-group ring of a virtual mesh of the card in f32 (K2 per live
+    pair forward, K4 and K5 per live pair backward: p(p+1)/2 each causal,
+    p² otherwise) against the same ring on the CPU, where every call is
+    the plain version: output and q/k/v gradients within 1e-5 of the
+    reference's largest magnitude."""
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    from idunno_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                          ring_pairs)
+    rng = np.random.default_rng(sum(shape) + causal)
+    host = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for _ in range(4)]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v = (x.to(dev, copy=True).requires_grad_() for x in host[:3])
+        before = _ring_counts()
+        out = ring_attention(q, k, v, virtual_mesh(4, 1, dev), causal=causal)
+        out.backward(host[3].to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            pairs = len(list(ring_pairs(4, causal)))
+            assert _ring_counts() == tuple(n + pairs for n in before)
+        results[str(dev)] = [x.detach().cpu() for x in
+                             (out, q.grad, k.grad, v.grad)]
+    for got, want in zip(results[str(cuda_device)], results["cpu"]):
+        _assert_grad_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_ring_pairs_on_card_within_bound(cuda_device, causal):
+    """The bf16 ring of the sequence-parallel phase (4 groups, [2, 1024,
+    16, 64]): its output within ``tensor_core_bound("out")`` of the f32
+    attention over the whole sequence plus one bf16 ulp of max|v| (each
+    pair's partial is rounded to bf16 before the f32 merge, and a partial
+    is a convex combination of rows of v); every live pair's K4 and K5
+    from the ring's merged lse and delta within their bounds of the plain
+    dQ, dK and dV of that pair."""
+    from idunno_tpu_torch.ops.flash_attention import (
+        _dkv_plain, _dq_plain, attention_delta, bf16_ulp,
+        flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
+        flash_attention_plain)
+    from idunno_tpu_torch.parallel import ring_attention as ring_lib
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    shape, p = (2, 1024, 16, 64), 4
+    rng = np.random.default_rng(31 + causal)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape,
+                                                        dtype=np.float32))
+                   .to(cuda_device, torch.bfloat16) for _ in range(4))
+    out = ring_lib.ring_attention(q, k, v, virtual_mesh(p, 1, cuda_device),
+                                  causal=causal)
+    ref, _ = flash_attention_plain(q.float(), k.float(), v.float(),
+                                   causal=causal)
+    from idunno_tpu_torch.ops.flash_attention import tensor_core_bound
+    bound = (tensor_core_bound("out", out, ref, q, k, v, causal=causal)
+             + float(bf16_ulp(v.float().abs().max())))
+    assert float(((out.float() - ref).abs().double() / bound).max()) <= 1.0
+    devices = [cuda_device] * p
+    qs, ks, vs, dos = (ring_lib._blocks(x, devices) for x in (q, k, v, do))
+    outs, lses = ring_lib._ring_forward(qs, ks, vs, devices, causal)
+    deltas = [attention_delta(o, g) for o, g in zip(outs, dos)]
+    for _, my, src, diag in ring_lib.ring_pairs(p, causal):
+        args = (qs[my], ks[src], vs[src], dos[my], lses[my], deltas[my])
+        dq = flash_attention_bwd_dq_kernel(*args, causal=diag)
+        dk, dv = flash_attention_bwd_dkv_kernel(*args, causal=diag)
+        want_dq = _dq_plain(*args, causal=diag)
+        want_dk, want_dv = _dkv_plain(*args, causal=diag)
+        for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                                ("dv", dv, want_dv)):
+            _assert_within_bound(name, got, want, qs[my], ks[src], vs[src],
+                                 diag, do=dos[my], lse=lses[my],
+                                 delta=deltas[my])

@@ -23,6 +23,7 @@ from idunno_tpu.store import kv_chain as jax_kv
 from idunno_tpu_torch.engine.kv_blocks import KVBlockPool
 from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.store import kv_chain as kv
+from tests.torch_workers import share_cores  # noqa: F401
 
 META = {"tokens": [5, 7], "depth": 0, "namespace": "ns", "block_size": 2}
 

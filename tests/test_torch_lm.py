@@ -26,6 +26,7 @@ from idunno_tpu_torch.models.init import init_like_flax
 from idunno_tpu_torch.models.transformer import (TransformerLM, decode_apply,
                                                  make_attn_fn, rope)
 from idunno_tpu_torch.ops import sampling
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB, DIM, DEPTH, HEADS = 61, 32, 2, 4
 

@@ -17,6 +17,7 @@ import pytest
 import idunno_tpu.utils.lm_bench as jax_bench
 import idunno_tpu_torch.utils.lm_bench as lb
 from idunno_tpu_torch.bench import find_errors
+from tests.torch_workers import share_cores  # noqa: F401
 
 TINY = {
     "BENCH_LM_DIM": "64", "BENCH_LM_DEPTH": "1", "BENCH_LM_HEADS": "2",

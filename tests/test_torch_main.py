@@ -37,6 +37,7 @@ from idunno_tpu_torch.engine.generate import lm_store_name, save_lm
 from idunno_tpu_torch.models.convert import lm_state_dict_from_flax
 from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.utils.types import MessageType
+from tests.torch_workers import share_cores  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 48

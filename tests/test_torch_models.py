@@ -18,6 +18,7 @@ from idunno_tpu.models.convert import (convert_alexnet, convert_resnet18,
                                        convert_resnet50)
 from idunno_tpu_torch.models import available_models, create_model
 from idunno_tpu_torch.models.convert import state_dict_from_flax
+from tests.torch_workers import share_cores  # noqa: F401
 
 SIDE = 64     # small images, as tests/test_cluster_e2e.py uses
 

@@ -41,6 +41,7 @@ from idunno_tpu_torch.models.moe import (MoETransformerLM, SwitchFFN,
 from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.parallel.expert import (expert_parallel_apply,
                                               switch_dispatch)
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB = 64
 LM = dict(vocab=VOCAB, dim=32, num_heads=4, n_experts=4)

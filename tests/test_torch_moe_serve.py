@@ -23,6 +23,7 @@ from idunno_tpu_torch.models.convert import lm_state_dict_from_flax
 from idunno_tpu_torch.models.moe import MoETransformerLM
 from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB = 64
 

@@ -9,8 +9,9 @@
   data-parallel step across the two processes (BatchNorm over the global
   batch) whose loss and running variance equal one process's step on the
   whole batch (rtol 1e-5).
-- ``python -m idunno_tpu_torch.dryrun 4 --device cpu`` exits 0, naming the
-  sections it does not run (steps 3c, 3d, 3e); without ``--device`` the
+- ``python -m idunno_tpu_torch.dryrun 4 --device cpu`` exits 0 with its
+  ring-attention and pipeline sections, naming the section it does not
+  run (step 3e) and no other; without ``--device`` the
   dry run and the two-process check run on the card, and raise where
   there is none.
 - ``python -m idunno_tpu_torch --dist-*`` joins the group before the node
@@ -24,6 +25,7 @@ import pytest
 
 from idunno_tpu_torch import __main__ as entry
 from idunno_tpu_torch.dryrun import two_process_check
+from tests.torch_workers import share_cores  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,9 +52,10 @@ def test_dryrun_on_the_cpu():
     lines = out.stdout.strip().splitlines()
     assert lines[-1].startswith("dryrun_multichip ok: mesh=(2x2)")
     assert "tp n_model=2 token-exact" in lines[-1]
-    for step in ("3c", "3d", "3e"):
-        assert any(line.startswith(f"not ported: step {step}")
-                   for line in lines), step
+    assert "ring seq=32" in lines[-1]
+    assert "pp stages=4, pp-x-dp mesh=2x2" in lines[-1]
+    assert [line for line in lines if line.startswith("not ported")] == [
+        "not ported: step 3e (expert parallelism; ROADMAP.md §1)"]
 
 
 def test_dryrun_defaults_to_the_card(monkeypatch):

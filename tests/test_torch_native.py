@@ -18,6 +18,7 @@ from idunno_tpu import native as jax_native
 from idunno_tpu.engine import data as jax_data
 from idunno_tpu_torch import native
 from idunno_tpu_torch.engine import data as data_lib
+from tests.torch_workers import share_cores  # noqa: F401
 
 # (height, width) of the frames: canonical, landscape, portrait, tiny,
 # and a long thin frame

@@ -21,6 +21,7 @@ from idunno_tpu_torch.ops.pooling import adaptive_avg_pool
 from idunno_tpu_torch.ops.preprocess import center_crop, preprocess_batch
 from idunno_tpu_torch.ops.preprocess_kernel import (preprocess_batch_kernel,
                                                     preprocess_batch_plain)
+from tests.torch_workers import share_cores  # noqa: F401
 
 # (batch, input side): the canonical 256² input, and the ragged 240² batch
 # of tests/test_pallas_ops.py (its rows are not 16-byte aligned)

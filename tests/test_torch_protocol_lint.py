@@ -25,6 +25,7 @@ import time
 from idunno_tpu_torch.analysis.contracts import (Allow, Contracts, Guard,
                                            IdemVerb, RetrySite)
 from idunno_tpu_torch.analysis.core import load_modules, run_analysis
+from tests.torch_workers import share_cores  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

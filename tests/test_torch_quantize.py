@@ -27,6 +27,7 @@ from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.ops.quantize import (dequantize_tree, qtensors,
                                            quantize_leaf, quantize_tree,
                                            quantized_bytes)
+from tests.torch_workers import share_cores  # noqa: F401
 
 LM = dict(vocab=61, dim=32, depth=2, num_heads=4)
 

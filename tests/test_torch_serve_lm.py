@@ -36,6 +36,7 @@ from idunno_tpu_torch.serve.lm_pool import LMServingLoop
 from idunno_tpu_torch.utils.lm_bench import (lm_bench_config,
                                              prefix_bench_workload,
                                              serving_max_new)
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB, BS = 61, 2
 CFG = {"prompt_len": 8, "vocab": VOCAB, "slots": 2}

@@ -19,6 +19,7 @@ from idunno_tpu_torch.serve.inference_service import InferenceService
 from idunno_tpu_torch.serve.metrics import MetricsTracker
 
 from tests.test_membership import FakeClock, pump
+from tests.torch_workers import share_cores  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.ops.sampling import (draw_sampled, filtered_probs,
                                            nucleus_probs, safe_log)
 from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB, BS, GAMMA = 61, 2, 3
 

@@ -42,6 +42,7 @@ from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.store.sdfs import FileStoreService
 
 from tests.test_membership import FakeClock, pump
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB = 61
 SMALL = dict(batch_size=8, image_size=64, resize_size=64)

@@ -27,6 +27,7 @@ from idunno_tpu_torch.models.moe import MoETransformerLM
 from idunno_tpu_torch.parallel.mesh import MeshShapeError, virtual_mesh
 from idunno_tpu_torch.serve.cluster_prefix import ClusterPrefixCache
 from idunno_tpu_torch.store.sdfs import StoreError
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB, BS = 61, 2
 

@@ -41,6 +41,7 @@ from idunno_tpu_torch.parallel.sharding import (QParam, cnn_tp_specs,
                                                 shard_lm_params,
                                                 split_columns,
                                                 tp_collective_bytes)
+from tests.torch_workers import share_cores  # noqa: F401
 
 VOCAB = 61
 CPU8 = ["cpu"] * 8
@@ -337,11 +338,12 @@ def test_multi_host_init_names_the_roadmap():
     processes of ``tests/test_torch_multiprocess.py`` join through it):
     outside a process group ``process_info`` is (0, 1) and ``global_mesh``
     is this process's devices, and a rank-less call raises. What still
-    waits, the sequence-parallel LM step, raises naming ROADMAP.md."""
+    waits, the sequence-parallel LM step over a mesh across processes,
+    raises naming ROADMAP.md (step 3f)."""
     from idunno_tpu_torch.engine.train_lm import jit_lm_train_step
     from idunno_tpu_torch.parallel.mesh import (global_mesh,
                                                 initialize_distributed,
-                                                process_info, virtual_mesh)
+                                                process_info)
     assert process_info() == (0, 1)
     if not torch.cuda.is_available():
         mesh = global_mesh()
@@ -349,9 +351,16 @@ def test_multi_host_init_names_the_roadmap():
         assert mesh.local_groups == (0,)
     with pytest.raises(ValueError, match="process_id"):
         initialize_distributed("localhost:1234")
-    with pytest.raises(ValueError, match="ROADMAP.md.*3c"):
-        jit_lm_train_step(None, None, virtual_mesh(2, 1, "cpu"),
-                          sequence_parallel=True)
+    from idunno_tpu_torch.models.transformer import (TransformerLM,
+                                                     make_attn_fn)
+    from idunno_tpu_torch.parallel.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    spread = Mesh(((cpu,), (cpu,)), virtual=True, local=(1,))
+    tm = TransformerLM(vocab=16, dim=16, depth=1, num_heads=2,
+                       attn_fn=make_attn_fn("ring", mesh=spread))
+    with pytest.raises(ValueError, match="ROADMAP.md.*3f"):
+        jit_lm_train_step(tm, None, spread, sequence_parallel=True)
 
 
 def test_local_mesh_spans_the_visible_cards():

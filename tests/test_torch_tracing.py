@@ -15,6 +15,7 @@ import torch
 from idunno_tpu.utils.tracing import StepTimer as JaxStepTimer
 from idunno_tpu_torch.utils.tracing import (StepTimer, annotate,
                                             device_timed, trace)
+from tests.torch_workers import share_cores  # noqa: F401
 
 
 def _profiler_off() -> bool:

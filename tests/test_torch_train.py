@@ -40,6 +40,20 @@ from idunno_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_kernel, flash_attention_bwd_plain,
     flash_attention_kernel, flash_attention_plain, tensor_core_bound)
 from idunno_tpu_torch.utils.train_bench import run_train_bench
+from tests.torch_workers import share_cores  # noqa: F401
+
+
+def jax_cnn_state(jmodel, key, size: int, tx):
+    """``idunno_tpu/engine/train.py:create_train_state`` with its init
+    jitted: the same state, without the seconds a ResNet-18's eager flax
+    init takes."""
+    variables = jax.jit(lambda k: jmodel.init(
+        k, jnp.zeros((1, size, size, 3), jnp.float32), train=True))(key)
+    params = variables["params"]
+    return jax_train.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                batch_stats=variables.get("batch_stats", {}),
+                                opt_state=tx.init(params))
+
 
 VOCAB, DIM, DEPTH, HEADS, T, B = 64, 64, 2, 4, 32, 4
 
@@ -527,8 +541,7 @@ def test_resnet18_step_matches_jax():
     1x1, so n = 4 there, where torch's unbiased rule would be 4/3 off."""
     jmodel = jax_create_model("resnet18", dtype=jnp.float32)
     tx = optax.sgd(0.1, momentum=0.9)
-    jstate = jax_train.create_train_state(jmodel, jax.random.PRNGKey(3), 32,
-                                          tx)
+    jstate = jax_cnn_state(jmodel, jax.random.PRNGKey(3), 32, tx)
     variables = jax.tree.map(np.asarray, {"params": jstate.params,
                                           "batch_stats": jstate.batch_stats})
     model = create_model("resnet18")

@@ -51,6 +51,7 @@ from idunno_tpu_torch.engine.train_job import (LMTrainJob,
                                                OptStateLayoutMismatch)
 from idunno_tpu_torch.models.convert import lm_state_dict_from_flax
 from idunno_tpu_torch.models.transformer import TransformerLM
+from tests.torch_workers import share_cores  # noqa: F401
 
 CFG = {"vocab": 64, "dim": 64, "depth": 2, "num_heads": 4}
 JOB = dict(batch_size=4, seq_len=16, lr=1e-2)

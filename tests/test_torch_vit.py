@@ -19,6 +19,7 @@ from idunno_tpu.models import create_model as jax_create_model
 from idunno_tpu_torch.models import create_model
 from idunno_tpu_torch.models.convert import state_dict_from_flax
 from idunno_tpu_torch.models.transformer import make_attn_fn
+from tests.torch_workers import share_cores  # noqa: F401
 
 SIDES = [32, 64]
 TOL = 1e-4
