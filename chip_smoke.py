@@ -44,7 +44,8 @@ through the control RPC:
 - tensor-parallel decode: the same LM in a paged pool sharded over a
   virtual mesh of the card at n_model 2 and 4 (K3 per model shard on its
   16 / n_model KV heads, head-sharded block stores, the vocab-sharded
-  sampling tail), held to n_model 1;
+  sampling tail), held to n_model 1; then speculative: the bench's draft
+  sharded beside it, every verify chunk through K3 per model shard;
 - data parallelism on virtual meshes of the card: ResNet-18 served over
   2 and 4 data groups (K1 per group) and a (2, 2) mesh, the LM and
   ResNet-18 trained over two groups (K2, K4, K5 per group; BatchNorm over
@@ -57,7 +58,10 @@ through the control RPC:
 - the routed FFN (switch MoE): the same LM widths with a switch FFN of 8
   experts on every other block (570,884,144 parameters, seeded): its
   prefill through K2, its training through K2, K4 and K5 (``remat`` held
-  to none), and its serving from a gathered block pool, replayed.
+  to none), and its serving from a gathered block pool, replayed; then
+  expert parallelism: its experts sharded over virtual expert meshes of
+  the card (p = 2, 4, 8, all-to-all exchanges), forward through K2 and
+  trained through K2, K4 and K5, held to the dense path.
 
 Phases:
 
@@ -69,7 +73,9 @@ Phases:
    rounding of P and dS, ``ops/flash_attention.py:tensor_core_bound``;
    K2 also at ViT-S/16's [256, 197, 6, 64]; K3 also at head_dim 32, at
    the speculative verify shape, 16 rows x 5 positions, and at one
-   tensor-parallel shard's decode shape, 16 / n_model KV heads);
+   tensor-parallel shard's decode and verify shapes, 16 / n_model KV
+   heads; K4 and K5 also at the expert-parallel step's [1, 1024, 16,
+   64]);
 3. kernel timing by CUDA-graph replay (K4 and K5 also by CUDA events; K2
    also at the ViT shape, non-causal; K3 at the decode, the radix-hit
    prefill, the head_dim 32 decode and the verify shapes), beside its bound, the
@@ -182,7 +188,20 @@ Phases:
     1's, relative to each row's largest |logit|; the share of greedy
     tokens a bf16 TP pool serves differently and each pool's decode
     tokens/s are printed, not gated;
-13. data parallelism (``data_parallel``) on virtual meshes of the card:
+13. speculative pools under tensor parallelism (``tp_spec``): the same
+    LM with the bench's draft (``TP_SPEC``; its 4 heads divide both
+    extents, so it shards) in a paged pool on a virtual mesh of the card
+    at n_model 2 and 4 against n_model 1: in f32 at depth 2 (TF32 off),
+    eager pools logging every round, 8 shared-prefix requests' greedy
+    streams, a seeded sampled stream, and every round's draft proposals
+    and accepted counts equal n_model 1's, the greedy streams equal the
+    plain pool's, replayed pools equal eager ones, and K3 launches are
+    exactly n_model times n_model 1's; a control whose draft joins its
+    vocab shards in reverse order must keep the stream and change the
+    rounds; in bf16 at full width the target's and the draft's
+    teacher-forced logits within ``TP["bf16_rel_tol"]`` of n_model 1's;
+    tokens a round and decode tokens/s beside n_model 1's (printed);
+14. data parallelism (``data_parallel``) on virtual meshes of the card:
     (a) ResNet-18 served at full width (engine batch 256, 1,024 images)
     over 2 and 4 data groups against one group on the same seeded
     weights, in f32 with TF32 off: equal top-1 on every image,
@@ -207,7 +226,7 @@ Phases:
     one ResNet-18 step across them equal to one process's; (f) ``python
     -m idunno_tpu_torch.dryrun 4 --device cuda`` exits 0 with its
     ring-attention and pipeline sections;
-14. sequence and pipeline parallelism (``seq_pipeline``) on virtual
+15. sequence and pipeline parallelism (``seq_pipeline``) on virtual
     meshes of the card (``SEQ``): the full-width LM (f32 parameters,
     bf16 compute) attending by ring attention (4 groups, causal; K2 on
     each of the 10 live block pairs, K4/K5 on each in the backward) and
@@ -224,14 +243,14 @@ Phases:
     rotated; the head groups regrouped in reverse; the last microbatch
     dropped); then each at depth 2 in f32 (TF32 off): the loss within
     1e-5 relative, every gradient within 1e-4 of its tensor's largest;
-15. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
+16. LM training (``lm_train``): one batch from a ``TokenDataset`` over a
     seeded corpus; the gradients of every parameter through flash and
     through ``full`` attention agree (cosine ≥ 0.999, norms within 2%);
     ten steps on that batch with finite, falling loss, K2, K4 and K5
     launches (zeroed just before) each equal to depth × 10, and f32
     master parameters after; one step under ``torch.profiler``; then the
     train bench's record, with no point in error;
-16. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
+17. the routed FFN (``models/moe.py``, ``MOE``): ``moe_prefill``, the
     full-width routed forward on [4, 1024] tokens, bf16, through
     ``make_attn_fn("auto")``: K2 launches (zeroed just before) equal
     depth × forwards, logits within 2% of the ``full`` forward's largest,
@@ -247,12 +266,28 @@ Phases:
     gathered block pool: a ``paged_kernel`` pool raises, replayed and
     eager pools give equal greedy streams, then the 48 shared-prefix
     prompts from two threads: tokens/s, TTFT p50/p95;
-17. ``failed_capture``: after a provoked failed CUDA-graph capture the
+18. expert parallelism (``expert_parallel``, ``EP``): the routed LM
+    with its experts over a virtual expert mesh of the card at p = 2, 4
+    and 8 against the dense path on the same seeded weights, at no-drop
+    capacity (capacity factor 8): f32 at depth 2, logits within 1e-5 of
+    the largest, losses equal, gradients within 1e-4 of each tensor's
+    largest, K2 once a block a forward; bf16 compute at full width on one
+    sequence, routing pinned to the dense pass's, logits within 2%,
+    gradients of cosine >= 0.999 and norms within 2%, one fused-AdamW
+    step within an update gap of 0.1 of the dense step's, K2/K4/K5 depth
+    times each; a control that must fail the logit and gradient gates (the
+    mirror exchange in reverse shard order); then at ``MOE``'s capacity
+    factor 2 on seq 1024 x batch 8, step ms, tokens/s, MFU over the
+    active parameters, the dropped share of routing units and K2/K4/K5
+    launches beside the dense path's step of ``moe_train`` (printed), and
+    one p = 4 step under the profiler (the dispatch, exchange and combine
+    ranges' device ms);
+19. ``failed_capture``: after a provoked failed CUDA-graph capture the
     pool serves a sampled request equal to an eager pool's, and a random
     draw on the card succeeds;
-18. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
+20. one JSON line ``{"kernels": [...]}``, each kernel's ``launches`` the
     sum over the paths it runs on;
-19. the last line, ``{"ok": true, "device": {...}}``.
+21. the last line, ``{"ok": true, "device": {...}}``.
 
 Every ``torch.profiler`` window (``device_profile``) prints a
 ``profile_window`` line: when it opened after the previous window
@@ -748,8 +783,9 @@ def paged_shapes():
     radix-hit prefill (one row, 64 query positions, a 3-block chain), the
     default-size model's decode shape (head_dim 32, 4 kv-heads), and the
     speculative verify of draft_len 4 (16 rows x 5 positions) at head_dim
-    64 (16 kv-heads) and 32 (4 kv-heads); and the decode shape of one
-    model shard of the tensor-parallel pool (16 / n_model kv-heads)."""
+    64 (16 kv-heads) and 32 (4 kv-heads); and the decode and verify shapes
+    of one model shard of the tensor-parallel pool (16 / n_model
+    kv-heads)."""
     rng = random.Random(3)
     chains = [0] + [rng.randint(0, 3) for _ in range(15)]
     t = LM_DRAFT_LEN + 1
@@ -767,7 +803,11 @@ def paged_shapes():
             # over n_model 2 and 4
             *((f"decode_tp{n}", dict(b=16, t=1, kvh=16 // n, g=1, d=64,
                                      n=68, bs=LM_BLOCK, chains=chains))
-              for n in TP["n_models"]))
+              for n in TP["n_models"]),
+            # one model shard's verify chunk of the speculative TP pool
+            *((f"verify_tp{n}", dict(b=16, t=t, kvh=16 // n, g=1, d=64,
+                                     n=68, bs=LM_BLOCK, chains=chains))
+              for n in TP_SPEC["n_models"]))
 
 
 def phase_paged_vs_plain() -> float:
@@ -1616,10 +1656,12 @@ def phase_beam(lm, cfg: dict, card: str) -> None:
 
 # -- LM training kernels and path (K4, K5) --------------------------------
 
-# (shape, dtype, causal): the training shape of the full-width LM, a
-# smaller f32 causal and non-causal case, a ragged T = 1000, and head_dim
-# 32 of the tensor-core K4 and K5
+# (shape, dtype, causal): the training shape of the full-width LM, the
+# expert-parallel phase's no-drop step (one sequence), a smaller f32
+# causal and non-causal case, a ragged T = 1000, and head_dim 32 of the
+# tensor-core K4 and K5
 FLASH_BWD_CHECKS = (((8, 1024, 16, 64), "bf16", True),
+                    ((1, 1024, 16, 64), "bf16", True),
                     ((2, 512, 8, 64), "f32", True),
                     ((2, 512, 8, 64), "f32", False),
                     ((2, 1000, 4, 64), "bf16", True),
@@ -1922,21 +1964,28 @@ def phase_lm_train(card: str) -> dict:
 
 
 def build_moe_lm(cfg: dict, depth: int, seed: int, *, attn: str = "full",
-                 remat: bool = False, compute_dtype=None):
+                 remat: bool = False, compute_dtype=None, mesh=None,
+                 capacity_factor: float | None = None):
     """The routed LM (``MOE``: the JAX bench's widths with a switch FFN of
     8 experts on every other block) on the card, f32 parameters seeded
-    with flax's initialisers."""
+    with flax's initialisers; ``mesh``: its experts over that expert mesh
+    (the same seed gives the same weights as the dense model),
+    ``capacity_factor`` in place of ``MOE``'s."""
     import torch
 
     from idunno_tpu_torch.models.init import init_like_flax
     from idunno_tpu_torch.models.moe import MoETransformerLM
     from idunno_tpu_torch.models.transformer import make_attn_fn
 
+    moe = dict(MOE)
+    if capacity_factor is not None:
+        moe["capacity_factor"] = capacity_factor
     with torch.device("cuda"):
         model = MoETransformerLM(
             vocab=cfg["vocab"], dim=cfg["dim"], depth=depth,
             num_heads=cfg["heads"], attn_fn=make_attn_fn(attn), remat=remat,
-            dtype=torch.float32, compute_dtype=compute_dtype, **MOE)
+            dtype=torch.float32, compute_dtype=compute_dtype, mesh=mesh,
+            **moe)
     init_like_flax(model, torch.Generator(device="cuda").manual_seed(seed))
     return model
 
@@ -1951,8 +2000,8 @@ def active_params(model) -> int:
     n = sum(p.numel() for p in model.parameters())
     for blk in model.blocks:
         if blk.ffn is not None:
-            per_expert = sum(p[0].numel() for p in (blk.ffn.w1, blk.ffn.b1,
-                                                    blk.ffn.w2, blk.ffn.b2))
+            d, h = blk.ffn.dim, blk.ffn.hidden
+            per_expert = 2 * d * h + h + d      # w1, b1, w2, b2
             n -= (blk.ffn.n_experts - blk.ffn.k) * per_expert
     return n
 
@@ -2051,7 +2100,8 @@ def phase_moe_train(card: str) -> dict:
     depth × steps, step ms, tokens/s, MFU over the active parameters, and
     the dispatch and combine einsums' share of the step's device time,
     read from the step's trace. Returns the launches of the counted steps
-    and of the remat check."""
+    and of the remat check, and the full-width step's figures (step ms,
+    tokens/s, MFU), which ``expert_parallel`` prints beside its own."""
     import numpy as np
     import torch
 
@@ -2192,6 +2242,10 @@ def phase_moe_train(card: str) -> dict:
         if counted[name] != cfg["depth"] * MOE_TRAIN_STEPS:
             raise AssertionError(f"{name} launched {counted[name]} times in "
                                  f"{MOE_TRAIN_STEPS} routed steps")
+    # the dense path's figures, printed again beside the expert-parallel
+    # steps of the same configuration
+    dense_step = dict(step_ms_median=step_s * 1e3, tokens_per_s=tok_s,
+                      mfu=mfu)
 
     host = {}
     wall_ms, by_name, n = device_profile(lambda: step(state, tokens), host,
@@ -2218,8 +2272,342 @@ def phase_moe_train(card: str) -> dict:
         raise AssertionError(f"dispatch/combine device ms {spans} outside "
                              f"the step's {busy_ms} ms")
     torch.cuda.empty_cache()
+    return launches, dense_step
+
+
+# -- expert parallelism on virtual expert meshes of the card -----------------
+
+# the routed LM (``MOE``) with its experts over a virtual expert mesh of the
+# card of each of ``ps`` shards, against the dense path on the same
+# weights. No-drop capacity is a capacity factor of n_experts: an expert's
+# capacity is then every routing unit of a shard, so neither path drops
+# one. The exact gates run f32 at depth 2 on ``exact_tokens``, the bf16
+# ones at full width on ``bf16_tokens`` (one sequence: the dense path's
+# f32 [n, E, C] dispatch at no-drop capacity is n² · E · 4 bytes a routed
+# block, 34 MB at n = 1,024 and 2.1 GB at the train batch's 8,192); the
+# step figures at ``MOE``'s capacity factor and the train bench's batch
+EP = {"ps": (2, 4, 8), "control_p": 4, "exact_tokens": (2, 1024),
+      "bf16_tokens": (1, 1024), "seed": 9, "f32_rel_tol": 1e-5,
+      "f32_grad_tol": 1e-4, "bf16_rel_tol": 2e-2, "grad_min_cosine": 0.999,
+      "grad_norm_rel": 0.02, "update_gap": 0.1, "steps": 4}
+
+
+def reversed_mirror(real):
+    """The control's exchange: the mirror all-to-all (outputs back to the
+    tokens' shards, ``concat_axis`` 0) returns the owners' buffers in
+    reverse shard order; the forward exchange is the real one."""
+    import torch
+
+    def all_to_all(parts, devices, *, split_axis, concat_axis):
+        out = real(parts, devices, split_axis=split_axis,
+                   concat_axis=concat_axis)
+        if concat_axis != 0:
+            return out
+        return [torch.cat(o.tensor_split(len(parts))[::-1]) for o in out]
+    return all_to_all
+
+
+def ep_pass(model, tokens, chosen=None, backward: bool = True) -> dict:
+    """One batch through ``model`` (routing pinned to ``chosen`` when
+    given, recorded into it when it is an empty list): the logits, the
+    balance loss, the loss CE + 0.01·aux and, with ``backward``, every
+    parameter's gradient in the dense layout."""
+    import torch
+
+    from idunno_tpu_torch.engine.train_lm import next_token_loss
+    from idunno_tpu_torch.models.convert import dense_state_dict
+    from idunno_tpu_torch.models.moe import moe_aux_loss
+
+    model.zero_grad(set_to_none=True)
+    ctx = (pinned_routing(chosen) if chosen is not None
+           else contextlib.nullcontext())
+    with ctx, torch.set_grad_enabled(backward):
+        logits = model(tokens)
+        ce, _ = next_token_loss(logits, tokens)
+        aux = moe_aux_loss(model)
+        loss = ce + 0.01 * aux
+    out = {"logits": logits.detach(), "aux": float(aux.detach()),
+           "loss": float(loss.detach())}
+    if backward:
+        loss.backward()
+        out["grads"] = dense_state_dict(
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    return out
+
+
+def ep_held(name: str, card: str, p: int, got: dict, ref: dict,
+            gates: dict, **fields) -> dict:
+    """The gaps of one expert-parallel pass to the dense pass, printed;
+    the gates they fail (empty: none)."""
+    gaps = {"logits": logit_gap(got["logits"], ref["logits"]),
+            "aux_abs": abs(got["aux"] - ref["aux"]),
+            "loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+    if "grads" in got:
+        gaps.update(grad_gaps(got["grads"], ref["grads"]))
+    failed = {k: v for k, v in gaps.items() if k in gates and not (
+        v >= gates[k] if k == "min_cosine" else v <= gates[k])}
+    say(name, card=card, p=p, mesh=f"virtual expert 1 x {p} over cuda:0",
+        **gaps, tolerance=gates, failed=sorted(failed), **fields)
+    return failed
+
+
+def phase_expert_parallel(card: str, dense_step: dict) -> dict:
+    """(``expert_parallel``) The routed LM (``MOE``: 8 experts on every
+    other block, 570.9 M parameters) with its experts sharded over a
+    virtual expert mesh of the card at p = 2, 4 and 8
+    (``MoETransformerLM(mesh=)``: each shard dispatches its block of
+    routing units, an all-to-all gives each owner its experts' buffers,
+    the mirror one returns them), against the dense path on the same
+    seeded weights, attending through flash (K2 forward, K4/K5 backward).
+
+    (a) f32 (TF32 off), depth 2, no-drop capacity: logits within
+    ``EP["f32_rel_tol"]`` of the largest, the balance loss and the loss
+    equal, every gradient within ``EP["f32_grad_tol"]`` of its tensor's
+    largest; K2 launches of depth a forward. (b) bf16 compute over f32
+    parameters at full width, no-drop capacity, the routing pinned to the
+    dense pass's (a near-tie that the two paths' roundings break apart
+    would otherwise move the comparison; the share that routes apart
+    unpinned is printed): logits within ``EP["bf16_rel_tol"]``, gradients
+    of cosine >= ``EP["grad_min_cosine"]`` and norms within
+    ``EP["grad_norm_rel"]``, and one fused-AdamW train step
+    (``make_lm_train_step``) whose parameters after lie within
+    ``EP["update_gap"]`` of the dense step's, over the update, with K2,
+    K4 and K5 launched depth times each. A control that must fail both
+    (a)'s and (b)'s logit and gradient gates: the mirror exchange returns
+    the owners' buffers in reverse shard order. (c) At ``MOE``'s capacity
+    factor on the train bench's batch (seq 1024 x batch 8): step ms,
+    tokens/s, MFU over the active parameters, the share of routing units
+    dropped (at the seeded weights, beside the dense path's share on the
+    same ones) and K2/K4/K5 launches, beside the dense path's step of
+    this run (``dense_step``, from ``moe_train``); one step of p = 4
+    under the profiler gives the dispatch, exchange and combine ranges'
+    device ms. Returns the launches of every counted pass."""
+    import torch
+
+    from idunno_tpu_torch.engine.train import TrainState, adamw, flat_tx
+    from idunno_tpu_torch.engine.train_lm import make_lm_train_step
+    from idunno_tpu_torch.models import moe as moe_lib
+    from idunno_tpu_torch.models.convert import dense_state_dict
+    from idunno_tpu_torch.models.moe import (COMBINE_SPAN, DISPATCH_SPAN,
+                                             EXCHANGE_SPAN)
+    from idunno_tpu_torch.parallel import expert as expert_lib
+    from idunno_tpu_torch.parallel.mesh import EXPERT_AXIS, virtual_mesh
+    from idunno_tpu_torch.utils.lm_bench import lm_bench_config
+    from idunno_tpu_torch.utils.train_bench import (H100_BF16_FLOPS,
+                                                    lm_flops_per_token,
+                                                    train_bench_config)
+
+    cfg = lm_bench_config("cuda")
+    e = MOE["n_experts"]
+    meshes = {p: virtual_mesh(1, p, "cuda:0", axis=EXPERT_AXIS)
+              for p in EP["ps"]}
+    launches = dict.fromkeys(KERNELS, 0)
+    def control():
+        return patched(expert_lib, "all_to_all",
+                       reversed_mirror(expert_lib.all_to_all))
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    # (a) f32, depth 2, no-drop
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tokens = seq_tokens(cfg["vocab"], EP["exact_tokens"], 41)
+        dense = build_moe_lm(cfg, 2, EP["seed"], attn="auto",
+                             capacity_factor=float(e))
+        ref = ep_pass(dense, tokens)
+        want_state = dense.state_dict()
+        del dense
+        gates = {"logits": EP["f32_rel_tol"], "aux_abs": 1e-6,
+                 "loss_rel": EP["f32_rel_tol"],
+                 "max_elem_rel_gap": EP["f32_grad_tol"]}
+        for p, mesh in meshes.items():
+            model = build_moe_lm(cfg, 2, EP["seed"], attn="auto",
+                                 capacity_factor=float(e), mesh=mesh)
+            same = all(torch.equal(v, want_state[k]) for k, v in
+                       dense_state_dict(model.state_dict()).items())
+            got, n = counted(lambda: ep_pass(model, tokens))
+            failed = ep_held("expert_parallel_f32", card, p, got, ref, gates,
+                             depth=2, tokens=list(EP["exact_tokens"]),
+                             capacity_factor=float(e),
+                             seeded_weights_equal_dense=same,
+                             k2_launches=n["flash_attention"])
+            if failed or not same or n["flash_attention"] != 2:
+                raise AssertionError(f"expert_parallel f32 p={p}: {failed}, "
+                                     f"weights equal {same}, launches {n}")
+            if p == EP["control_p"]:
+                with control():
+                    bad, _ = counted(lambda: ep_pass(model, tokens))
+                failed = ep_held("expert_parallel_f32_control", card, p, bad,
+                                 ref, gates, control="mirror exchange in "
+                                 "reverse shard order")
+                if "logits" not in failed or "max_elem_rel_gap" not in failed:
+                    raise AssertionError("expert_parallel f32 control passed "
+                                         f"the gates it must fail: {failed}")
+            del model
+        del ref, want_state
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+    # (b) bf16 compute at full width, no-drop, routing pinned to dense's;
+    # one train step from the seeded weights, each path's own optimizer
+    tokens = seq_tokens(cfg["vocab"], EP["bf16_tokens"], 42)
+    bf16 = dict(attn="flash", compute_dtype=torch.bfloat16,
+                capacity_factor=float(e))
+    tx = flat_tx(adamw(3e-4))
+    dense = build_moe_lm(cfg, cfg["depth"], EP["seed"], **bf16)
+    chosen: list = []
+    ref = ep_pass(dense, tokens, chosen)
+    init = {k: v.clone() for k, v in dense.state_dict().items()}
+    state = TrainState(0, dense, tx(dense.parameters()))
+    with pinned_routing(list(chosen)):
+        make_lm_train_step(dense, state.optimizer)(state, tokens)
+    want_after = {k: v.clone() for k, v in dense.state_dict().items()}
+    del dense, state
+    torch.cuda.empty_cache()
+    gates = {"logits": EP["bf16_rel_tol"],
+             "min_cosine": EP["grad_min_cosine"],
+             "max_norm_rel_diff": EP["grad_norm_rel"]}
+    for p, mesh in meshes.items():
+        model = build_moe_lm(cfg, cfg["depth"], EP["seed"], mesh=mesh, **bf16)
+        own: list = []
+        free = ep_pass(model, tokens, own, backward=False)
+        flips = sum(float((a != b).float().mean())
+                    for a, b in zip(own, chosen)) / len(chosen)
+        got = ep_pass(model, tokens, list(chosen))
+        failed = ep_held("expert_parallel_bf16", card, p, got, ref, gates,
+                         depth=cfg["depth"], tokens=list(EP["bf16_tokens"]),
+                         capacity_factor=float(e), routing="pinned to dense",
+                         unpinned_logit_gap=logit_gap(free["logits"],
+                                                      ref["logits"]),
+                         unpinned_routing_decisions_differing=flips)
+        if failed:
+            raise AssertionError(f"expert_parallel bf16 p={p}: {failed}")
+        if p == EP["control_p"]:
+            with control():
+                bad = ep_pass(model, tokens, list(chosen))
+            failed = ep_held("expert_parallel_bf16_control", card, p, bad,
+                             ref, gates, control="mirror exchange in reverse "
+                             "shard order")
+            if "logits" not in failed or "min_cosine" not in failed:
+                raise AssertionError("expert_parallel bf16 control passed "
+                                     f"the gates it must fail: {failed}")
+        state = TrainState(0, model, tx(model.parameters()))
+
+        def one_step():
+            with pinned_routing(list(chosen)):
+                return make_lm_train_step(model, state.optimizer)(state,
+                                                                  tokens)
+
+        metrics, n = counted(one_step)
+        gap = update_gap(dense_state_dict(model.state_dict()), want_after,
+                         init)
+        say("expert_parallel_train_step", card=card, p=p,
+            depth=cfg["depth"], tokens=list(EP["bf16_tokens"]),
+            loss=float(metrics["loss"]), update_gap=gap,
+            tolerance=EP["update_gap"], launches=n)
+        if not gap <= EP["update_gap"] or any(
+                n[k] != cfg["depth"] for k in TRAINED):
+            raise AssertionError(f"expert_parallel train step p={p}: update "
+                                 f"gap {gap}, launches {n}")
+        del model, state
+        torch.cuda.empty_cache()
+    del ref, init, want_after
+
+    # (c) the step at MOE's capacity factor on the train bench's batch
+    tcfg = train_bench_config("cuda")
+    b, t = tcfg["batch"], tcfg["seq"]
+    tokens = seq_tokens(cfg["vocab"], (b, t), 43)
+    full = dict(attn="flash", compute_dtype=torch.bfloat16)
+    dense = build_moe_lm(cfg, cfg["depth"], EP["seed"], **full)
+    dense_kept, dense_units = dropped_units(moe_lib, dense, tokens)
+    del dense
+    for p, mesh in meshes.items():
+        model = build_moe_lm(cfg, cfg["depth"], EP["seed"], mesh=mesh, **full)
+        # the seeded weights the dense count above routed: drops at init
+        kept, units = dropped_units(expert_lib, model, tokens)
+        state = TrainState(0, model, tx(model.parameters()))
+        step = make_lm_train_step(model, state.optimizer)
+        float(step(state, tokens)["loss"])               # builds, warms
+
+        def steps():
+            times, losses = [], []
+            for _ in range(EP["steps"]):
+                t0 = time.perf_counter()
+                losses.append(float(step(state, tokens)["loss"]))
+                times.append(time.perf_counter() - t0)
+            return times, losses
+
+        (times, losses), n = counted(steps)
+        step_s = sorted(times)[len(times) // 2]
+        active = active_params(model)
+        flops_tok = lm_flops_per_token(active, tcfg)
+        tok_s = b * t / step_s
+        profile = {}
+        if p == EP["control_p"]:
+            host = {}
+            labels = (DISPATCH_SPAN, EXCHANGE_SPAN, COMBINE_SPAN)
+            wall_ms, by_name, k = device_profile(lambda: step(state, tokens),
+                                                 host, labels=labels)
+            busy = sum(by_name.values())
+            spans = host["labelled_ms"]
+            profile = {
+                "wall_ms": wall_ms, "kernel_launches": k,
+                "device_busy_ms": busy if k else "not measured",
+                "span_device_ms": spans if k else "not measured",
+                "dispatch_exchange_combine_share_of_device": (
+                    sum(sum(v.values()) for v in spans.values()) / busy
+                    if k else "not measured")}
+        say("expert_parallel_step", card=card, p=p, batch=b, seq=t,
+            depth=cfg["depth"], capacity_factor=MOE["capacity_factor"],
+            steps=EP["steps"], losses=losses,
+            step_ms_median=step_s * 1e3, step_ms=[x * 1e3 for x in times],
+            tokens_per_s=tok_s, mfu=tok_s * flops_tok / H100_BF16_FLOPS,
+            active_params=active, routing_units=units,
+            dropped_share=1.0 - kept / units,
+            dense_dropped_share=1.0 - dense_kept / dense_units,
+            dropped_note="at the seeded weights, before the first step",
+            launches=n,
+            dense_path_this_run=dense_step, **profile,
+            mfu_formula=("tokens/s x (6 x active params + 12 x seq x dim x "
+                         "depth) / 989e12 (H100 SXM bf16 dense)"),
+            note="informational, a virtual mesh on one card")
+        if not all(math.isfinite(x) for x in losses) or any(
+                n[k] != cfg["depth"] * EP["steps"] for k in TRAINED):
+            raise AssertionError(f"expert_parallel step p={p}: losses "
+                                 f"{losses}, launches {n}")
+        del model, state, step
+        torch.cuda.empty_cache()
     return launches
 
+
+def dropped_units(module, model, tokens) -> tuple[int, int]:
+    """(routing units kept, routing units) over every routed block (and
+    shard) of one forward of ``tokens``: what the dispatch tensors that
+    ``module``'s ``switch_dispatch`` builds hold (``parallel.expert`` on
+    the expert-parallel path, ``models.moe`` on the dense one)."""
+    import torch
+
+    real, seen = module.switch_dispatch, []
+
+    def recording(gate_idx, gate_w, n_experts, capacity):
+        dispatch, combine = real(gate_idx, gate_w, n_experts, capacity)
+        seen.append((dispatch.sum(), dispatch.shape[0]))
+        return dispatch, combine
+
+    with patched(module, "switch_dispatch", recording), torch.no_grad():
+        model(tokens)
+    return int(sum(float(k) for k, _ in seen)), sum(n for _, n in seen)
 
 def loop_serve(srv, prompts, max_new: int, cfg: dict) -> tuple[dict, dict]:
     """``prompts`` submitted to a warmed ``srv`` from two threads through
@@ -2669,39 +3057,91 @@ def phase_default_pool(card: str) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def record_rounds(srv, log: list):
+    """Within the block each speculative round that ``srv`` commits
+    appends its ``(proposals [S, γ], accepted [S], live rows [S])`` to
+    ``log`` as CPU tensors: the pool module's ``greedy_commit`` and
+    ``spec_commit`` are wrapped (a round commits before it moves
+    ``remaining``, so ``remaining > 0`` is its live rows). A round
+    recorded into a CUDA graph logs nothing."""
+    from unittest import mock
+
+    import torch
+
+    from idunno_tpu_torch.engine import serve_lm
+
+    def logged(commit):
+        def wrapper(proposals, *args):
+            cand, acc = commit(proposals, *args)
+            if not (proposals.is_cuda
+                    and torch.cuda.is_current_stream_capturing()):
+                log.append((proposals.cpu(), acc.cpu(),
+                            (srv._remaining > 0).cpu()))
+            return cand, acc
+        return wrapper
+
+    with mock.patch.object(serve_lm, "greedy_commit",
+                           logged(serve_lm.greedy_commit)), \
+            mock.patch.object(serve_lm, "spec_commit",
+                              logged(serve_lm.spec_commit)):
+        yield log
+
+
 def tp_streams(model, prompts, max_new: int, mesh=None, sampled=None,
-               **kw) -> dict:
-    """One pool on the card (``mesh``: tensor-parallel over it) serving
+               draft=None, log: bool = False, reverse: bool = False,
+               timed: bool = True, **kw) -> dict:
+    """One pool on the card (``mesh``: tensor-parallel over it;
+    ``draft``: speculative, ``LM_DRAFT_LEN`` proposals a round) serving
     ``prompts`` greedily, then ``sampled`` (a prompt and its sampling
-    keys) alone: the greedy and sampled streams, radix hits, graph stats,
-    the greedy decode tokens/s of a second, warm pass of the prompts, and
-    K3's launches over all of it (zeroed just before the pool is built,
-    read after the warm pass)."""
+    keys) alone: the greedy and sampled streams, with ``log`` each eagerly
+    run round's proposals and accepted counts (``rounds``,
+    ``sampled_rounds``, `record_rounds`), radix hits, graph stats, with
+    ``timed`` the greedy decode tokens/s of a second, warm pass, and K3's
+    launches over all of it (zeroed just before the pool is built, read
+    after).
+    ``reverse``: the control whose draft joins its vocab shards in reverse
+    order."""
     import torch
 
     from idunno_tpu_torch.engine.serve_lm import DecodeServer
 
+    if draft is not None:
+        kw = dict(kw, draft=(draft, None), draft_len=LM_DRAFT_LEN)
     torch.cuda.synchronize()
     zero_launches()
     srv = DecodeServer(model, device="cuda", mesh=mesh, **kw)
-    ids = [srv.submit(p, max_new=max_new) for p in prompts]
-    done = {c.id: c.tokens for c in srv.run_until_drained()}
-    out = {"greedy": [done[i] for i in ids]}
-    if sampled is not None:
-        prompt, keys = sampled
-        rid = srv.submit(prompt, max_new=max_new, **keys)
-        out["sampled"] = {c.id: c.tokens
-                          for c in srv.run_until_drained()}[rid]
+    if reverse:
+        inner = srv._draft_dec.decode_apply
+
+        def reversed_parts(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            out.parts.reverse()
+            return out
+
+        srv._draft_dec.decode_apply = reversed_parts
+    rounds: list = []
+    with (record_rounds(srv, rounds) if log else contextlib.nullcontext()):
+        ids = [srv.submit(p, max_new=max_new) for p in prompts]
+        done = {c.id: c.tokens for c in srv.run_until_drained()}
+        out = {"greedy": [done[i] for i in ids], "rounds": list(rounds)}
+        if sampled is not None:
+            prompt, keys = sampled
+            rid = srv.submit(prompt, max_new=max_new, **keys)
+            out["sampled"] = {c.id: c.tokens
+                              for c in srv.run_until_drained()}[rid]
+            out["sampled_rounds"] = rounds[len(out["rounds"]):]
     out["hits"] = srv.prefix_cache_stats()["hits"]
     out["graph"] = srv.graph_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for p in prompts:
-        srv.submit(p, max_new=max_new)
-    srv.run_until_drained()
-    torch.cuda.synchronize()
-    out["tokens_per_s"] = (len(prompts) * (max_new - 1)
-                           / (time.perf_counter() - t0))
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            srv.submit(p, max_new=max_new)
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        out["tokens_per_s"] = (len(prompts) * (max_new - 1)
+                               / (time.perf_counter() - t0))
     out["launches"] = read_launches()["paged_attention"]
     del srv
     return out
@@ -2838,6 +3278,228 @@ def phase_tp_decode(cfg: dict, card: str) -> int:
     torch.cuda.empty_cache()
     return total
 
+
+# -- speculative pools under tensor parallelism ------------------------------
+
+# the speculative TP phase: the full-width LM and the JAX bench's draft
+# (``LM_DRAFT``: 4 heads divide both extents, so the draft shards too) in a
+# paged pool on a virtual mesh of the card, against n_model 1; the exact
+# gates at depth ``exact_depth`` in f32, the bf16 gate as ``TP``'s
+TP_SPEC = {"n_models": (2, 4), "requests": 8, "max_new": 32, "seed": 5,
+           "draft_seed": 7, "exact_depth": 2}
+
+
+def same_rounds(a: list, b: list) -> bool:
+    """Equal proposals and accepted counts on the live rows of every round
+    of two pools' logs (`record_rounds`)."""
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(act, bct) and torch.equal(pa[act], pb[act])
+        and torch.equal(aa[act], ab[act])
+        for (pa, aa, act), (pb, ab, bct) in zip(a, b))
+
+
+def per_round(log: list) -> float:
+    """Tokens a live row commits a round (accepted proposals + 1) over the
+    rounds of a log (`record_rounds`); a row's last round may commit
+    fewer, cut by its budget."""
+    live = sum(int(act.sum()) for _, _, act in log)
+    return sum(int((acc[act] + 1).sum()) for _, acc, act in log) / live
+
+
+def phase_tp_spec(cfg: dict, card: str) -> int:
+    """(``tp_spec``) Speculative pools under tensor parallelism on a
+    virtual mesh of the card: the full-width LM with the JAX bench's draft
+    (``draft_len`` 4) in a paged pool (K3 per model shard in every verify
+    chunk and suffix prefill), the draft sharded by its own ``ShardedLM``,
+    at n_model 2 and 4 against n_model 1, on ``TP``'s shared-prefix
+    workload.
+
+    f32 at depth ``TP_SPEC["exact_depth"]`` (K3 on f32 pages, TF32 off),
+    eager pools logging every round: the greedy streams and a seeded
+    sampled stream equal n_model 1's speculative pool's, every round's
+    proposals and accepted counts equal too, and the greedy streams equal
+    the plain (non-speculative) n_model 1 pool's; replayed pools give the
+    eager pools' streams (dispatches replayed); K3 launches are exactly
+    n_model x n_model 1's. A control that must fail: the draft's vocab
+    shards joined in reverse order keep the greedy stream (speculation is
+    lossless) and change the rounds. The same with the target as its own
+    draft (every proposal accepted: the accepted counts carry the gate).
+    bf16 at full width: the draft's and
+    the target's logits on n_model 1's streams teacher-forced through
+    their tensor-parallel decoders within ``TP["bf16_rel_tol"]`` of
+    n_model 1's, relative to each row's largest |logit|; tokens a round
+    (eager, logged) and decode tokens/s (replayed, warm) beside n_model
+    1's, informational. Returns the phase's K3 launches."""
+    import torch
+
+    from idunno_tpu_torch.models.transformer import ShardedLM
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    from idunno_tpu_torch.utils.lm_bench import prefix_bench_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    n_req, max_new = TP_SPEC["requests"], TP_SPEC["max_new"]
+    greedy = prompts[:n_req]
+    sampled = (prompts[n_req], {"temperature": 0.8, "top_p": 0.9, "seed": 21})
+    kw = dict(lm_pool_kw(cfg, buckets), paged_kernel="kernel")
+    meshes = {1: None, **{n: virtual_mesh(1, n, "cuda:0")
+                          for n in TP_SPEC["n_models"]}}
+    depth = TP_SPEC["exact_depth"]
+
+    def spec(target, draft, mesh, **extra):
+        """``tp_streams`` of a speculative pool, every eager round logged,
+        untimed unless asked."""
+        return tp_streams(target, greedy, max_new, mesh=mesh, draft=draft,
+                          **{"log": True, "timed": False, **extra, **kw})
+
+    model = build_lm(cfg, "f32", depth=depth, seed=TP_SPEC["seed"])
+    draft = build_draft(cfg, "f32", seed=TP_SPEC["draft_seed"])
+    total = 0
+    plain, _, _ = serve_streams(model, greedy, max_new, **kw)
+    eager, replay = {}, {}
+    for n, mesh in meshes.items():
+        eager[n] = spec(model, draft, mesh, sampled=sampled,
+                        decode_graph="eager")
+        replay[n] = spec(model, draft, mesh, log=False, decode_graph="graph")
+        total += eager[n]["launches"] + replay[n]["launches"]
+        torch.cuda.empty_cache()
+    base = eager[1]
+    if base["greedy"] != plain or replay[1]["greedy"] != base["greedy"]:
+        raise AssertionError("tp_spec f32: the n_model 1 speculative pool "
+                             "differs from the plain pool or its replay")
+    for n in TP_SPEC["n_models"]:
+        run, rep = eager[n], replay[n]
+        control = spec(model, draft, meshes[n], reverse=True,
+                       decode_graph="eager")
+        total += control["launches"]
+        rounds_equal = (same_rounds(run["rounds"], base["rounds"])
+                        and same_rounds(run["sampled_rounds"],
+                                        base["sampled_rounds"]))
+        differ = sum(a != b for sa, sb in zip(run["greedy"], base["greedy"])
+                     for a, b in zip(sa, sb))
+        say("tp_spec", card=card, dtype="float32", n_model=n,
+            mesh="virtual 1 x %d over cuda:0" % n, depth=depth,
+            dim=cfg["dim"], draft=LM_DRAFT, draft_len=LM_DRAFT_LEN,
+            draft_decoder="ShardedLM", requests=len(greedy),
+            max_new=max_new, greedy_tokens_differing=differ,
+            sampled_equal=run["sampled"] == base["sampled"],
+            rounds=len(run["rounds"]), rounds_equal=rounds_equal,
+            replayed_equal_eager=rep["greedy"] == run["greedy"],
+            replayed=rep["graph"]["replayed"],
+            k3_launches=run["launches"],
+            k3_launches_n_model_1=base["launches"],
+            control="draft vocab shards joined in reverse order",
+            control_stream_equal=control["greedy"] == base["greedy"],
+            control_rounds_equal=same_rounds(control["rounds"],
+                                             base["rounds"]),
+            control_tokens_a_round=per_round(control["rounds"]),
+            tokens_a_round=per_round(run["rounds"]),
+            tokens_a_round_n_model_1=per_round(base["rounds"]))
+        if run["greedy"] != base["greedy"] or \
+                run["sampled"] != base["sampled"] or not rounds_equal:
+            raise AssertionError(f"tp_spec f32: n_model {n} differs from "
+                                 f"n_model 1 ({differ} greedy tokens, "
+                                 f"rounds equal {rounds_equal})")
+        if rep["greedy"] != run["greedy"] or rep["graph"]["replayed"] <= 0:
+            raise AssertionError(f"tp_spec n_model {n}: replayed pool "
+                                 f"differs or never replayed {rep['graph']}")
+        if run["launches"] != n * base["launches"] or base["launches"] <= 0:
+            raise AssertionError(f"tp_spec n_model {n}: K3 launched "
+                                 f"{run['launches']} times, n_model 1 "
+                                 f"{base['launches']}")
+        if control["greedy"] != base["greedy"] or same_rounds(
+                control["rounds"], base["rounds"]):
+            raise AssertionError(f"tp_spec control n_model {n}: the reversed"
+                                 " draft must keep the stream and change the"
+                                 " rounds")
+    # the target as its own draft (16 heads: it shards too): every
+    # proposal is accepted, so the rounds' accepted counts carry the gate
+    # where the bench's random draft is almost never accepted
+    selfs = {n: spec(model, model, mesh, decode_graph="eager")
+             for n, mesh in meshes.items()}
+    total += sum(run["launches"] for run in selfs.values())
+    if selfs[1]["greedy"] != plain:
+        raise AssertionError("tp_spec self-draft n_model 1 differs from the "
+                             "plain pool")
+    for n in TP_SPEC["n_models"]:
+        run = selfs[n]
+        control = spec(model, model, meshes[n], reverse=True,
+                       decode_graph="eager")
+        total += control["launches"]
+        rounds_equal = same_rounds(run["rounds"], selfs[1]["rounds"])
+        say("tp_spec_self_draft", card=card, dtype="float32", n_model=n,
+            depth=depth, draft="the target itself", draft_len=LM_DRAFT_LEN,
+            stream_equal=run["greedy"] == plain, rounds=len(run["rounds"]),
+            rounds_equal=rounds_equal,
+            tokens_a_round=per_round(run["rounds"]),
+            tokens_a_round_n_model_1=per_round(selfs[1]["rounds"]),
+            k3_launches=run["launches"],
+            k3_launches_n_model_1=selfs[1]["launches"],
+            control="draft vocab shards joined in reverse order",
+            control_stream_equal=control["greedy"] == plain,
+            control_rounds_equal=same_rounds(control["rounds"],
+                                             selfs[1]["rounds"]),
+            control_tokens_a_round=per_round(control["rounds"]))
+        if run["greedy"] != plain or not rounds_equal or \
+                run["launches"] != n * selfs[1]["launches"]:
+            raise AssertionError(f"tp_spec self-draft n_model {n}: stream "
+                                 f"equal {run['greedy'] == plain}, rounds "
+                                 f"equal {rounds_equal}, K3 "
+                                 f"{run['launches']}")
+        if control["greedy"] != plain or same_rounds(control["rounds"],
+                                                     selfs[1]["rounds"]):
+            raise AssertionError(f"tp_spec self-draft control n_model {n}: "
+                                 "the reversed draft must keep the stream "
+                                 "and change the rounds")
+    del model, draft
+    torch.cuda.empty_cache()
+
+    # bf16 at full width: teacher-forced gaps, tokens a round, tokens/s
+    model16 = build_lm(cfg, "bf16", depth=cfg["depth"], seed=TP_SPEC["seed"])
+    draft16 = build_draft(cfg, "bf16", seed=TP_SPEC["draft_seed"])
+    runs = {}
+    for n, mesh in meshes.items():
+        runs[n] = spec(model16, draft16, mesh, decode_graph="eager")
+        fast = spec(model16, draft16, mesh, log=False, timed=True,
+                    decode_graph="graph")
+        runs[n]["tokens_per_s"] = fast["tokens_per_s"]
+        total += runs[n]["launches"] + fast["launches"]
+        torch.cuda.empty_cache()
+    tokens = torch.tensor(runs[1]["greedy"], device="cuda")
+    first = len(greedy[0]) - 1            # the first generated position
+
+    def rel(a, b):
+        return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+    want = {"target": teacher_forced_logits(model16, tokens)[:, first:-1],
+            "draft": teacher_forced_logits(draft16, tokens)[:, first:-1]}
+    for n in TP_SPEC["n_models"]:
+        gaps = {name: rel(teacher_forced_logits(
+                    ShardedLM(m, meshes[n]), tokens)[:, first:-1], want[name])
+                for name, m in (("target", model16), ("draft", draft16))}
+        run = runs[n]
+        gen = [(a != b) for sa, sb in zip(run["greedy"], runs[1]["greedy"])
+               for a, b in zip(sa[first + 1:], sb[first + 1:])]
+        say("tp_spec", card=card, dtype="bfloat16", n_model=n,
+            depth=cfg["depth"], max_rel_logit_diff=gaps,
+            tolerance=TP["bf16_rel_tol"],
+            greedy_token_share_differing=sum(gen) / len(gen),
+            tokens_a_round=per_round(run["rounds"]),
+            tokens_a_round_n_model_1=per_round(runs[1]["rounds"]),
+            decode_tokens_per_s=run["tokens_per_s"],
+            decode_tokens_per_s_n_model_1=runs[1]["tokens_per_s"],
+            k3_launches=run["launches"],
+            k3_launches_n_model_1=runs[1]["launches"],
+            tokens_per_s_note="informational, a virtual mesh on one card")
+        if not max(gaps.values()) <= TP["bf16_rel_tol"]:
+            raise AssertionError(f"tp_spec bf16: n_model {n} logits off by "
+                                 f"{gaps} of the largest (tolerance "
+                                 f"{TP['bf16_rel_tol']})")
+    del model16, draft16
+    torch.cuda.empty_cache()
+    return total
 
 # -- data parallelism on virtual meshes of the card -------------------------
 
@@ -4677,6 +5339,9 @@ def main() -> int:
     launches["paged_attention"] += phase_tp_decode(lm_cfg, smi)
     torch.cuda.empty_cache()
     clock.lap("default_pool_tp_decode")
+    launches["paged_attention"] += phase_tp_spec(lm_cfg, smi)
+    torch.cuda.empty_cache()
+    clock.lap("tp_spec")
     for name, n in phase_data_parallel(smi).items():
         launches[name] += n
     torch.cuda.empty_cache()
@@ -4695,13 +5360,18 @@ def main() -> int:
     clock.lap("lm_train")
     # the routed FFN: prefill through K2, training through K2/K4/K5, served
     launches["flash_attention"] += phase_moe_prefill(lm_cfg, smi)
-    moe = phase_moe_train(smi)
+    moe, dense_step = phase_moe_train(smi)
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         launches[name] += moe[name]
+    clock.lap("moe_prefill_train")
+    for name, n in phase_expert_parallel(smi, dense_step).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    clock.lap("expert_parallel")
     phase_moe_serving(lm_cfg, smi)
     phase_failed_capture(smi)
-    clock.lap("moe_failed_capture")
+    clock.lap("moe_serving_failed_capture")
     say("phase_seconds", card=smi, **clock.laps)
 
     replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",

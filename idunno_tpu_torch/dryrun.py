@@ -23,11 +23,14 @@ by default, which must be present; ``cpu`` as the tests run it;
   ``make_attn_fn("ring", mesh=)``, K2 per block pair on the card);
 - pipeline parallelism: one pipelined-LM train step over N stages
   (``engine/pipeline_lm.py``), and a PP × DP step over a (2, N/2)
-  (data, stage) mesh when N ≥ 4 and even.
+  (data, stage) mesh when N ≥ 4 and even;
+- expert parallelism: a switch-MoE LM forward with its N experts sharded
+  over an expert mesh of N (vocab 64, dim 32, depth 1, 2 heads, top-min(2,
+  N), capacity factor 4, tokens (2, 8·N): ``models/moe.py:
+  MoETransformerLM(mesh=)``).
 
-The JAX dry run's expert section is not ported: it prints ``not ported:
-step 3e`` (ROADMAP.md §1) on a line of its own. The last line is
-``dryrun_multichip ok: ...``; any failure raises and exits non-zero.
+The last line is ``dryrun_multichip ok: ...``; any failure raises and
+exits non-zero.
 
 `two_process_check(device)` starts two processes of this module (its
 ``--process-id`` mode) that join through
@@ -51,9 +54,6 @@ import sys
 import time
 
 import torch
-
-NOT_PORTED = (("expert parallelism", "3e"),)
-
 
 def _check(ok: bool, what: str) -> None:
     """A check of the run (not an ``assert``: ``-O`` would drop it)."""
@@ -113,9 +113,7 @@ def dryrun_multichip(n_devices: int, device: str | None = None) -> str:
 
     sp_note = _sequence_parallel(n_devices, dev)
     pp_note = _pipeline(n_devices, dev)
-    for what, step_id in NOT_PORTED:
-        print(f"not ported: step {step_id} ({what}; ROADMAP.md §1)",
-              flush=True)
+    ep_note = _expert_parallel(n_devices, dev)
 
     # --- continuous batching: GQA + int8 KV cache, slots over the data axis
     cb_mesh = virtual_mesh(n_devices, 1, dev)
@@ -183,7 +181,7 @@ def dryrun_multichip(n_devices: int, device: str | None = None) -> str:
             f"{dev}, train loss={loss:.4f}, inference records="
             f"{len(res.records)} (+{len(res_s2d.records)} s2d), decode "
             f"pool slots={n_devices} over {n_devices} data groups (mqa kv "
-            f"+ int8 cache), {tp_note}, {sp_note}, {pp_note}")
+            f"+ int8 cache), {tp_note}, {sp_note}, {pp_note}, {ep_note}")
 
 
 def _sequence_parallel(n_devices: int, dev) -> str:
@@ -241,6 +239,27 @@ def _pipeline(n_devices: int, dev) -> str:
         note += f", pp-x-dp mesh=2x{n_devices // 2}"
     print(f"pipeline parallelism: {note}", flush=True)
     return note
+
+
+def _expert_parallel(n_devices: int, dev) -> str:
+    """The switch-MoE LM's forward with its experts sharded over an
+    expert mesh of ``n_devices`` (the JAX section's shapes)."""
+    from idunno_tpu_torch.models.moe import MoETransformerLM
+    from idunno_tpu_torch.parallel.mesh import EXPERT_AXIS, virtual_mesh
+
+    k = min(2, n_devices)
+    lm = _seeded(MoETransformerLM(
+        vocab=64, dim=32, depth=1, num_heads=2, n_experts=n_devices,
+        capacity_factor=4.0, k=k,
+        mesh=virtual_mesh(1, n_devices, dev, axis=EXPERT_AXIS)), 3, dev)
+    with torch.no_grad():
+        logits = lm(torch.zeros((2, 8 * n_devices), dtype=torch.int64,
+                                device=dev))
+    _check(logits.shape == (2, 8 * n_devices, 64)
+           and bool(torch.isfinite(logits).all()), "expert-parallel LM")
+    print(f"expert parallelism: {n_devices} experts over {n_devices} "
+          f"shards, top-{k}", flush=True)
+    return f"ep experts={n_devices} (top-{k})"
 
 
 # -- two processes ------------------------------------------------------------

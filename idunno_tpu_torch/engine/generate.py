@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from idunno_tpu_torch.engine.checkpoint import decode_state, encode_state
+from idunno_tpu_torch.models.convert import dense_state_dict
 from idunno_tpu_torch.models.transformer import (ShardedLM, TransformerLM,
                                                  decode_apply)
 from idunno_tpu_torch.ops.attention import full_attention
@@ -207,7 +208,9 @@ def stepwise_logits(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
 # with its own weights. Dense and switch-MoE architectures persist (the MoE
 # factory publishes a declarative twin, `models/moe.py:switch_ffn_factory(
 # ...).lm_store_ffn`, stored as ``ffn``); a custom attention or a custom
-# ``ffn_factory`` is code, not config, and is refused.
+# ``ffn_factory`` is code, not config, and is refused. An expert-parallel
+# model's mesh is placement, not config: its experts are stored joined
+# (`models/convert.py:dense_state_dict`) and it loads dense.
 
 _LM_CONFIG_FIELDS = ("vocab", "dim", "depth", "num_heads",
                      "num_kv_heads", "causal", "ffn_every",
@@ -252,8 +255,11 @@ def save_lm(store, name: str, model: TransformerLM) -> int:
         raise ValueError(
             "save_lm stores dense or switch-MoE LMs only (this custom "
             "ffn_factory is code, not serializable config)")
+    # an expert-parallel model stores its experts joined, as the JAX
+    # package stores its params: a stored model loads dense
     return store.put_bytes(lm_store_name(name),
-                           encode_state(model.state_dict(), {"lm": config}))
+                           encode_state(dense_state_dict(model.state_dict()),
+                                        {"lm": config}))
 
 
 def load_lm(store, name: str, version: int | None = None,

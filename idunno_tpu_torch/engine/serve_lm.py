@@ -69,8 +69,16 @@ without a mesh builds a pure-TP mesh: over the visible cards on a card
 (distinct devices, or `MeshShapeError`), and a virtual mesh over the one
 CPU on the CPU (`parallel/mesh.py`). A mesh whose cells are distinct
 devices runs its dispatches eagerly (a CUDA graph records one device's
-work). Speculative pools under TP wait for ROADMAP.md §1 step 3a-ii and
-routed ones for step 3e; both raise a ValueError naming ROADMAP.md.
+work). A speculative pool's draft decodes through its own `ShardedLM`
+when its Q heads divide ``n_model`` (its KV heads and vocab split or
+replicate by the target's rules, its cache a `ShardedCache`), and
+otherwise through a `ShardedLM` over the data groups' lead devices alone
+(one whole replica a group; a routed draft is itself, on the lead);
+the verify chunk runs through the target's `ShardedLM` (K3 per shard on
+a paged pool), and the round's picks merge per-shard maxima while its
+sampled rows and log-probabilities read the vocab parts joined in shard
+order. A routed target refuses ``n_model > 1`` as the JAX package's pool
+does (the TP split targets dense scanned blocks).
 """
 from __future__ import annotations
 
@@ -93,9 +101,10 @@ from idunno_tpu_torch.ops.paged_attention import (PagedContext,
                                                   paged_attention_kernel,
                                                   resolve_paged_kernel)
 from idunno_tpu_torch.ops.quantize import quantize_tree
-from idunno_tpu_torch.ops.sampling import (draw_sampled, filter_on,
-                                           filtered_probs, fused_decode_tail,
-                                           pick_token, token_logprob)
+from idunno_tpu_torch.ops.sampling import (VocabShards, draw_sampled,
+                                           filter_on, filtered_probs,
+                                           fused_decode_tail, pick_token,
+                                           shard_argmax, token_logprob)
 from idunno_tpu_torch.parallel.sharding import (sampling_collective_bytes,
                                                 tp_collective_bytes)
 
@@ -108,11 +117,6 @@ _COUNTED = (paged_attention_kernel,)
 # measured slots-scaling curve on the TPU, not re-measured on a card;
 # callers that want another batch pass `slots` explicitly
 DEFAULT_SLOTS = 16
-
-
-def _later(what: str, where: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it comes with {where} "
-                      "(ROADMAP.md)")
 
 
 @dataclass
@@ -323,6 +327,24 @@ class _Replay:
     pool_bytes: int
 
 
+def _argmax(logits) -> torch.Tensor:
+    """Greedy picks over the vocab of logits (a tensor or `VocabShards`:
+    per-shard maxima merged in shard order, ties to the lowest id as
+    ``torch.argmax`` over the whole row)."""
+    if isinstance(logits, VocabShards):
+        return shard_argmax(logits.parts)
+    return torch.argmax(logits, dim=-1)
+
+
+def _whole(logits, device: torch.device) -> torch.Tensor:
+    """The logits over the whole vocab on ``device``: `VocabShards` parts
+    joined in shard order (what a speculative round's sampled rows and
+    log-probabilities read: each row's whole distribution)."""
+    if isinstance(logits, VocabShards):
+        return torch.cat([p.to(device) for p in logits.parts], dim=-1)
+    return logits
+
+
 def _make_paged_ctx(pages: dict, tables: torch.Tensor,
                     lengths: torch.Tensor, start: int,
                     kernel: str) -> PagedContext:
@@ -411,7 +433,8 @@ class DecodeServer:
     which carries its own weights, and ``None`` where the params stood.
     The draft proposes ``draft_len`` tokens a round and keeps its own
     contiguous per-row cache (on a paged pool only the target attends
-    through the block table); it is not quantized by ``quantize``.
+    through the block table); it is not quantized by ``quantize``. Under
+    a mesh it shards as the JAX package's draft does (module docstring).
 
     ``decode_graph`` is ``auto`` (``graph`` on CUDA, ``eager`` on the
     CPU), ``graph`` (replay each all-greedy dispatch as one captured CUDA
@@ -469,8 +492,8 @@ class DecodeServer:
             # take: MoE pools keep the gathered path
             raise ValueError("paged_kernel requires the scanned decode "
                              "layout (dense scan-compatible blocks)")
-        mesh, n_model = self._resolve_mesh(mesh, int(n_model), draft,
-                                           slots, device)
+        mesh, n_model = self._resolve_mesh(mesh, int(n_model), slots,
+                                           device)
         self.mesh, self.n_model = mesh, n_model
         self.device = mesh.lead if mesh is not None else resolve_device(device)
         if mesh is not None and len(mesh.distinct()) > 1:
@@ -544,6 +567,12 @@ class DecodeServer:
             # decode re-reads every weight per step: int8 residency halves
             # those bytes against bf16; the dequantize runs in each forward
             self.model = quantize_tree(copy.deepcopy(self.model))
+        if mesh is not None and n_model == 1 and getattr(
+                model, "ffn_factory", None) is not None:
+            # the JAX package serves it, routing the whole batch together
+            raise ValueError(
+                "a routed pool over a data-only mesh is not ported yet "
+                "(ROADMAP.md §3, open fault 2)")
         # what every decode call runs: the model, or its tensor-parallel
         # decoder over the mesh (the same weights, cut per shard)
         self._dec = (self.model if mesh is None
@@ -554,11 +583,12 @@ class DecodeServer:
         self.decode_steps = decode_steps
         self.eos_id = eos_id
         self.draft_len = draft_len
-        self._draft_model = self._draft_cache = None
+        self._draft_model = self._draft_dec = self._draft_cache = None
         self._draft_prefix_cache = None
         if draft is not None:
             self._draft_model = draft[0].to(self.device).eval()
-            self._draft_cache = init_cache(self._draft_model, slots, max_len)
+            self._draft_dec = self._draft_decoder(self._draft_model)
+            self._draft_cache = init_cache(self._draft_dec, slots, max_len)
         # the captured all-greedy dispatch (graph pools), made at the first
         # such dispatch; replayed and eager dispatch counts
         self._replay: _Replay | None = None
@@ -623,7 +653,7 @@ class DecodeServer:
                                                  pl)
                 if self._draft_model is not None:
                     self._draft_prefix_cache, _ = _prefill(
-                        self._draft_model, pf, pl, pl)
+                        self._draft_row_dec(0), pf, pl, pl)
 
         if self.kv_block_size:
             from idunno_tpu_torch.engine.kv_blocks import KVBlockPool
@@ -636,7 +666,7 @@ class DecodeServer:
             self._radix = RadixPrefixCache(self._block_pool)
 
     @staticmethod
-    def _resolve_mesh(mesh, n_model: int, draft, slots: int, device):
+    def _resolve_mesh(mesh, n_model: int, slots: int, device):
         """The pool's mesh and model-axis extent (the JAX package's rules):
         ``n_model > 1`` with no mesh builds a pure-TP mesh; a mesh is
         authoritative, and a conflicting ``n_model`` raises."""
@@ -656,9 +686,6 @@ class DecodeServer:
                     else make_mesh(1, n_model))
         if mesh is None:
             return None, n_model
-        if draft is not None:
-            raise _later("speculative decoding under tensor parallelism",
-                         "§1 step 3a-ii")
         mesh_model = mesh.shape[MODEL_AXIS]
         if n_model == 1:
             n_model = mesh_model            # the mesh is authoritative
@@ -687,6 +714,33 @@ class DecodeServer:
         if self.mesh is None:
             return self.model
         return self._dec.for_group(self._group(slot))
+
+    def _draft_decoder(self, draft: TransformerLM):
+        """What the draft decodes through (the JAX package's placement):
+        the draft itself without a mesh; under one, its own `ShardedLM`
+        when its Q heads divide ``n_model``, else a `ShardedLM` over a
+        mesh of the data groups' lead devices (one whole replica a
+        group, the JAX ``replicate``). A routed draft cannot shard and
+        stays itself, on the lead, for the whole batch (routing couples
+        the rows of a batch, which the JAX package routes together)."""
+        from idunno_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = self.mesh
+        if mesh is None or getattr(draft, "ffn_factory", None) is not None:
+            return draft
+        if draft.num_heads % self.n_model == 0:
+            return ShardedLM(draft, mesh)
+        leads = [row[0] for row in mesh.devices]
+        return ShardedLM(draft, make_mesh(len(leads), 1, devices=leads,
+                                          virtual=True))
+
+    def _draft_row_dec(self, slot: int):
+        """The draft's counterpart of `_row_dec`: its decoder of the data
+        group that holds slot ``slot``."""
+        dec = self._draft_dec
+        if not isinstance(dec, ShardedLM):
+            return dec
+        return dec.for_group(dec.group_of(slot, self.slots))
 
     # -- client surface ---------------------------------------------------
 
@@ -1487,13 +1541,13 @@ class DecodeServer:
             dsuffix = torch.zeros((1, dbucket), dtype=torch.int64)
             dsuffix[0, :suffix_true] = torch.tensor(per_req)
             dsuffix = dsuffix.to(dev)
+            ddec = self._draft_row_dec(slot)
             if self.prefix:
                 drow, _ = _prefill_suffix(
-                    self._draft_model, self._draft_prefix_cache, dsuffix,
-                    suffix_true, pl, dbucket)
+                    ddec, self._draft_prefix_cache, dsuffix, suffix_true, pl,
+                    dbucket)
             else:
-                drow, _ = _prefill(self._draft_model, dsuffix, suffix_true,
-                                   dbucket)
+                drow, _ = _prefill(ddec, dsuffix, suffix_true, dbucket)
             _insert_cache(self._draft_cache, drow, slot)
         self._cursors[slot] = true_len
         self._temps[slot] = req.temperature
@@ -1671,9 +1725,11 @@ class DecodeServer:
 
           1. the draft runs ``draft_len`` single-token steps → proposals
              (greedy rows: argmax; sampled rows: a draw from the draft's
-             temperature-scaled, filtered distribution);
+             temperature-scaled, filtered distribution), through its
+             `ShardedLM` under a mesh (a routed draft: itself);
           2. the target verifies committed-last + all proposals in ONE
-             chunked per-row apply (``draft_len + 1`` positions);
+             chunked per-row apply (``draft_len + 1`` positions; under a
+             mesh through its `ShardedLM`, K3 per shard on a paged pool);
           3. `greedy_commit` (no live row samples) or `spec_commit`, the
              EOS cut, and the token and logprob writes.
 
@@ -1691,12 +1747,12 @@ class DecodeServer:
         props, qrows = [], []
         tok, dcur = prev, cursors
         for _ in range(gamma):
-            dl = decode_apply(self._draft_model, self._draft_cache,
+            dl = decode_apply(self._draft_dec, self._draft_cache,
                               tok[:, None], dcur)[:, 0]            # [S, V]
-            nxt = torch.argmax(dl, dim=-1)
+            nxt = _argmax(dl)
             if sampled:
-                q = self._sample_probs(dl[sampled][:, None], sampled,
-                                       filtered)[:, 0]
+                q = self._sample_probs(_whole(dl, dev)[sampled][:, None],
+                                       sampled, filtered)[:, 0]
                 nxt[sampled] = draw_sampled(q, gens)
                 qrows.append(q)
             props.append(nxt)
@@ -1704,9 +1760,11 @@ class DecodeServer:
         proposals = torch.stack(props, dim=1)                      # [S, γ]
 
         tin = torch.cat([prev[:, None], proposals], dim=1)         # [S, γ+1]
-        logits = decode_apply(self.model, self._cache, tin, cursors,
+        logits = decode_apply(self._dec, self._cache, tin, cursors,
                               paged=ctx)                           # f32
-        tpred = torch.argmax(logits, dim=-1)                       # [S, γ+1]
+        tpred = _argmax(logits)                                    # [S, γ+1]
+        if sampled or self.track_logprobs:
+            logits = _whole(logits, dev)
 
         if sampled:
             s, v = logits.shape[0], logits.shape[-1]

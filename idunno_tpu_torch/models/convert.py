@@ -16,10 +16,15 @@ inverse of ``idunno_tpu/models/convert.py:convert_resnet/convert_alexnet``
 - Transformer blocks (the LM's and ViT's): DenseGeneral q/k/v kernels
   [dim, H, hd] and the output kernel [H, hd, dim] flatten to the port's
   Linear over H·hd (`_block_state_dict`); a routed block's ``ffn``
-  (``block{i}/ffn/router``, ``ffn/{w1,b1,w2,b2}``) comes across too.
+  (``block{i}/ffn/router``, ``ffn/{w1,b1,w2,b2}``) comes across too. An
+  expert-parallel flax tree has the dense layout (the mesh is code, not
+  params): `expert_parallel_state_dict` cuts its expert kernels over the
+  shards of the port's expert-parallel module, and `dense_state_dict`
+  joins them back.
 """
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import numpy as np
@@ -207,3 +212,56 @@ def pipelined_lm_params_from_flax(params: dict, depth: int,
 
     return partition_lm_params(lm_state_dict_from_flax(params), depth,
                                num_stages)
+
+
+# a routed layer's expert kernels: dense ``[prefix.]w1``, expert-parallel
+# ``[prefix.]shards.{s}.w1`` (the prefix is ``blocks.{i}.ffn.`` in an LM)
+_DENSE_EXPERT = re.compile(r"^(.*\.)?(w1|b1|w2|b2)$")
+_SHARD_EXPERT = re.compile(r"^(.*\.)?shards\.(\d+)\.(w1|b1|w2|b2)$")
+
+
+def expert_parallel_state_dict(state: dict,
+                               n_shards: int) -> dict[str, torch.Tensor]:
+    """A routed LM's dense state dict (``lm_state_dict_from_flax``'s, or a
+    dense module's) in the layout of the same model with its experts cut
+    over ``n_shards`` expert shards (``MoETransformerLM(mesh=)``, or of a
+    ``SwitchFFN``'s own state dict): each ``ffn.{w1,b1,w2,b2}`` [E, ...]
+    becomes ``ffn.shards.{s}.{name}``, the
+    contiguous block of experts ``[s·E/p, (s+1)·E/p)``. Every other entry
+    passes through. ``load_state_dict`` then copies each shard to the
+    device its module keeps it on."""
+    out: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        m = _DENSE_EXPERT.match(key)
+        if m is None:
+            out[key] = value
+            continue
+        if value.shape[0] % n_shards:
+            raise ValueError(f"{key}: {value.shape[0]} experts not "
+                             f"divisible by {n_shards} shards")
+        for s, part in enumerate(value.tensor_split(n_shards)):
+            out[f"{m.group(1) or ''}shards.{s}.{m.group(2)}"] = part
+    return out
+
+
+def dense_state_dict(state: dict) -> dict[str, torch.Tensor]:
+    """The inverse of `expert_parallel_state_dict`: each routed block's
+    expert shards joined in shard order into ``ffn.{w1,b1,w2,b2}`` [E,
+    ...] on shard 0's device. A dense state dict passes through."""
+    out: dict[str, torch.Tensor] = {}
+    shards: dict[str, dict[int, torch.Tensor]] = {}
+    for key, value in state.items():
+        m = _SHARD_EXPERT.match(key)
+        if m is None:
+            out[key] = value
+            continue
+        shards.setdefault(f"{m.group(1) or ''}{m.group(3)}", {})[
+            int(m.group(2))] = value
+    for key, parts in shards.items():
+        if sorted(parts) != list(range(len(parts))):
+            raise ValueError(f"{key}: expert shards {sorted(parts)} are not "
+                             f"0..{len(parts) - 1}")
+        first = parts[0]
+        out[key] = torch.cat([parts[s].to(first.device)
+                              for s in range(len(parts))])
+    return out

@@ -581,7 +581,9 @@ class ShardedLM:
     batch splits over them in order (the pool's slots over the data
     axis), each group on its own row of the mesh. `for_group` gives the
     decoder of one group, which a single-row prefill uses. Routed (MoE)
-    blocks refuse: expert parallelism is ROADMAP.md §1 step 3e."""
+    blocks refuse, as the JAX package's pool refuses them under tensor
+    parallelism: its TP split targets the scanned layout of dense
+    blocks."""
 
     def __init__(self, model: TransformerLM, mesh, *,
                  groups: tuple[int, ...] | None = None) -> None:
@@ -591,9 +593,7 @@ class ShardedLM:
         if getattr(model, "ffn_factory", None) is not None:
             raise ValueError(
                 "n_model > 1 requires the scanned decode layout (dense "
-                "scan-compatible blocks): routed blocks under tensor "
-                "parallelism come with expert parallelism (ROADMAP.md §1, "
-                "step 3e)")
+                "scan-compatible blocks)")
         self.model, self.mesh = model, mesh
         self.n_data = mesh.shape[DATA_AXIS]
         self.n_model = n = mesh.shape[MODEL_AXIS]

@@ -10,12 +10,12 @@ and the column split of wide layers) that tensor-parallel decode runs
 over (``models/transformer.py:ShardedLM``), sequence parallelism (ring
 attention, ``parallel/ring_attention.py``, and Ulysses,
 ``parallel/ulysses.py``), the GPipe schedule (``parallel/pipeline.py``)
-and the single-device half of expert routing
-(``parallel/expert.py:switch_dispatch``). Expert parallelism comes later
-(ROADMAP.md §1, step 3e). ``ring_attention`` is not re-exported here:
-the name would hide its module, ``parallel.ring_attention``.
+and expert routing (``parallel/expert.py``: ``switch_dispatch``, and
+``expert_parallel_apply``, the all-to-all exchange over an expert axis).
+``ring_attention`` is not re-exported here: the name would hide its
+module, ``parallel.ring_attention``.
 """
 from idunno_tpu_torch.parallel.mesh import (  # noqa: F401
-    STAGE_AXIS, local_mesh, make_mesh, virtual_mesh)
+    EXPERT_AXIS, STAGE_AXIS, local_mesh, make_mesh, virtual_mesh)
 from idunno_tpu_torch.parallel.pipeline import pipeline_apply  # noqa: F401
 from idunno_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401

@@ -1,5 +1,5 @@
-"""Switch-style top-1 dispatch of tokens to experts, a port of the
-single-device half of ``idunno_tpu/parallel/expert.py``.
+"""Expert parallelism: switch-style top-1 MoE dispatch by all-to-all, a
+port of ``idunno_tpu/parallel/expert.py``.
 
 Tokens are routed to one expert each and packed into fixed ``[E, C, d]``
 capacity buffers (static shapes; overflow tokens are dropped, the standard
@@ -7,19 +7,37 @@ switch trade-off). ``switch_dispatch`` builds the one-hot dispatch and the
 gate-weighted combine tensors that `models/moe.py:SwitchFFN` contracts on
 its dense path, where every expert lives on the one device.
 
+``expert_parallel_apply`` runs the layer with its experts sharded over an
+axis of a ``parallel/mesh.py:Mesh`` (the JAX package's ``shard_map`` with
+two tiled ``all_to_all``\\ s, written out): each shard dispatches its own
+block of tokens, one exchange (`all_to_all`) gives every shard the
+buffers of the experts it owns, the local expert FFNs run, and the mirror
+exchange returns the outputs to the tokens' shards for the combine. One
+process drives every shard, so an exchange is copies between the mesh's
+devices (none on a virtual mesh, whose shards share one device); autograd
+runs through them. A mesh across processes raises (``Mesh.along``).
+
 Every op here is shape-static and reads nothing back to the host, so a
 routed decode step can be recorded as a CUDA graph: one-hots are
 comparisons against an ``arange``, never ``F.one_hot`` with an inferred
 class count.
-
-``expert_parallel_apply``, the all-to-all exchange over a mesh axis, comes
-with expert parallelism (ROADMAP.md §1, step 3e) and raises until then.
 """
 from __future__ import annotations
 
+from typing import Any, Callable
+
 import torch
 
-EXPERT_AXIS = "expert"
+from idunno_tpu_torch.parallel.mesh import EXPERT_AXIS, Mesh
+from idunno_tpu_torch.utils.tracing import annotate
+
+# profiler ranges around the [n, E, C] dispatch (building the tensors and
+# packing the expert buffers), the exchanges between expert shards, and
+# the combine: the kernels launched inside each, and the backward of the
+# ops recorded there, are its device time
+DISPATCH_SPAN, EXCHANGE_SPAN, COMBINE_SPAN = ("moe.dispatch",
+                                              "moe.all_to_all",
+                                              "moe.combine")
 
 
 def switch_dispatch(gate_idx: torch.Tensor, gate_w: torch.Tensor,
@@ -45,9 +63,83 @@ def switch_dispatch(gate_idx: torch.Tensor, gate_w: torch.Tensor,
     return dispatch, combine
 
 
-def expert_parallel_apply(*args, **kwargs):
-    """The MoE layer with its experts sharded over a mesh axis (the JAX
-    package's all-to-all dispatch): not ported yet."""
-    raise ValueError("expert parallelism (expert_parallel_apply, mesh=) is "
-                     "not ported yet: it comes with the parallelism slice, "
-                     "ROADMAP.md §1 step 3e")
+def all_to_all(parts: list, devices: list, *, split_axis: int,
+               concat_axis: int) -> list:
+    """``jax.lax.all_to_all(..., tiled=True)`` over one process's shards:
+    shard ``j`` receives chunk ``j`` of every shard's part (cut into
+    ``len(parts)`` equal chunks along ``split_axis``) on ``devices[j]``,
+    concatenated along ``concat_axis`` in source-shard order."""
+    p = len(parts)
+    chunks = [part.tensor_split(p, dim=split_axis) for part in parts]
+    return [torch.cat([chunks[s][j].to(dev) for s in range(p)],
+                      dim=concat_axis) for j, dev in enumerate(devices)]
+
+
+def _shard_params(stacked_params, devices: list) -> list[dict]:
+    """Each shard's expert params on its device: a dict of [E, ...] leaves
+    cut into ``len(devices)`` contiguous blocks of experts, or a list of
+    per-shard dicts (moved where a leaf lies elsewhere)."""
+    p = len(devices)
+    if isinstance(stacked_params, dict):
+        cut = {k: v.tensor_split(p, dim=0) for k, v in stacked_params.items()}
+        return [{k: v[s].to(dev) for k, v in cut.items()}
+                for s, dev in enumerate(devices)]
+    if len(stacked_params) != p:
+        raise ValueError(f"{len(stacked_params)} expert shards' params for "
+                         f"an axis of {p}")
+    return [{k: v.to(dev) for k, v in sp.items()}
+            for sp, dev in zip(stacked_params, devices)]
+
+
+def expert_parallel_apply(expert_fn: Callable[[Any, torch.Tensor],
+                                              torch.Tensor],
+                          stacked_params, x: torch.Tensor,
+                          gate_idx: torch.Tensor, gate_w: torch.Tensor,
+                          mesh: Mesh, *, axis: str = EXPERT_AXIS,
+                          capacity: int) -> torch.Tensor:
+    """Run the MoE layer with experts sharded over ``axis`` of ``mesh``.
+
+    ``x`` [N, d] and the gates [N] are cut over the axis's shards in
+    contiguous blocks, in order (N divisible by the axis size).
+    ``stacked_params`` are the experts' params: a dict of [E, ...] leaves,
+    shard ``s`` owning experts ``[s·E/p, (s+1)·E/p)`` (E divisible by the
+    axis size), or a list of the p shards' dicts of [E/p, ...] leaves.
+    ``expert_fn(params, buf)`` runs a shard's experts on their buffers
+    [E/p, p·C, d] (batched over the leading expert axis: the JAX
+    ``vmap(expert_fn)``) and returns them in f32. Each shard dispatches its
+    own tokens at ``capacity`` slots an expert, so which tokens drop
+    depends on the axis size, as in the JAX package. Returns [N, d] f32 on
+    ``x``'s device."""
+    devices = mesh.along(axis)
+    p = len(devices)
+    shards = _shard_params(stacked_params, devices)
+    n_experts = sum(next(iter(sp.values())).shape[0] for sp in shards)
+    if n_experts % p:
+        raise ValueError(f"{n_experts} experts not divisible by {axis!r} "
+                         f"axis size {p}")
+    n = x.shape[0]
+    if n % p:
+        raise ValueError(f"{n} routing units not divisible by {axis!r} "
+                         f"axis size {p}")
+    per = n // p
+    bufs, combines = [], []
+    with annotate(DISPATCH_SPAN):
+        for s, dev in enumerate(devices):
+            rows = slice(s * per, (s + 1) * per)
+            dispatch, combine = switch_dispatch(
+                gate_idx[rows].to(dev), gate_w[rows].to(dev), n_experts,
+                capacity)
+            bufs.append(torch.einsum("nec,nd->ecd", dispatch,
+                                     x[rows].to(dev, torch.float32)))
+            combines.append(combine)
+    with annotate(EXCHANGE_SPAN):
+        # group tokens by owning shard: [E/p, p·C, d] on each owner
+        bufs = all_to_all(bufs, devices, split_axis=0, concat_axis=1)
+    outs = [expert_fn(sp, buf) for sp, buf in zip(shards, bufs)]
+    with annotate(EXCHANGE_SPAN):
+        # and back to the tokens' shards: [E, C, d] on each source
+        outs = all_to_all(outs, devices, split_axis=1, concat_axis=0)
+    with annotate(COMBINE_SPAN):
+        return torch.cat([
+            torch.einsum("ecd,nec->nd", out, combine).to(x.device)
+            for out, combine in zip(outs, combines)])

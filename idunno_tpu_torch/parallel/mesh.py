@@ -13,10 +13,12 @@ Axis conventions (the JAX package's):
              or the sequence of ring and Ulysses attention
     model  — tensor parallelism for wide layers (the Megatron split)
     stage  — pipeline stages (``parallel/pipeline.py``)
+    expert — the experts of a routed FFN (``parallel/expert.py``)
 
 A mesh is a grid of two named axes: ``(data, model)`` by default, or
-``(data, stage)`` for a pipeline (``axis=STAGE_AXIS``), whose 1-D stage
-mesh is the grid of one data row.
+``(data, stage)`` for a pipeline (``axis=STAGE_AXIS``) and ``(data,
+expert)`` for expert parallelism (``axis=EXPERT_AXIS``), whose 1-D
+stage or expert mesh is the grid of one data row.
 
 A mesh's devices are distinct, as the JAX package's are. The one
 exception is a *virtual* mesh, which names one device more than once and
@@ -42,6 +44,7 @@ import torch
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 STAGE_AXIS = "stage"
+EXPERT_AXIS = "expert"
 
 
 class MeshShapeError(ValueError):

@@ -875,3 +875,145 @@ def test_bf16_ring_pairs_on_card_within_bound(cuda_device, causal):
             _assert_within_bound(name, got, want, qs[my], ks[src], vs[src],
                                  diag, do=dos[my], lse=lses[my],
                                  delta=deltas[my])
+
+
+# -- speculative pools under TP: K3 per shard in the verify chunk ---------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_tp_speculative_verify_runs_k3_per_shard(cuda_device, n_model):
+    """A speculative paged pool on a virtual mesh of the card, its draft
+    sharded beside the target (f32, TF32 off, eager so every round is
+    logged, ``chip_smoke.py:record_rounds``): the n_model 1 pool's
+    greedy streams, proposals and accepted counts, and n_model times its
+    K3 launches (every verify chunk and suffix prefill runs K3 once a
+    layer and model shard)."""
+    from chip_smoke import record_rounds
+    from idunno_tpu_torch.engine.serve_lm import DecodeServer
+    from idunno_tpu_torch.models.transformer import ShardedLM
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _small_lm(cuda_device, dim=256, heads=4, seed=3)
+    draft = _small_lm(cuda_device, dim=64, heads=4, seed=5)
+    rng = np.random.default_rng(6)
+    head = [int(t) for t in rng.integers(1, 257, 12)]
+    prompts = [head + [int(t) for t in rng.integers(1, 257, 4)]
+               for _ in range(6)]
+    kw = dict(slots=4, prompt_len=16, max_len=64, decode_steps=2,
+              kv_block_size=4, paged_kernel="kernel", decode_graph="eager",
+              prompt_buckets=(4, 8, 16), draft=(draft, None), draft_len=3,
+              device="cuda")
+    streams, launches, logs = {}, {}, {}
+    for n in (1, n_model):
+        mesh = None if n == 1 else virtual_mesh(1, n, "cuda:0")
+        srv = DecodeServer(model, mesh=mesh, **kw)
+        assert n == 1 or isinstance(srv._draft_dec, ShardedLM)
+        logs[n] = []
+        torch.cuda.synchronize()
+        before = paged_attention_kernel.launches
+        with record_rounds(srv, logs[n]):
+            ids = [srv.submit(p, max_new=16) for p in prompts]
+            done = {c.id: c.tokens for c in srv.run_until_drained()}
+        streams[n] = [done[i] for i in ids]
+        launches[n] = paged_attention_kernel.launches - before
+    assert streams[n_model] == streams[1]
+    assert launches[n_model] == n_model * launches[1] > 0
+    assert len(logs[n_model]) == len(logs[1])
+    for (pa, aa, act), (pb, ab, bct) in zip(logs[n_model], logs[1]):
+        assert torch.equal(act, bct)
+        assert torch.equal(pa[act], pb[act]) and torch.equal(aa[act], ab[act])
+
+
+# -- expert parallelism: K2/K4/K5 in an EP train step ----------------------------
+
+def _routed_lm(device, mesh, seed):
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.moe import MoETransformerLM
+    from idunno_tpu_torch.models.transformer import make_attn_fn
+    with torch.device(device):
+        model = MoETransformerLM(vocab=256, dim=256, depth=2, num_heads=4,
+                                 n_experts=4, capacity_factor=4.0,
+                                 attn_fn=make_attn_fn("flash"), mesh=mesh,
+                                 compute_dtype=torch.bfloat16)
+    init_like_flax(model, torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [2, 4])
+def test_expert_parallel_train_step_runs_k2_k4_k5(cuda_device, p):
+    """An expert-parallel routed LM (experts over a virtual expert mesh of
+    the card, no-drop capacity, bf16 compute over f32 parameters) takes
+    one fused-AdamW step through the flash kernels: K2 once a block
+    forward, K4 and K5 once a block backward; its loss equals the dense
+    model's on the same seeded weights within 1e-3, and the experts'
+    gradients are finite and nonzero."""
+    from idunno_tpu_torch.engine.train import TrainState, adamw, flat_tx
+    from idunno_tpu_torch.engine.train_lm import make_lm_train_step
+    from idunno_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
+        flash_attention_kernel)
+    from idunno_tpu_torch.parallel.mesh import EXPERT_AXIS, virtual_mesh
+    kernels = (flash_attention_kernel, flash_attention_bwd_dq_kernel,
+               flash_attention_bwd_dkv_kernel)
+    tokens = torch.from_numpy(np.random.default_rng(p).integers(
+        0, 256, (2, 256))).to(cuda_device)
+    losses = {}
+    for name, mesh in (("dense", None),
+                       ("ep", virtual_mesh(1, p, "cuda:0",
+                                           axis=EXPERT_AXIS))):
+        model = _routed_lm(cuda_device, mesh, seed=11)
+        state = TrainState(0, model, flat_tx(adamw(1e-3))(model.parameters()))
+        torch.cuda.synchronize()
+        before = [k.launches for k in kernels]
+        metrics = make_lm_train_step(model, state.optimizer)(state, tokens)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 2]
+        losses[name] = float(metrics["loss"])
+        if mesh is not None:
+            g = model.blocks[1].ffn.shards[p - 1].w1.grad
+            assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    assert abs(losses["ep"] - losses["dense"]) <= 1e-3 * abs(losses["dense"])
+
+
+@pytest.mark.gpu
+def test_expert_shards_on_two_devices(cuda_device):
+    """An expert mesh of two distinct devices, the CPU and the card: each
+    shard's weights stay on its device when the model moves to the card,
+    the move allocating on the card only for what goes there, the
+    exchanges copy between them, and the forward equals the dense model's
+    on the card (f32, TF32 off) within 1e-5 of the largest."""
+    from idunno_tpu_torch.models.convert import expert_parallel_state_dict
+    from idunno_tpu_torch.models.init import init_like_flax
+    from idunno_tpu_torch.models.moe import ExpertShard, MoETransformerLM
+    from idunno_tpu_torch.parallel.mesh import EXPERT_AXIS, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(vocab=128, dim=64, depth=2, num_heads=4, n_experts=4,
+              capacity_factor=4.0)
+    dense = MoETransformerLM(**kw)
+    init_like_flax(dense, torch.Generator().manual_seed(2))
+    mesh = make_mesh(1, 2, devices=["cpu", "cuda:0"], axis=EXPERT_AXIS)
+    ep = MoETransformerLM(**kw, mesh=mesh)
+    ep.load_state_dict(expert_parallel_state_dict(dense.state_dict(), 2))
+    dense.to(cuda_device)
+    # the move allocates on the card for the tensors that go there and
+    # nothing for the CPU shards: none passes through the card
+    kept = {id(t) for m in ep.modules() if isinstance(m, ExpertShard)
+            and m.placed.type == "cpu" for t in m.parameters()}
+    moving = sum(1 for t in [*ep.parameters(), *ep.buffers()]
+                 if t.device.type == "cpu" and id(t) not in kept)
+    made = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
+    ep.to(cuda_device)
+    made = torch.cuda.memory_stats(cuda_device)[
+        "allocation.all.allocated"] - made
+    assert kept and made == moving
+    shards = ep.blocks[1].ffn.shards
+    assert shards[0].w1.device.type == "cpu"
+    assert shards[1].w1.device.type == "cuda"
+    assert ep.blocks[1].ffn.router.weight.device.type == "cuda"
+    tokens = torch.randint(0, 128, (2, 32), device=cuda_device)
+    with torch.no_grad():
+        want, got = dense(tokens), ep(tokens)
+    assert got.device.type == "cuda"
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -121,12 +121,35 @@ def test_top_k_takes_the_lower_index_on_ties():
 
 
 def test_expert_parallelism_raises_naming_roadmap():
-    with pytest.raises(ValueError, match="3e"):
-        expert_parallel_apply()
-    with pytest.raises(ValueError, match="3e"):
-        switch_ffn_factory(4, mesh=object())
-    with pytest.raises(ValueError, match="3e"):
-        MoETransformerLM(mesh=object())
+    """Expert parallelism's typed refusals, the JAX path's: experts that
+    do not divide the axis (at construction and in
+    ``expert_parallel_apply``) and routing units that do not; and a mesh
+    across processes, which ``Mesh.along`` refuses naming ROADMAP.md's
+    step 3f."""
+    from idunno_tpu_torch.parallel.mesh import (EXPERT_AXIS, Mesh,
+                                                MeshShapeError, virtual_mesh)
+
+    mesh = virtual_mesh(1, 4, "cpu", axis=EXPERT_AXIS)
+    with pytest.raises(ValueError, match="6 experts not divisible"):
+        switch_ffn_factory(6, mesh=mesh)(16)
+    with pytest.raises(ValueError, match="6 experts not divisible"):
+        MoETransformerLM(n_experts=6, mesh=mesh)
+    params = {"w1": torch.zeros(6, 4, 8), "b1": torch.zeros(6, 8),
+              "w2": torch.zeros(6, 8, 4), "b2": torch.zeros(6, 4)}
+    with pytest.raises(ValueError, match="6 experts not divisible"):
+        expert_parallel_apply(lambda p, t: t, params, torch.zeros(8, 4),
+                              torch.zeros(8, dtype=torch.int64),
+                              torch.ones(8), mesh, capacity=2)
+    ffn = SwitchFFN(4, 8, 4, mesh=mesh)
+    with pytest.raises(ValueError, match="6 routing units not divisible"):
+        ffn(torch.zeros(1, 6, 4))
+    across = Mesh(mesh.devices, local=(0,), axes=mesh.axes)
+    with pytest.raises(MeshShapeError, match="ROADMAP.md.*3f"):
+        SwitchFFN(4, 8, 4, mesh=across)
+    with pytest.raises(MeshShapeError, match="3f"):
+        expert_parallel_apply(lambda p, t: t, params, torch.zeros(8, 4),
+                              torch.zeros(8, dtype=torch.int64),
+                              torch.ones(8), across, capacity=2)
 
 
 # -- SwitchFFN ------------------------------------------------------------------

@@ -10,8 +10,8 @@
   batch) whose loss and running variance equal one process's step on the
   whole batch (rtol 1e-5).
 - ``python -m idunno_tpu_torch.dryrun 4 --device cpu`` exits 0 with its
-  ring-attention and pipeline sections, naming the section it does not
-  run (step 3e) and no other; without ``--device`` the
+  ring-attention, pipeline and expert-parallel sections and no section
+  it does not run; without ``--device`` the
   dry run and the two-process check run on the card, and raise where
   there is none.
 - ``python -m idunno_tpu_torch --dist-*`` joins the group before the node
@@ -54,8 +54,8 @@ def test_dryrun_on_the_cpu():
     assert "tp n_model=2 token-exact" in lines[-1]
     assert "ring seq=32" in lines[-1]
     assert "pp stages=4, pp-x-dp mesh=2x2" in lines[-1]
-    assert [line for line in lines if line.startswith("not ported")] == [
-        "not ported: step 3e (expert parallelism; ROADMAP.md §1)"]
+    assert "ep experts=4 (top-2)" in lines[-1]
+    assert not [line for line in lines if "not ported" in line]
 
 
 def test_dryrun_defaults_to_the_card(monkeypatch):

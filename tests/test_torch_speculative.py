@@ -345,8 +345,9 @@ def test_spec_refusals_raise(lm, weak):
     """The JAX package's refusals: draft_len < 1, a non-causal draft, a
     vocab mismatch, a routed-FFN target, penalties, params in the tuple,
     and the draft_len + 1 headroom in `validate`; a speculative pool under
-    tensor parallelism still names the roadmap, and a ``mesh`` that is not
-    a ``parallel/mesh.py:Mesh`` raises typed."""
+    tensor parallelism keeps every one of them (and otherwise serves:
+    ``tests/test_torch_tp_spec.py``), and a ``mesh`` that is not a
+    ``parallel/mesh.py:Mesh`` raises typed."""
     _, _, tm = lm
     bidir = TransformerLM(vocab=VOCAB, dim=16, depth=1, num_heads=2,
                           causal=False)
@@ -366,8 +367,11 @@ def test_spec_refusals_raise(lm, weak):
         DecodeServer(routed, draft=(weak, None), **base)
     from idunno_tpu_torch.parallel.mesh import virtual_mesh
     for extra in (dict(n_model=2), dict(mesh=virtual_mesh(1, 2, "cpu"))):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            DecodeServer(tm, draft=(weak, None), **base, **extra)
+        for case, match in cases:
+            with pytest.raises(ValueError, match=match):
+                DecodeServer(tm, **base, **extra, **case)
+        assert DecodeServer(tm, draft=(weak, None), **base,
+                            **extra).n_model == 2
     with pytest.raises(TypeError, match="Mesh"):
         DecodeServer(tm, draft=(weak, None), **base, mesh=object())
     srv = DecodeServer(tm, draft=(weak, None), draft_len=GAMMA, **base)
