@@ -361,52 +361,6 @@ def say(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` launches, by CUDA
-    events, after a warm-up."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int, replays: int = 5) -> float:
-    """Mean device milliseconds of ``fn`` with the host out of the way:
-    ``iters`` calls captured into one CUDA graph, replayed ``replays``
-    times between CUDA events. For calls whose device time is shorter
-    than the host's enqueue time (a small kernel behind a Python
-    wrapper), where `cuda_ms` would time the host."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
-
-
 class PhaseClock:
     """Seconds each stretch of ``main`` took (host clock), printed on one
     ``phase_seconds`` line at the end."""
@@ -524,6 +478,7 @@ def phase_timing() -> dict:
 
     from idunno_tpu_torch.ops.preprocess_kernel import (
         preprocess_batch_kernel, preprocess_batch_plain)
+    from idunno_tpu_torch.utils.tracing import cuda_ms, graph_ms
 
     x = torch.randint(0, 256, (BATCH, SIDE, SIDE, 3), dtype=torch.uint8,
                       generator=torch.Generator().manual_seed(1)).cuda()
@@ -861,6 +816,7 @@ def phase_flash_timing() -> dict:
 
     from idunno_tpu_torch.ops.flash_attention import (flash_attention_kernel,
                                                       flash_attention_plain)
+    from idunno_tpu_torch.utils.tracing import cuda_ms, graph_ms
 
     timed = {}
     for shape, causal in (((4, 1024, 16, 64), True),
@@ -906,6 +862,7 @@ def phase_paged_timing() -> dict:
     pages (3.3 MB) stay in L2, as that small model's would."""
     from idunno_tpu_torch.ops.paged_attention import (_paged_plain,
                                                       paged_attention_kernel)
+    from idunno_tpu_torch.utils.tracing import cuda_ms, graph_ms
 
     layers, bs = 12, LM_BLOCK
     timed = {}
@@ -1097,7 +1054,12 @@ def phase_lm_serving(model, cfg: dict, card: str, quantize: str = "none",
         paged_launches_in_hit_prefills=prefill_launches,
         paged_launches_per_decode_step=(launches - prefill_launches) / steps,
         prefill_tokens=stats["prefill_tokens"])
-    profile_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
+    # the replayed bf16 pool's profiled dispatch is one of the windows
+    # the `apportion` phase reads again
+    profile_dispatch(srv, prompts[:cfg["slots"]], max_new, card,
+                     export=("decode_dispatch" if (
+                         quantize, draft, decode_graph, n_requests)
+                         == ("none", None, "auto", None) else None))
     if graph["mode"] == "graph" and quantize == "none" and draft is None:
         time_dispatch(srv, prompts[:cfg["slots"]], max_new, card)
     return launches
@@ -1229,18 +1191,24 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 # every device_profile window: its index and when the previous one closed
 # (host clock, ns), for the window record each call prints
 _WINDOWS = {"count": 0, "last_exit_ns": None}
+# the windows a device_profile call exported for the `apportion` phase:
+# label → the Chrome trace's path, device_profile's device ms and kernel
+# count, and the kernels' launches inside the window
+_EXPORTS: dict = {}
 
 
-def device_profile(fn, host: dict | None = None, labels: tuple = ()):
+def device_profile(fn, host: dict | None = None, labels: tuple = (),
+                   export: str | None = None):
     """``fn`` once under ``torch.profiler`` (through ``utils/tracing.py:
     trace``, so no other trace of the process may overlap it), after a
     synchronize: (its wall ms, a Counter of device ms by kernel name, the
     number of kernels the profiler recorded). The counter is empty where it records none. User
     annotations on the device timeline (the optimizer's
     ``Optimizer.step#...`` range) span kernels already counted and are
-    left out. ``host``, where given, receives ``launch_calls``: the
-    host's kernel and graph launch calls (``LAUNCH_CALLS``) the profiler
-    recorded, and ``kernel_counts``: a Counter of the kernels it recorded
+    left out, and so are the spin kernels that open the window
+    (``utils/tracing.py:WARMUP_KERNEL``) and their launch calls.
+    ``host``, where given, receives ``launch_calls``: the host's kernel
+    and graph launch calls (``LAUNCH_CALLS``) the profiler recorded, and ``kernel_counts``: a Counter of the kernels it recorded
     by full name (those inside a replayed graph included), and
     ``last_kernel_end_before_sync_us``: how long before the synchronize
     after ``fn`` returned its last kernel ended, on the profiler's clock
@@ -1255,27 +1223,40 @@ def device_profile(fn, host: dict | None = None, labels: tuple = ()):
     CUDA window by ``TRACE_PAD_S`` on each side), how many CUDA activities
     Kineto returned, how many kernels the profiler's events hold and how
     many of those the ``labels`` matched, and, for a window that recorded
-    no kernel, "not measured" beside those numbers."""
+    no kernel, "not measured" beside those numbers.
+
+    ``export``, where given, writes the window's Chrome trace (as
+    ``utils/tracing.py:trace`` writes one, gzipped) to a temporary
+    directory and records it in ``_EXPORTS[export]`` with this call's
+    device ms and kernel count and the kernels' launches inside the
+    window, beside the profiler's own count of their kernels, for the
+    ``apportion`` phase."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
 
-    from idunno_tpu_torch.utils.tracing import TRACE_PAD_S, trace
+    from idunno_tpu_torch.utils.tracing import (TRACE_PAD_S, WARMUP_KERNEL,
+                                                trace)
 
     torch.cuda.synchronize()
     enter_ns = time.time_ns()
     with trace(None) as prof:
         t0 = time.perf_counter()
         region_ns = time.time_ns()
+        counted = read_launches()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = {k: n - counted[k] for k, n in read_launches().items()}
         synced_ns = time.time_ns()
     exit_ns = time.time_ns()
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+               and not getattr(e, "is_user_annotation", False)
+               and WARMUP_KERNEL not in e.name]
+    warmup = sum(e.device_type == DeviceType.CUDA and WARMUP_KERNEL in e.name
+                 for e in events)
     activities = [e for e in prof.profiler.kineto_results.events()
                   if e.device_type() == DeviceType.CUDA]
     prev = _WINDOWS["last_exit_ns"]
@@ -1287,6 +1268,7 @@ def device_profile(fn, host: dict | None = None, labels: tuple = ()):
         region_after_open_ms=(region_ns - enter_ns) / 1e6,
         trace_pad_s=TRACE_PAD_S, wall_ms=wall_ms,
         kineto_cuda_activities=len(activities), kernels=len(kernels),
+        warmup_kernels=warmup,
         labels=list(labels),
         labelled_kernels=(sum(labelled_kernel_count(events, label)
                               for label in labels) if labels else None),
@@ -1295,9 +1277,13 @@ def device_profile(fn, host: dict | None = None, labels: tuple = ()):
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
     if host is not None:
+        # the region's launch calls come a pad after the spin kernels end
+        warm_end = max((e.time_range.end for e in events
+                        if e.device_type == DeviceType.CUDA
+                        and WARMUP_KERNEL in e.name), default=float("-inf"))
         host["launch_calls"] = sum(
             e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS
-            for e in events)
+            and e.time_range.start > warm_end for e in events)
         host["kernel_counts"] = collections.Counter(e.name for e in kernels)
         ends = [e.end_ns() for e in prof.profiler.kineto_results.events()
                 if e.device_type() == DeviceType.CUDA]
@@ -1305,7 +1291,31 @@ def device_profile(fn, host: dict | None = None, labels: tuple = ()):
             (synced_ns - max(ends)) / 1e3 if ends else "not measured")
         host["labelled_ms"] = {label: labelled_device_ms(events, label)
                                for label in labels}
+    if export is not None:
+        where = _EXPORTS.setdefault(
+            "_dir", tempfile.mkdtemp(prefix="chip_smoke_windows_"))
+        path = os.path.join(where, f"{export}.pt.trace.json.gz")
+        prof.export_chrome_trace(path)
+        _EXPORTS[export] = {
+            "path": path, "window": _WINDOWS["count"],
+            "device_ms": sum(by_name.values()), "kernels": len(kernels),
+            "launches": counted, "traced": traced_launches(
+                collections.Counter(e.name for e in kernels))}
     return wall_ms, by_name, len(kernels)
+
+
+def traced_launches(kernel_counts) -> dict:
+    """The launch counters' view (``ops/launches.py`` names) of a window's
+    traced kernels by full name (``device_profile``'s ``kernel_counts``),
+    classed by ``tools/parse_trace.py:kernel_class``."""
+    from idunno_tpu_torch.tools.parse_trace import LAUNCH_NAMES, kernel_class
+
+    out = dict.fromkeys(LAUNCH_NAMES.values(), 0)
+    for name, count in kernel_counts.items():
+        cls = kernel_class(name)
+        if cls in LAUNCH_NAMES:
+            out[LAUNCH_NAMES[cls]] += count
+    return out
 
 
 def labelled_ops(events, label: str) -> tuple[list, list]:
@@ -1351,7 +1361,8 @@ def labelled_kernel_count(events, label: str) -> int:
     return sum(len(e.kernels) for e in forward + backward)
 
 
-def profile_dispatch(srv, prompts, max_new: int, card: str) -> dict:
+def profile_dispatch(srv, prompts, max_new: int, card: str,
+                     export: str | None = None) -> dict:
     """One decode dispatch (``decode_steps`` model steps or speculative
     rounds, every slot live) under ``torch.profiler``: its wall time (and
     the next dispatch's, untraced), the host's launch calls, the device's kernel time and busy share, the
@@ -1372,7 +1383,7 @@ def profile_dispatch(srv, prompts, max_new: int, card: str) -> dict:
     host = {}
     replays0 = srv.graph_stats()["replayed"]
     k3_0 = paged_attention_kernel.launches
-    wall_ms, by_name, n = device_profile(srv.step, host)
+    wall_ms, by_name, n = device_profile(srv.step, host, export=export)
     k3_counted = paged_attention_kernel.launches - k3_0
     k3_traced = sum(c for name, c in host["kernel_counts"].items()
                     if "paged_fwd" in name)
@@ -1753,6 +1764,7 @@ def phase_flash_bwd_timing() -> dict:
     from idunno_tpu_torch.ops.flash_attention import (
         _dkv_plain, _dq_plain, attention_delta,
         flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel)
+    from idunno_tpu_torch.utils.tracing import cuda_ms, graph_ms
 
     b, t, h, d = shape = (8, 1024, 16, 64)
     q, k, v, do, out, lse = flash_bwd_inputs(shape, "bf16", True, 60)
@@ -1937,7 +1949,8 @@ def phase_lm_train(card: str) -> dict:
     if master != ["torch.float32"]:
         raise AssertionError(f"master parameters are {master}, not f32")
 
-    wall_ms, by_name, n = device_profile(lambda: step(state, tokens))
+    wall_ms, by_name, n = device_profile(lambda: step(state, tokens),
+                                         export="train_step")
     busy_ms = sum(by_name.values())
     flash_ms = sum(v for k, v in by_name.items()
                    if "flash_fwd" in k or "flash_bwd" in k)
@@ -5195,6 +5208,27 @@ def compute_apps() -> list[str]:
         capture_output=True, text=True, check=True, timeout=60).stdout.split()
 
 
+def cluster_metrics_scrape(port: int, card: str) -> None:
+    """``tools/metrics_scrape.py:scrape`` of a serving node's exposition
+    through its control port: series present, every series line well
+    formed, one ``# TYPE`` a metric; the count of LM pool gauges is
+    printed."""
+    from idunno_tpu_torch.tools.metrics_scrape import _SERIES, scrape
+
+    text = scrape("127.0.0.1", port, timeout=30.0)
+    lines = text.strip().split("\n")
+    series = [ln for ln in lines if not ln.startswith("# TYPE")]
+    types = [ln for ln in lines if ln.startswith("# TYPE")]
+    bad = [ln for ln in series if not _SERIES.match(ln)]
+    say("cluster_metrics_scrape", card=card, series=len(series),
+        metrics=len(types), malformed=bad[:5],
+        lm_gauges=sum("n_model" in ln for ln in series))
+    if bad or not series or len(types) != len({t.split()[2]
+                                                for t in types}):
+        raise AssertionError(f"metrics scrape: {len(bad)} malformed series "
+                             f"lines, {len(types)} TYPE headers")
+
+
 def phase_cluster(cfg: dict, card: str) -> dict:
     """Three nodes n0, n1, n2 built as ``python -m idunno_tpu_torch``
     builds them (``__main__.build_node``: ``NetTransport`` on free local
@@ -5228,6 +5262,7 @@ def phase_cluster(cfg: dict, card: str) -> dict:
         launches = {"preprocess": cluster_cnn(nodes, port, card)}
         launches["paged_attention"] = cluster_lm(nodes, port, cfg, card,
                                                  root)
+        cluster_metrics_scrape(port["n0"], card)
         torch.cuda.empty_cache()
         model, blob = cluster_exactness(port, cfg, root)
         torch.cuda.empty_cache()
@@ -5246,6 +5281,220 @@ def phase_cluster(cfg: dict, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     say("cluster", card=card, seconds=time.perf_counter() - t0, **launches)
     return launches
+
+
+# -- the tools' slice: fault 2's pool, entry(), the sweep, the apportioner,
+# the two-model experiment and the speculative trace -----------------------
+
+ROUTED_DP_REQUESTS = 32          # shared-prefix prompts of `routed_dp`
+SWEEP_K2 = ((4, 1024), (4, 4096))   # K2's shapes in `sweep` (d 64, causal)
+APPORTION_TOL = 0.02             # apportioned device ms against the window's
+FAIRSHARE = {"queries": 3, "batch": 64}
+SPEC_TRACE_STEPS = 32            # the plain dispatch's steps in `spec_trace`
+
+
+def phase_routed_dp(cfg: dict, card: str) -> int:
+    """ROADMAP §3 fault 2, repaired: the full-width routed LM (``MOE``,
+    bf16) in a block pool (``kv_block_size``; a routed pool takes no
+    ``paged_kernel``, as the JAX package's) over a virtual (2, 1) mesh of
+    the card decodes as one replica on the mesh's lead for the whole
+    batch: its greedy streams equal the same pool's without a mesh, its
+    dispatches replay as CUDA graphs, and its K3 launches equal that
+    pool's (a gathered pool launches none). Returns the mesh pool's K3
+    launches."""
+    import torch
+
+    from idunno_tpu_torch.parallel.mesh import virtual_mesh
+    from idunno_tpu_torch.utils.lm_bench import (prefix_bench_workload,
+                                                 serving_max_new)
+
+    model = build_moe_lm(cfg, cfg["depth"], seed=6).to(
+        torch.bfloat16).eval().requires_grad_(False)
+    prompts, _, buckets = prefix_bench_workload(cfg, LM_BLOCK)
+    prompts = prompts[:ROUTED_DP_REQUESTS]
+    max_new = serving_max_new(cfg)
+    pool = lm_pool_kw(cfg, buckets)
+    streams, hits, graphs, k3 = {}, {}, {}, {}
+    for arm, mesh in (("data_mesh_2x1", virtual_mesh(2, 1, "cuda:0")),
+                      ("no_mesh", None)):
+        zero_launches()
+        t0 = time.perf_counter()
+        streams[arm], hits[arm], graphs[arm] = serve_streams(
+            model, prompts, max_new, mesh=mesh, **pool)
+        torch.cuda.synchronize()
+        k3[arm] = read_launches()["paged_attention"]
+        graphs[arm]["seconds"] = time.perf_counter() - t0
+    hold_equal("routed_dp", streams, card=card, depth=cfg["depth"],
+               dtype="bfloat16", pool="gathered block pool",
+               radix_hits=hits, k3_launches=k3, graphs=graphs,
+               routed_params=MOE_PARAMS)
+    if (k3["data_mesh_2x1"] != k3["no_mesh"] or hits["data_mesh_2x1"] <= 0
+            or graphs["data_mesh_2x1"]["replayed"] <= 0):
+        raise AssertionError(f"routed_dp: K3 {k3}, hits {hits}, graphs "
+                             f"{graphs}")
+    return k3["data_mesh_2x1"]
+
+
+def phase_entry(card: str) -> int:
+    """``idunno_tpu_torch/entry.py:entry()`` on the card: the example
+    batch and a seeded non-zero one each launch K1 exactly once a call,
+    and the forward's top-1 equals the plain preprocess route's
+    (``ops/preprocess.py``, f32) on the same weights. Returns K1's
+    launches (the timing after it does not count)."""
+    import torch
+
+    from idunno_tpu_torch.entry import entry
+    from idunno_tpu_torch.ops.classify import top1_from_logits
+    from idunno_tpu_torch.ops.preprocess import preprocess_batch
+    from idunno_tpu_torch.utils.tracing import cuda_ms
+
+    forward, (model, images) = entry()
+    batch = torch.randint(0, 256, images.shape, dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3)
+                          ).to(images.device)
+    zero_launches()
+    per_call = []
+    for x in (images, batch):
+        before = read_launches()["preprocess"]
+        idx, prob = forward(model, x)
+        torch.cuda.synchronize()
+        per_call.append(read_launches()["preprocess"] - before)
+    launches = read_launches()["preprocess"]
+    with torch.inference_mode():
+        ref, _ = top1_from_logits(model(preprocess_batch(
+            batch, crop=224).permute(0, 3, 1, 2)))
+    equal = int((idx == ref).sum())
+    ms = cuda_ms(lambda: forward(model, batch), 10)
+    say("entry", card=card, device=str(images.device),
+        example_shape=list(images.shape), k1_launches_per_call=per_call,
+        top1_equal_plain_route=f"{equal} of {len(ref)}",
+        forward_ms=ms, timed_by="cuda events, 10 calls after 3")
+    if per_call != [1, 1] or equal != len(ref):
+        raise AssertionError(f"entry: K1 launches a call {per_call}, top-1 "
+                             f"equal on {equal} of {len(ref)}")
+    return launches
+
+
+def phase_sweep(card: str) -> None:
+    """``tools/flash_sweep.py`` on the card: the whole K3 grid (bf16 and
+    int8 pages) and K2 at ``SWEEP_K2`` (head_dim 64, causal), each
+    variant held against its plain version at chip_smoke's tolerances
+    before it is timed; a failed variant fails the run (after every
+    variant has run)."""
+    import torch
+
+    from idunno_tpu_torch.tools import flash_sweep
+
+    variants = [v for v in flash_sweep.k2_variants()
+                if (v["batch"], v["seq"]) in SWEEP_K2
+                and v["head_dim"] == 64 and v["causal"]]
+    variants += flash_sweep.paged_variants()
+    rec = flash_sweep.sweep(variants, torch.device("cuda"), {}, None)
+    for row in rec["variants"]:
+        say("sweep", card=card, **row)
+    if rec["failed"]:
+        raise AssertionError(f"sweep: {rec['failed']} off their plain "
+                             "versions")
+
+
+def phase_apportion(card: str) -> None:
+    """``tools/parse_trace.py:apportion`` over the Chrome traces of
+    windows ``device_profile`` already took (``_EXPORTS``: the replayed
+    decode dispatch of ``lm_serving`` and an ``lm_train`` step), no new
+    device work: its device total within ``APPORTION_TOL`` of
+    ``device_profile``'s for the same window, and its K1-K5 kernel counts
+    equal to the launch counters' inside it. A window that recorded no
+    kernel is "not measured" (ROADMAP §3 fault 1)."""
+    from idunno_tpu_torch.tools.parse_trace import LAUNCH_NAMES, apportion
+
+    try:
+        for label in ("decode_dispatch", "train_step"):
+            win = _EXPORTS[label]
+            rep = apportion(win["path"], top=10)
+            counts = {k: rep["kernel_counts"][k] for k in LAUNCH_NAMES}
+            counted = {k: win["launches"][name]
+                       for k, name in LAUNCH_NAMES.items()}
+            # the profiler's own events: a shortfall there is the
+            # profiler's, not the apportioner's
+            profiled = {k: win["traced"][name]
+                        for k, name in LAUNCH_NAMES.items()}
+            if not win["kernels"]:
+                say("apportion", card=card, window=label,
+                    device="not measured")
+                continue
+            gap = abs(rep["device_total_ms"] - win["device_ms"]) \
+                / win["device_ms"]
+            say("apportion", card=card, window=label,
+                profile_window=win["window"],
+                device_total_ms=rep["device_total_ms"],
+                device_profile_ms=win["device_ms"], relative_gap=gap,
+                tolerance=APPORTION_TOL, classes=rep["classes"],
+                kernel_counts=counts, launches_counted=counted,
+                profiler_kernel_counts=profiled,
+                window_ms=rep["window_ms"], idle_ms=rep["idle_ms"],
+                gap_count=rep["gap_count"], gaps=rep["gaps"][:5],
+                top_ops=[{**r, "op": r["op"][:80]} for r in rep["ops"][:8]])
+            if gap > APPORTION_TOL or counts != counted:
+                raise AssertionError(
+                    f"apportion {label}: {rep['device_total_ms']} ms against "
+                    f"{win['device_ms']}, counts {counts} against {counted} "
+                    f"(the profiler's events: {profiled})")
+    finally:
+        shutil.rmtree(_EXPORTS.pop("_dir", ""), ignore_errors=True)
+
+
+def phase_fairshare(card: str) -> int:
+    """``tools/two_model_fairshare.py`` on the card, compact (``FAIRSHARE``
+    queries a model): every both-live allocation snapshot's shares equal
+    ``fair_shares`` on its inputs, the second job's first result comes
+    back, and K1 ran. Returns K1's launches over the concurrent
+    stretch."""
+    import torch
+
+    from idunno_tpu_torch.tools.two_model_fairshare import run
+
+    rec = run(torch.device("cuda"), **FAIRSHARE, timeout_s=300.0)
+    say("fairshare", card=card, **{k: v for k, v in rec.items()
+                                   if k not in ("allocation_live",)})
+    launches = rec["launches"]["preprocess"]
+    if (not rec["shares_match_fair_shares"] or launches <= 0
+            or rec["second_job_first_result_s"] is None):
+        raise AssertionError(f"fairshare: shares match "
+                             f"{rec['shares_match_fair_shares']}, K1 "
+                             f"{launches}")
+    return launches
+
+
+def phase_spec_trace(cfg: dict, card: str) -> int:
+    """``tools/spec_trace.py`` on the card at the LM widths, compact
+    (``SPEC_TRACE_STEPS`` plain steps, the rounds ``spec_rounds`` gives
+    them): every round commits ``draft_len + 1`` tokens a row, and each
+    traced dispatch's K3 kernels, apportioned, equal K3's launches in it.
+    Returns K3's launches of the two traced dispatches."""
+    import torch
+
+    from idunno_tpu_torch.tools.spec_trace import run
+
+    where = tempfile.mkdtemp(prefix="chip_smoke_spec_trace_")
+    try:
+        rec = run(torch.device("cuda"), where,
+                  dict(cfg, decode_steps=SPEC_TRACE_STEPS))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    k3 = {}
+    for key in ("plain", "spec"):
+        arm = rec[key]
+        k3[key] = (arm["launches"]["paged_attention"],
+                   arm["apportion"]["kernel_counts"]["K3"])
+        arm["apportion"]["ops"] = [{**r, "op": r["op"][:80]}
+                                   for r in arm["apportion"]["ops"][:8]]
+    say("spec_trace", card=card, **rec)
+    if not rec["every_round_commits_the_chunk"] or any(
+            a != b or a <= 0 for a, b in k3.values()):
+        raise AssertionError(f"spec_trace: full chunks "
+                             f"{rec['every_round_commits_the_chunk']}, K3 "
+                             f"(counted, traced) {k3}")
+    return sum(a for a, _ in k3.values())
 
 
 def main() -> int:
@@ -5372,7 +5621,26 @@ def main() -> int:
     phase_moe_serving(lm_cfg, smi)
     phase_failed_capture(smi)
     clock.lap("moe_serving_failed_capture")
-    say("phase_seconds", card=smi, **clock.laps)
+    launches["paged_attention"] += phase_routed_dp(lm_cfg, smi)
+    torch.cuda.empty_cache()
+    clock.lap("routed_dp")
+    launches["preprocess"] += phase_entry(smi)
+    torch.cuda.empty_cache()
+    clock.lap("entry")
+    phase_sweep(smi)
+    clock.lap("sweep")
+    phase_apportion(smi)
+    clock.lap("apportion")
+    launches["preprocess"] += phase_fairshare(smi)
+    torch.cuda.empty_cache()
+    clock.lap("fairshare")
+    launches["paged_attention"] += phase_spec_trace(lm_cfg, smi)
+    torch.cuda.empty_cache()
+    clock.lap("spec_trace")
+    new = ("routed_dp", "entry", "sweep", "apportion", "fairshare",
+           "spec_trace")
+    say("phase_seconds", card=smi, **clock.laps,
+        new_phases_total=sum(clock.laps[k] for k in new))
 
     replaces = {"preprocess": "idunno_tpu/ops/pallas_preprocess.py:27",
                 "flash_attention": "idunno_tpu/ops/flash_attention.py:71",

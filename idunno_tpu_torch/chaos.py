@@ -1460,8 +1460,8 @@ class ChaosCluster:
 
     def span_dump(self) -> dict[str, list[dict]]:
         """Every host's current span window (chaos-causal
-        dumps) — the raw material `tools/trace_export.py` turns into a
-        Perfetto timeline of the failing schedule."""
+        dumps) — the raw material `idunno_tpu_torch/tools/trace_export.py`
+        turns into a Perfetto timeline of the failing schedule."""
         return {h: s.dump() for h, s in self.spans.items()}
 
     def check_invariants(self) -> dict:

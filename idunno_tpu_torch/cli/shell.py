@@ -850,7 +850,7 @@ class Shell:
 def format_waterfall(trace_id: str, spans: list[dict]) -> str:
     """One line per span — offset from the trace start, duration, node,
     depth-indented name, then the attrs. Shared by the shell `trace`
-    command and tools/trace_export.py."""
+    command and idunno_tpu_torch/tools/trace_export.py."""
     if not spans:
         return f"(no spans recorded for {trace_id})"
     base = min(s["t_start"] for s in spans)

@@ -78,7 +78,9 @@ the verify chunk runs through the target's `ShardedLM` (K3 per shard on
 a paged pool), and the round's picks merge per-shard maxima while its
 sampled rows and log-probabilities read the vocab parts joined in shard
 order. A routed target refuses ``n_model > 1`` as the JAX package's pool
-does (the TP split targets dense scanned blocks).
+does (the TP split targets dense scanned blocks); over a data-only mesh
+it serves as one replica on the mesh's lead device, every row of a step
+routed together as the JAX pool routes its global batch.
 """
 from __future__ import annotations
 
@@ -567,15 +569,15 @@ class DecodeServer:
             # decode re-reads every weight per step: int8 residency halves
             # those bytes against bf16; the dequantize runs in each forward
             self.model = quantize_tree(copy.deepcopy(self.model))
-        if mesh is not None and n_model == 1 and getattr(
-                model, "ffn_factory", None) is not None:
-            # the JAX package serves it, routing the whole batch together
-            raise ValueError(
-                "a routed pool over a data-only mesh is not ported yet "
-                "(ROADMAP.md §3, open fault 2)")
         # what every decode call runs: the model, or its tensor-parallel
-        # decoder over the mesh (the same weights, cut per shard)
-        self._dec = (self.model if mesh is None
+        # decoder over the mesh (the same weights, cut per shard). A
+        # routed target over a data-only mesh decodes as one replica on
+        # the lead for the whole batch: routing couples the rows of a
+        # batch, and the JAX package routes them together (a routed
+        # target with n_model > 1 takes ShardedLM's refusal)
+        routed_dp = n_model == 1 and getattr(model, "ffn_factory",
+                                             None) is not None
+        self._dec = (self.model if mesh is None or routed_dp
                      else ShardedLM(self.model, mesh))
         self.slots = slots
         self.prompt_len = prompt_len
@@ -660,9 +662,10 @@ class DecodeServer:
             from idunno_tpu_torch.serve.prefix_cache import RadixPrefixCache
             nblocks = int(kv_cache_blocks) or slots * (
                 (prompt_len + self.kv_block_size - 1) // self.kv_block_size)
-            self._block_pool = KVBlockPool(self.model, nblocks,
-                                           self.kv_block_size, mesh=mesh,
-                                           device=dev)
+            self._block_pool = KVBlockPool(
+                self.model, nblocks, self.kv_block_size,
+                mesh=mesh if isinstance(self._dec, ShardedLM) else None,
+                device=dev)
             self._radix = RadixPrefixCache(self._block_pool)
 
     @staticmethod
@@ -703,16 +706,17 @@ class DecodeServer:
         return mesh, n_model
 
     def _group(self, slot: int) -> int:
-        """The data group (mesh row) that holds pool slot ``slot``."""
-        if self.mesh is None:
+        """The data group (mesh row) that holds pool slot ``slot``: 0
+        when one decoder runs the whole batch."""
+        if not isinstance(self._dec, ShardedLM):
             return 0
         return self._dec.group_of(slot, self.slots)
 
     def _row_dec(self, slot: int):
         """What a batch-1 prefill for slot ``slot`` runs: the model, or the
         tensor-parallel decoder of the slot's data group."""
-        if self.mesh is None:
-            return self.model
+        if not isinstance(self._dec, ShardedLM):
+            return self._dec
         return self._dec.for_group(self._group(slot))
 
     def _draft_decoder(self, draft: TransformerLM):

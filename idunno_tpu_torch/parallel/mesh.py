@@ -101,14 +101,14 @@ class Mesh:
     def along(self, axis: str, row: int = 0) -> list[torch.device]:
         """The devices along ``axis``, one a group: each data group's lead
         device for the row axis, the cells of data group ``row`` for the
-        column axis. The sequence of ring and Ulysses attention and the
-        stages of a pipeline run on them in one process: a mesh across
-        processes raises."""
+        column axis. The sequence of ring and Ulysses attention, the
+        stages of a pipeline and the shards of an expert exchange run on
+        them in one process: a mesh across processes raises."""
         if self.local is not None:
             raise MeshShapeError(
-                f"the {axis!r} axis of a mesh across processes: sequence "
-                "and pipeline parallelism run in one process (ROADMAP.md "
-                "§1 step 3f)", n_devices=len(self.distinct()),
+                f"the {axis!r} axis of a mesh across processes: sequence, "
+                "pipeline and expert parallelism run in one process "
+                "(ROADMAP.md §1 step 3f)", n_devices=len(self.distinct()),
                 constraint="a mesh of one process (Mesh.local is None)")
         if axis == self.axes[0]:
             return [row_devs[0] for row_devs in self.devices]

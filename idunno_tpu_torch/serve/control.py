@@ -797,7 +797,7 @@ class ControlService:
         directly, or looked up from an LM pool request id / CNN qnum),
         then fan `spans_dump` out to every alive member and merge the
         returned spans sorted by start time — the shell waterfall and
-        `tools/trace_export.py` both consume this."""
+        `idunno_tpu_torch/tools/trace_export.py` both consume this."""
         node = self.node
         tid = p.get("trace_id")
         if tid is None and p.get("name") is not None \

@@ -6,7 +6,8 @@ epoch fences: a ``trace`` key (``[trace_id, parent_span_id]``) travels on
 existing verb payloads next to the ``epoch`` stamp, each node records named
 spans into a bounded in-memory ring buffer, and the ``trace`` control verb
 (serve/control.py) collects a request's spans cluster-wide for the shell
-waterfall and `tools/trace_export.py` (Chrome/Perfetto trace-event JSON).
+waterfall and `idunno_tpu_torch/tools/trace_export.py` (Chrome/Perfetto
+trace-event JSON).
 
 Design rules, mirrored from the fence helpers:
 

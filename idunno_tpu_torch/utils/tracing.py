@@ -17,6 +17,9 @@ primitives the serving metrics and the benches build on:
   replayed CUDA graph included) into a Chrome trace under ``log_dir``.
   One trace at a time per process.
 - ``annotate``: a named range inside a trace.
+- ``cuda_ms`` and ``graph_ms``: a call's mean device milliseconds by
+  CUDA events around a loop of calls, or by replaying them captured in
+  one CUDA graph where the host's enqueue would outlast the device work.
 """
 from __future__ import annotations
 
@@ -136,6 +139,48 @@ class StepTimer:
         }
 
 
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` launches, by CUDA
+    events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds of ``fn`` with the host out of the way:
+    ``iters`` calls captured into one CUDA graph, replayed ``replays``
+    times between CUDA events. For calls whose device time is shorter
+    than the host's enqueue time (a small kernel behind a Python
+    wrapper), where `cuda_ms` would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 # torch.profiler is one per process (Kineto and CUPTI are process-wide), so
 # the rule that only one trace runs at a time is kept per process too
 _TRACE_LOCK = threading.Lock()
@@ -148,6 +193,14 @@ _active_trace: list[str] = []
 # hundred microseconds after its last kernel, so the last kernels could
 # fall outside it. A CUDA trace pads the window by this much on each side.
 TRACE_PAD_S = 0.05
+# The profiler can lose the records of the first kernels that run in a
+# window: on the H100, the first 47-58 of some windows (about a
+# millisecond of launches), while their runtime calls are recorded. A CUDA
+# trace therefore opens with this many spin kernels (``torch.cuda._sleep``)
+# ahead of the region, and its readers leave out the kernels whose name
+# holds ``WARMUP_KERNEL``.
+WARMUP_KERNELS = 200
+WARMUP_KERNEL = "spin_kernel"
 
 
 def _all_threads_config():
@@ -172,8 +225,9 @@ def trace(log_dir: str | None):
     Only one trace runs at a time in a process: a second ``trace`` while
     one is active raises a RuntimeError naming the active one's log_dir.
     The profiler is stopped however the region ends. Where CUDA is in use
-    the window opens ``TRACE_PAD_S`` before the region, and closes
-    ``TRACE_PAD_S`` after the card has finished the region's work."""
+    the window opens with ``WARMUP_KERNELS`` spin kernels, then
+    ``TRACE_PAD_S`` before the region, and closes ``TRACE_PAD_S`` after
+    the card has finished the region's work."""
     with _TRACE_LOCK:
         if _active_trace:
             raise RuntimeError(
@@ -189,6 +243,9 @@ def trace(log_dir: str | None):
                 activities=activities,
                 experimental_config=_all_threads_config()) as prof:
             if cuda and torch.cuda.is_initialized():
+                for _ in range(WARMUP_KERNELS):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
                 time.sleep(TRACE_PAD_S)
             yield prof
             if cuda and torch.cuda.is_initialized():

@@ -31,7 +31,9 @@ from tests.torch_workers import share_cores  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "idunno_tpu_torch")
-BANNED = ("jax", "flax", "optax", "idunno_tpu")
+BANNED = ("jax", "flax", "optax", "idunno_tpu",
+          # the JAX package's entry points and tools at the root
+          "tools", "bench", "__graft_entry__")
 
 PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
@@ -118,12 +120,23 @@ def test_port_file_imports_no_jax(path):
                                   "idunno_tpu_torch/parallel/pipeline.py",
                                   "idunno_tpu_torch/engine/pipeline_lm.py",
                                   "idunno_tpu_torch/analysis/__main__.py",
-                                  "idunno_tpu_torch/chaos_soak.py"])
+                                  "idunno_tpu_torch/chaos_soak.py",
+                                  "idunno_tpu_torch/entry.py",
+                                  "idunno_tpu_torch/tools/__init__.py",
+                                  "idunno_tpu_torch/tools/flash_sweep.py",
+                                  "idunno_tpu_torch/tools/parse_trace.py",
+                                  "idunno_tpu_torch/tools/mfu_roofline.py",
+                                  "idunno_tpu_torch/tools/spec_trace.py",
+                                  "idunno_tpu_torch/tools/"
+                                  "two_model_fairshare.py",
+                                  "idunno_tpu_torch/tools/metrics_scrape.py",
+                                  "idunno_tpu_torch/tools/trace_export.py"])
 def test_slice_modules_are_guarded(path):
     """The routed FFN's modules (and the CNNs' compute-dtype layers), the
-    tensor-, sequence- and pipeline-parallel modules and the analyzer's
-    and chaos soak's drivers are among the files the guard above reads,
-    and import no JAX."""
+    tensor-, sequence- and pipeline-parallel modules, the analyzer's and
+    chaos soak's entry modules, ``entry()`` and the tools' counterparts are
+    among the files the guard above reads, and import no JAX, nothing of
+    the JAX package and nothing of the root's ``tools/``."""
     assert path in PORT_FILES
     test_port_file_imports_no_jax(path)
 
@@ -346,3 +359,32 @@ def test_loadgen_keeps_the_load_tools_code(tool):
         mine = _code_tree(_source_of(got, name), rename=False)
         theirs = _code_tree(_source_of(ref, name), rename=True)
         assert mine == theirs, f"utils/loadgen.py:{name} differs from {tool}"
+
+
+# the tools' counterparts (``idunno_tpu_torch/tools/``): the definitions
+# they keep from the repository's tools byte for byte, apart from import
+# lines (path under the repository → names)
+TOOL_COPIES = {
+    "tools/trace_export.py": ["_RESERVED", "to_chrome", "from_chrome",
+                              "waterfall", "selftest"],
+    "tools/metrics_scrape.py": ["_SERIES", "scrape", "selftest"],
+    "tools/mfu_roofline.py": ["conv_layer", "resnet18_layers",
+                              "alexnet_layers"],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(TOOL_COPIES))
+def test_tool_counterparts_keep_the_tools_text(tool):
+    with open(os.path.join(REPO, tool)) as f:
+        ref = f.read()
+    with open(os.path.join(PORT, tool)) as f:
+        got = f.read()
+
+    def text(src: str, name: str) -> list[str]:
+        return [line.replace("idunno_tpu_torch", "idunno_tpu")
+                if line.lstrip().startswith(("from ", "import ")) else line
+                for line in _source_of(src, name).splitlines()]
+
+    for name in TOOL_COPIES[tool]:
+        assert text(got, name) == text(ref, name), (
+            f"idunno_tpu_torch/{tool}:{name} differs from {tool}")

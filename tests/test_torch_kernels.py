@@ -1017,3 +1017,77 @@ def test_expert_shards_on_two_devices(cuda_device):
         want, got = dense(tokens), ep(tokens)
     assert got.device.type == "cuda"
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# -- entry() and the sweep's K3 shapes (the tools' slice) ----------------------
+
+@pytest.mark.gpu
+def test_entry_launches_k1_once_a_call(cuda_device):
+    """``entry()`` runs on the card by default: each forward launches K1
+    exactly once, and its top-1 equals the plain preprocess route's
+    (``ops/preprocess.py``, f32) on the same weights."""
+    from idunno_tpu_torch.entry import entry
+    from idunno_tpu_torch.ops.classify import top1_from_logits
+    from idunno_tpu_torch.ops.preprocess import preprocess_batch
+
+    forward, (model, images) = entry()
+    assert images.device.type == "cuda" and images.shape == (8, 256, 256, 3)
+    batch = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, 256, 256, 3), dtype=np.uint8)).to(cuda_device)
+    for x in (images, batch):
+        before = preprocess_batch_kernel.launches
+        idx, _ = forward(model, x)
+        torch.cuda.synchronize()
+        assert preprocess_batch_kernel.launches == before + 1
+    with torch.inference_mode():
+        ref = model(preprocess_batch(batch, crop=224).permute(0, 3, 1, 2))
+    assert idx.tolist() == top1_from_logits(ref)[0].tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", [
+    "paged_bf16_bs32_kv4096_q1", "paged_bf16_bs64_kv4096_q8",
+    "paged_bf16_bs64_kv512_q1", "paged_int8_bs64_kv4096_q1",
+    "paged_int8_bs32_kv512_q1"])
+def test_paged_kernel_at_the_sweeps_long_chains(cuda_device, label):
+    """K3 at block sizes 32 and 64 and 4,096-token chains (64-128 blocks
+    a row, split over the CTA's warps) within chip_smoke.py's tolerance
+    of its plain version."""
+    from idunno_tpu_torch.ops.paged_attention import paged_attention_kernel
+    from idunno_tpu_torch.tools import flash_sweep
+
+    v = next(v for v in flash_sweep.paged_variants()
+             if v["variant"] == label)
+    q5, kp, vp, ks, vs, tables, lengths = flash_sweep.paged_inputs(
+        v, cuda_device, seed=11)
+    scales = () if ks is None else (ks[0], vs[0])
+    out, lse = paged_attention_kernel(
+        q5, kp[0], vp[0], tables, lengths,
+        **({} if ks is None else dict(k_scale_pages=ks[0],
+                                      v_scale_pages=vs[0])))
+    ref, ref_lse = flash_sweep.k3_plain(q5, kp[0], vp[0], tables, lengths,
+                                        *scales)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= (
+        flash_sweep.K3_TOL * float(ref.abs().max()))
+    assert float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0))
+                 .max()) <= flash_sweep.K3_TOL
+
+
+@pytest.mark.gpu
+def test_trace_keeps_every_kernel_of_the_region(cuda_device, tmp_path):
+    """A ``trace`` opens with its spin kernels (the profiler may lose the
+    first kernels of a window), so the region's kernels are all in the
+    Chrome trace; ``tools/parse_trace.py`` leaves the spin kernels out."""
+    from idunno_tpu_torch.tools.parse_trace import apportion
+    from idunno_tpu_torch.utils.tracing import WARMUP_KERNELS, trace
+
+    x = torch.zeros(1024, device=cuda_device)
+    for attempt in range(5):
+        where = tmp_path / str(attempt)
+        with trace(str(where)):
+            for _ in range(300):
+                x.mul_(1.0)
+        rep = apportion(str(where))
+        assert 0 < rep["warmup_kernels"] <= WARMUP_KERNELS
+        assert sum(r["count"] for r in rep["ops"]) == 300

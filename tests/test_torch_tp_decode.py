@@ -185,10 +185,10 @@ def test_tp_sharded_tail_five_modes_token_exact(lm64, n_model):
 def test_tp_rejects_bad_shapes(lm):
     """Q heads must divide n_model (typed), an explicit mesh wins over a
     conflicting n_model, and a routed pool refuses with the JAX package's
-    words (its TP split needs the scanned layout of dense blocks), or over
-    a data-only mesh, which the JAX package serves, as not yet ported. The
-    speculative pools that refused here serve under TP since;
-    ``tests/test_torch_tp_spec.py`` holds them."""
+    words (its TP split needs the scanned layout of dense blocks). The
+    speculative pools that refused here serve under TP since
+    (``tests/test_torch_tp_spec.py``), and so does a routed pool over a
+    data-only mesh (``tests/test_torch_routed_dp.py``)."""
     _, _, tm = lm
     with pytest.raises(MeshShapeError):       # 4 heads over 3 shards
         pool(tm, n_model=3)
@@ -198,8 +198,6 @@ def test_tp_rejects_bad_shapes(lm):
                               n_experts=2)
     with pytest.raises(ValueError, match="scanned"):
         pool(routed, n_model=2)
-    with pytest.raises(ValueError, match="data-only mesh.*ROADMAP"):
-        pool(routed, slots=4, mesh=virtual_mesh(2, 1, "cpu"))
     with pytest.raises(ValueError, match="n_model"):
         pool(tm, n_model=0)
 

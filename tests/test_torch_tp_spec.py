@@ -2,10 +2,11 @@
 package, on the CPU.
 
 A port ``DecodeServer(n_model=2|4, draft=(draft, None))`` on a virtual
-mesh of the one CPU against the JAX package's ``DecodeServer(n_model=2|4,
-draft=(draft, params))`` on the conftest's eight host devices, on weights
-carried across (``models/convert.py``), on a contiguous and a paged pool
-(the plain paged attention per model shard here, K3 per shard on a card),
+mesh of the one CPU, on a contiguous and a paged pool (the plain paged
+attention per model shard here, K3 per shard on a card), against the JAX
+package's paged ``DecodeServer(n_model=2, draft=(draft, params))`` on the
+conftest's eight host devices (one JAX pool a draft for the module), on
+weights carried across (``models/convert.py``),
 with a draft that shards (4 heads: its own ``ShardedLM``) and one that does
 not (dim 24, 3 heads, over 2 shards: a ``ShardedLM`` over the data groups'
 lead devices, one whole replica a group). Greedy
@@ -67,6 +68,26 @@ def drafts():
             for i, (name, kw) in enumerate(DRAFTS.items())}
 
 
+@pytest.fixture(scope="module")
+def jax_served(target, drafts):
+    """One JAX pool a draft for the module: the JAX package's speculative
+    pool at n_model 2 on a paged pool, its greedy completions by request.
+    A lossless greedy stream and its log-probabilities do not depend on
+    the pool's layout, so every case of a draft is held to this pool."""
+    jm, params, _ = target
+    out = {}
+    for name, (jdm, dparams, _) in drafts.items():
+        jsrv = JaxDecodeServer(jm, params, slots=2, prompt_len=8,
+                               max_len=40, draft=(jdm, dparams),
+                               draft_len=GAMMA, n_model=2,
+                               track_logprobs=True, paged_kernel="xla",
+                               **PAGED)
+        jids = [jsrv.submit(p, max_new=n) for p, n in GREEDY]
+        done = {c.id: c for c in jsrv.run_until_drained()}
+        out[name] = [done[j] for j in jids]
+    return out
+
+
 def port_pool(tm, dm, n_model=1, paged=False, **kw):
     base = dict(slots=2, prompt_len=8, max_len=40, draft=(dm, None),
                 draft_len=GAMMA, n_model=n_model, track_logprobs=True,
@@ -102,31 +123,24 @@ CASES = [(2, False, "sharded"), (4, True, "sharded"),
 @pytest.mark.parametrize("n_model,paged,draft", CASES,
                          ids=[f"n{n}-{'paged' if p else 'contiguous'}-{d}"
                               for n, p, d in CASES])
-def test_tp_speculative_pool_matches_jax(target, drafts, n_model, paged,
-                                         draft):
-    """Greedy streams equal the JAX package's TP speculative pool's (log-
-    probabilities within 1e-4); the seeded sampled stream, every round's
-    proposals and accepted counts, and the streams equal the port's
-    n_model 1 speculative pool's; the draft decodes through the decoder
-    the JAX placement gives it."""
-    jm, params, tm = target
-    jdm, dparams, dm = drafts[draft]
-    jkw = dict(slots=2, prompt_len=8, max_len=40, draft=(jdm, dparams),
-               draft_len=GAMMA, n_model=n_model, track_logprobs=True)
-    if paged:
-        jkw.update(PAGED, paged_kernel="xla")
-    jsrv = JaxDecodeServer(jm, params, **jkw)
-    jids = [jsrv.submit(p, max_new=n) for p, n in GREEDY]
-    jdone = {c.id: c for c in jsrv.run_until_drained()}
+def test_tp_speculative_pool_matches_jax(target, drafts, jax_served,
+                                         n_model, paged, draft):
+    """Greedy streams equal the JAX package's TP speculative pool's with
+    the same draft (log-probabilities within 1e-4); the seeded sampled
+    stream, every round's proposals and accepted counts, and the streams
+    equal the port's n_model 1 speculative pool's; the draft decodes
+    through the decoder the JAX placement gives it."""
+    _, _, tm = target
+    _, _, dm = drafts[draft]
     reqs = [(p, n, {}) for p, n in GREEDY]
     srv = port_pool(tm, dm, n_model, paged)
     want_shards = n_model if draft == "sharded" else 1
     assert isinstance(srv._draft_dec, ShardedLM) and srv.n_model == n_model
     assert srv._draft_dec.n_model == want_shards
     got = serve(srv, reqs)
-    for c, jid in zip(got, jids):
-        assert c.tokens == jdone[jid].tokens
-        np.testing.assert_allclose(c.logprobs, jdone[jid].logprobs,
+    for c, want in zip(got, jax_served[draft]):
+        assert c.tokens == want.tokens
+        np.testing.assert_allclose(c.logprobs, want.logprobs,
                                    atol=1e-4, rtol=0)
     if paged:
         assert srv.prefix_cache_stats()["hits"] > 0
