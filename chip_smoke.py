@@ -282,6 +282,22 @@ Phases:
     launches beside the dense path's step of ``moe_train`` (printed), and
     one p = 4 step under the profiler (the dispatch, exchange and combine
     ranges' device ms);
+    ``cross_process`` (after it): ``dryrun.py:cross_process_check()``,
+    two processes of two groups each sharing the card over gloo, an axis
+    of 4 that crosses them: ring and Ulysses attention, the
+    sequence-parallel step, the pipelined LM (and PP x DP) and the routed
+    LM over an expert axis, each process held against the in-process
+    axis of 4 at full width, depth 2 (the pipeline's 4), f32 with TF32
+    off (outputs equal where the arithmetic is the same, losses within
+    1e-5, gradients within 1e-4 of each tensor's largest, the update
+    within 0.1 of each tensor's largest move), K2/K4/K5 launched as each
+    process's pairs, groups and stage blocks imply; then the full-depth
+    bf16 steps of SP (batch 2 x seq 4096), PP (4 stages x 8 microbatches
+    at 8 x 1024) and EP (p = 4, capacity factor 2, 8 x 1024) timed, one
+    line a process beside the in-process steps of ``seq_pipeline`` and
+    ``expert_parallel`` (the hops, all-to-alls and bytes staged through
+    the host printed); the children's launches join the ``kernels``
+    line;
 19. ``failed_capture``: after a provoked failed CUDA-graph capture the
     pool serves a sampled request equal to an eager pool's, and a random
     draw on the card succeeds;
@@ -2563,6 +2579,8 @@ def phase_expert_parallel(card: str, dense_step: dict) -> dict:
 
         (times, losses), n = counted(steps)
         step_s = sorted(times)[len(times) // 2]
+        if p == EP["control_p"]:
+            IN_PROCESS_STEP_MS["ep"] = step_s * 1e3
         active = active_params(model)
         flops_tok = lm_flops_per_token(active, tcfg)
         tok_s = b * t / step_s
@@ -3696,7 +3714,8 @@ def dp_lm_train(card: str) -> dict:
             mesh = virtual_mesh(nd, 1, "cuda:0")
             state = shard_train_state(state, mesh)
             step = jit_lm_train_step(state.model, state.optimizer, mesh)
-        fault = (patched(data_lib, "reduce_gradients", lambda groups: None)
+        fault = (patched(data_lib, "reduce_gradients",
+                         lambda groups, **kw: None)
                  if kind == "control" else contextlib.nullcontext())
         torch.cuda.synchronize()
         zero_launches()
@@ -3942,6 +3961,10 @@ SEQ = {"groups": 4, "batch": 2, "seq": 4096, "stages": 4,
        "f32_grad_rel": 1e-4}
 TRAINED = ("flash_attention", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv")
+# the in-process steps (median ms, bf16 at full width) of ``seq_pipeline``
+# (ring and Ulysses SP, the pipeline) and ``expert_parallel`` (p = 4 at
+# MOE's capacity factor), printed beside the cross-process ones
+IN_PROCESS_STEP_MS: dict = {}
 
 
 def lm_loss_grads(model, tokens, apply=None) -> tuple[float, dict]:
@@ -4127,6 +4150,7 @@ def seq_parallel_path(kind: str, cfg: dict, card: str, f32: bool) -> dict:
         step_s = sorted(times)[len(times) // 2]
         for k in TRAINED:
             launches[k] = counted[k]
+        IN_PROCESS_STEP_MS[f"sp_{kind}"] = step_s * 1e3
         fields.update(train_losses=losses, step_ms_median=step_s * 1e3,
                       tokens_per_s=SEQ["batch"] * SEQ["seq"] / step_s,
                       step_launches={k: counted[k] for k in TRAINED},
@@ -4208,6 +4232,7 @@ def pipeline_path(cfg: dict, card: str, f32: bool) -> dict:
         step_s = sorted(times)[len(times) // 2]
         for k in TRAINED:
             launches[k] = counted[k]
+        IN_PROCESS_STEP_MS["pp"] = step_s * 1e3
         fields.update(train_losses=losses, step_ms_median=step_s * 1e3,
                       tokens_per_s=SEQ["pp_batch"] * SEQ["pp_seq"] / step_s,
                       step_launches={k: counted[k] for k in TRAINED},
@@ -4243,6 +4268,7 @@ def seq_kernels_vs_plain(cfg: dict) -> dict:
         flash_attention_bwd_dkv_kernel, flash_attention_bwd_dq_kernel,
         flash_attention_kernel, flash_attention_plain, tensor_core_bound)
     from idunno_tpu_torch.parallel import ring_attention as ring_lib
+    from idunno_tpu_torch.parallel.mesh import AxisCells
 
     p, hd, heads = SEQ["groups"], cfg["dim"] // cfg["heads"], cfg["heads"]
     worst = dict.fromkeys(TRAINED, 0.0)
@@ -4302,9 +4328,10 @@ def seq_kernels_vs_plain(cfg: dict) -> dict:
         out, lse = forward(where, q, k, v, True)
         backward(where, q, k, v, do, lse, attention_delta(out, do), True)
     q, k, v, do = inputs((SEQ["batch"], SEQ["seq"], heads, hd))
-    devices = [torch.device("cuda", torch.cuda.current_device())] * p
-    qs, ks, vs, dos = (ring_lib._blocks(x, devices) for x in (q, k, v, do))
-    outs, lses = ring_lib._ring_forward(qs, ks, vs, devices, True)
+    cells = AxisCells((torch.device("cuda", torch.cuda.current_device()),)
+                      * p, (0,) * p)
+    qs, ks, vs, dos = (ring_lib._blocks(x, cells) for x in (q, k, v, do))
+    outs, lses = ring_lib._ring_forward(qs, ks, vs, cells, True)
     merged = torch.cat(outs, dim=1)
     ref, _ = flash_attention_plain(q.float(), k.float(), v.float(),
                                    causal=True)
@@ -4355,6 +4382,67 @@ def phase_seq_pipeline(card: str) -> tuple[dict, dict]:
     say("seq_pipeline", card=card, seconds=time.perf_counter() - t_phase,
         launches=out, kernel_max_abs_err=worst)
     return out, worst
+
+
+CROSS_PROCESS_BUDGET_S = 150.0    # the phase's share of the script's limit
+
+
+def phase_cross_process(card: str) -> dict:
+    """(``cross_process``) Sequence, pipeline and expert parallelism over
+    an axis of 4 that crosses two processes sharing the card
+    (``dryrun.py:cross_process_check``, module docstring): one line a
+    process with the backend, what crossed (point-to-point hops,
+    all-to-alls, reductions, bytes staged through the host), the exact
+    sections' gaps and the timed steps beside the in-process ones of
+    this run; fails unless every process's gates hold. Returns the
+    children's launches, summed over both."""
+    from idunno_tpu_torch.dryrun import CROSS_TOL, cross_process_check
+
+    t0 = time.perf_counter()
+    recs = cross_process_check()
+    seconds = time.perf_counter() - t0
+    launches = dict.fromkeys(KERNELS, 0)
+    for r in recs:
+        moved = dict.fromkeys(("hops", "exchanges", "reductions",
+                               "bytes_staged"), 0)
+        exact, timed = {}, {}
+        for name, sec in r.items():
+            if not isinstance(sec, dict) or "transport" not in sec:
+                continue
+            for k, n in sec.get("launches", {}).items():
+                launches[k] += n
+            for k, n in sec["transport"].items():
+                moved[k] += n
+            if name.endswith("_timed"):
+                ms = sec["step_ms_median"]
+                ref = IN_PROCESS_STEP_MS.get(
+                    {"sp_timed": "sp_ring", "stage_timed": "pp",
+                     "ep_timed": "ep"}[name], "not measured")
+                timed[name] = {
+                    "step_ms_median": ms, "step_ms": sec["step_ms"],
+                    "losses": sec["losses"],
+                    "tokens_per_s": sec["tokens_per_step"] / ms * 1e3,
+                    "in_process_step_ms": ref, "launches": sec["launches"],
+                    "launches_expected": sec["kernel_calls_expected"],
+                    "transport": sec["transport"]}
+            else:
+                exact[name] = {k: v for k, v in sec.items()
+                               if k not in ("losses", "reference_losses",
+                                            "held_params")}
+        say("cross_process", card=card, process=r["process"],
+            processes=r["processes"], groups=r["groups"],
+            backend=r["backend"], axis=r["axis"], transport=moved,
+            gloo_cuda_tensors=r.get("gloo_cuda", "not probed"),
+            exact=exact, timed=timed, exact_seconds=r["exact_seconds"],
+            timed_seconds=r.get("timed_seconds"), failed=r["failed"],
+            tolerance=dict(CROSS_TOL),
+            note="two processes share one card over gloo: every CUDA "
+                 "tensor that crosses is staged through the host")
+    say("cross_process_phase", card=card, seconds=seconds,
+        budget_s=CROSS_PROCESS_BUDGET_S, launches=launches)
+    if not all(r["ok"] for r in recs):
+        raise AssertionError(f"cross_process: {[r['failed'] for r in recs]}")
+    return launches
 
 
 # -- the cluster: nodes as ``python -m idunno_tpu_torch`` builds them -----
@@ -5618,6 +5706,9 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     clock.lap("expert_parallel")
+    for name, n in phase_cross_process(smi).items():
+        launches[name] += n
+    clock.lap("cross_process")
     phase_moe_serving(lm_cfg, smi)
     phase_failed_capture(smi)
     clock.lap("moe_serving_failed_capture")
@@ -5637,8 +5728,7 @@ def main() -> int:
     launches["paged_attention"] += phase_spec_trace(lm_cfg, smi)
     torch.cuda.empty_cache()
     clock.lap("spec_trace")
-    new = ("routed_dp", "entry", "sweep", "apportion", "fairshare",
-           "spec_trace")
+    new = ("cross_process",)
     say("phase_seconds", card=smi, **clock.laps,
         new_phases_total=sum(clock.laps[k] for k in new))
 

@@ -47,7 +47,10 @@ from idunno_tpu_torch.engine.train import (GroupState, MeshTrainState,
                                            place, run_mesh_step)
 from idunno_tpu_torch.engine.train_lm import next_token_loss
 from idunno_tpu_torch.models.transformer import TransformerLM
-from idunno_tpu_torch.parallel.mesh import STAGE_AXIS, Mesh, MeshShapeError
+from idunno_tpu_torch.parallel import transport
+from idunno_tpu_torch.parallel.data import reduce_gradients
+from idunno_tpu_torch.parallel.mesh import (STAGE_AXIS, AxisCells, Mesh,
+                                            MeshShapeError)
 from idunno_tpu_torch.parallel.pipeline import run_stages, stack_stage_params
 
 _BLOCK = "blocks."
@@ -108,19 +111,37 @@ class PipelinedLM(nn.Module):
             nn.ModuleList(model.blocks[s * l:(s + 1) * l])
             for s in range(num_stages))
         self.ln_f, self.head = model.ln_f, model.head
+        self.dim = model.dim
         self.devices: list | None = None
+        self.cells: AxisCells | None = None
 
-    def place(self, devices: list) -> "PipelinedLM":
-        """Each stage on its device of ``devices`` (one per stage), the
-        outer modules on the first."""
+    def place(self, cells) -> "PipelinedLM":
+        """Each stage on its device (``cells``: one device per stage, or a
+        row of a stage axis, ``parallel/mesh.py:AxisCells``), the outer
+        modules on the first. Across processes this process keeps only
+        its own stages, the embedding with stage 0 and the final norm and
+        head with the last stage; the other processes' modules are
+        dropped (each process holds only its stages' weights)."""
+        if not isinstance(cells, AxisCells):
+            cells = AxisCells(tuple(cells), (0,) * len(cells))
+        devices = list(cells.devices)
         if len(devices) != len(self.stages):
             raise ValueError(f"{len(devices)} devices for "
                              f"{len(self.stages)} stages")
-        for mod in (self.embed, self.ln_f, self.head):
-            mod.to(devices[0])
-        for stage, dev in zip(self.stages, devices):
-            stage.to(dev)
-        self.devices = list(devices)
+        outer = {"embed": devices[0], "ln_f": devices[0],
+                 "head": devices[0]}
+        if cells.spans:
+            outer.update(ln_f=devices[-1], head=devices[-1])
+        for name, dev in outer.items():
+            mod = getattr(self, name)
+            if mod is not None:
+                setattr(self, name, None if dev is None else mod.to(dev))
+        for s, dev in enumerate(devices):
+            if dev is None:
+                self.stages[s] = nn.ModuleList()
+            else:
+                self.stages[s].to(dev)
+        self.cells, self.devices = cells, devices
         return self
 
     def dense_state_dict(self) -> dict:
@@ -159,7 +180,10 @@ def make_pipelined_lm_apply(model, mesh: Mesh, num_microbatches: int, *,
     a `PipelinedLM` of ``model``'s shape (a `TransformerLM` or the
     `PipelinedLM` itself) placed on a row of ``mesh``'s stages: the block
     stack through the GPipe schedule on that row's devices;
-    B % num_microbatches == 0. Microbatch ``m`` holds rows ``j·M + m``
+    B % num_microbatches == 0. Across processes the logits are the last
+    stage's process's (None elsewhere), and ``apply(..., flow, key)``
+    differentiates through ``flow`` (``parallel/transport.py:Backflow``,
+    the row's hops keyed by ``key``). Microbatch ``m`` holds rows ``j·M + m``
     (the JAX package's interleave, which keeps a data group's rows
     contiguous). One replica applies to the rows it is given: the data
     axis is the step's (`make_pipelined_lm_train_step`), which gives each
@@ -167,7 +191,8 @@ def make_pipelined_lm_apply(model, mesh: Mesh, num_microbatches: int, *,
     num_stages = mesh.shape[axis]
     _check_pipelineable(model, num_stages)
 
-    def apply_fn(pp: PipelinedLM, tokens: torch.Tensor) -> torch.Tensor:
+    def apply_fn(pp: PipelinedLM, tokens: torch.Tensor, flow=None,
+                 key: tuple = ()) -> torch.Tensor | None:
         b = tokens.shape[0]
         if b % num_microbatches:
             raise ValueError(f"batch {b} not divisible by "
@@ -176,10 +201,19 @@ def make_pipelined_lm_apply(model, mesh: Mesh, num_microbatches: int, *,
             raise ValueError("apply a PipelinedLM placed on its row of the "
                              f"{num_stages}-stage mesh (shard_pipelined_"
                              "state)")
-        mb = b // num_microbatches
-        x = pp.embed(tokens.to(pp.devices[0])).to(pp.compute_dtype)
-        micro = x.reshape(mb, num_microbatches, *x.shape[1:]).transpose(0, 1)
-        y = run_stages(_stage_fn, list(pp.stages), micro, pp.devices)
+        mb, cells = b // num_microbatches, pp.cells
+        if cells.local(0):
+            x = pp.embed(tokens.to(pp.devices[0])).to(pp.compute_dtype)
+            micro = x.reshape(mb, num_microbatches,
+                              *x.shape[1:]).transpose(0, 1)
+        else:                 # stage 0 is another process's
+            micro = torch.empty((num_microbatches, mb, tokens.shape[1],
+                                 pp.dim), dtype=pp.compute_dtype,
+                                device="meta")
+        y = run_stages(_stage_fn, list(pp.stages), micro, cells, flow=flow,
+                       key=key)
+        if y is None:
+            return None
         x = y.transpose(0, 1).reshape(b, *y.shape[2:])
         return pp.head(pp.ln_f(x)).to(torch.float32)
 
@@ -208,18 +242,21 @@ def shard_pipelined_state(state: TrainState, mesh: Mesh, *,
     `PipelinedLM` (the first group the state's own), each stage's blocks
     and their optimizer moments on the stage's device of the group's row —
     each device holds only its own stage's weights, the point of PP — and
-    the outer modules on the row's first device."""
+    the outer modules on the row's first device. Over a stage axis across
+    processes each process keeps its own stages of every row
+    (`PipelinedLM.place`)."""
     base, opt = state.model, state.optimizer
     old = dict(base.named_parameters())
     groups = []
     for i, d in enumerate(mesh.local_groups):
-        devices = mesh.along(axis, d)
-        model = (base if i == 0 else copy.deepcopy(base)).place(devices)
+        cells = mesh.along(axis, d)
+        model = (base if i == 0 else copy.deepcopy(base)).place(cells)
         params = dict(model.named_parameters())
         optimizer = _new_optimizer(opt, list(params.values()))
         for name, p in params.items():
             _carry_state(opt, old[name], p, None, 0, 1, optimizer)
-        groups.append(GroupState(devices[0], model, params, optimizer))
+        lead = next(dev for dev in cells.devices if dev is not None)
+        groups.append(GroupState(lead, model, params, optimizer))
     return MeshTrainState(step=state.step, model=groups[0].model,
                           optimizer=groups[0].optimizer, mesh=mesh,
                           groups=groups)
@@ -247,6 +284,9 @@ def make_pipelined_lm_train_step(model: PipelinedLM,
             f"axes {mesh.axes}", constraint=f"data_axis == {mesh.axes[0]!r}")
     apply_fn = make_pipelined_lm_apply(model, mesh, num_microbatches,
                                        axis=axis)
+    if mesh.spans_processes:
+        return _cross_process_step(model, optimizer, mesh, apply_fn,
+                                   data_axis)
 
     def loss_fn(m, params, tokens):
         ce, acc = next_token_loss(apply_fn(m, tokens), tokens)
@@ -260,6 +300,55 @@ def make_pipelined_lm_train_step(model: PipelinedLM,
                                  "data_axis")
             tokens = [tokens] * len(state.groups)
         loss, acc = run_mesh_step(state, [tokens], loss_fn).unbind()
+        return {"loss": loss, "ce": loss, "accuracy": acc}
+
+    return train_step
+
+
+def _cross_process_step(model, optimizer, mesh: Mesh, apply_fn, data_axis):
+    """The pipelined step over a stage axis across processes: every
+    process is given the global batch and runs its stages of each row (in
+    row order, the same in every process), the rows weighted as in one
+    process; the loss is the last stage's process's, which starts the
+    backward (``transport.Backflow``: from the last stage's process to the
+    first's). A process's stages are its own, so their gradients are
+    summed over its rows only; every process steps its own optimizers.
+    The metrics go to every process."""
+
+    def train_step(state: MeshTrainState, tokens) -> dict:
+        _check_mesh_state(state, model, optimizer, mesh)
+        if isinstance(tokens, (list, tuple)):
+            raise ValueError("a pipelined step across processes takes the "
+                             "global batch")
+        n_data = mesh.shape[mesh.axes[0]]
+        parts = (tokens.tensor_split(n_data) if data_axis is not None
+                 else [tokens] * n_data)
+        flow = transport.Backflow()
+        loss = vec = None
+        for g in state.groups:
+            g.model.train()
+            g.optimizer.zero_grad(set_to_none=True)
+        for g, d in zip(state.groups, mesh.local_groups):
+            rows = parts[d]
+            w = (rows.shape[0] / tokens.shape[0] if data_axis is not None
+                 else 1.0 / n_data)
+            logits = apply_fn(g.model, rows, flow, (d,))
+            if logits is None:
+                continue
+            ce, acc = next_token_loss(logits, rows.to(logits.device))
+            term, v = ce * w, torch.stack([ce.detach(), acc]) * w
+            loss = term if loss is None else loss + term.to(loss.device)
+            vec = v if vec is None else vec + v.to(vec.device)
+        flow.backward(loss)
+        reduce_gradients([list(g.params.values()) for g in state.groups],
+                         over_processes=False)
+        for g in state.groups:
+            g.optimizer.step()
+        state.step += 1
+        if vec is None:
+            vec = torch.zeros(2, device=state.groups[0].device)
+        loss, acc = transport.all_reduce(vec.to(state.groups[0].device)
+                                         ).unbind()
         return {"loss": loss, "ce": loss, "accuracy": acc}
 
     return train_step

@@ -54,6 +54,7 @@ from torch import nn
 from idunno_tpu_torch.engine.inference import resolve_device
 from idunno_tpu_torch.models.init import init_like_flax
 from idunno_tpu_torch.parallel import data as data_lib
+from idunno_tpu_torch.parallel import transport
 from idunno_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
                                             process_info)
 from idunno_tpu_torch.parallel.sharding import split_columns, tp_param_spec
@@ -380,7 +381,7 @@ def _mesh_rows(state: MeshTrainState, batch,
     if not isinstance(batch, (list, tuple)):
         return _split_sizes(batch.shape[0], state.mesh.shape[DATA_AXIS])
     rows = [p.shape[0] for p in parts]
-    world = process_info()[1]
+    world = process_info()[1] if state.mesh.spans_processes else 1
     if world == 1:
         return rows
     every: list = [None] * world
@@ -412,8 +413,6 @@ def run_mesh_step(state: MeshTrainState, inputs: list, loss_fn,
     by the gather's backward), divided by ``accum_steps``, and every
     group's optimizer steps. Returns the global metric vector on the
     first group's device."""
-    import torch.distributed as dist
-
     mesh, groups = state.mesh, state.groups
     per = [_group_inputs(state, x) for x in inputs]
     parts = [list(args) for args in zip(*per)]
@@ -421,7 +420,9 @@ def run_mesh_step(state: MeshTrainState, inputs: list, loss_fn,
     if any(r < accum_steps for r in rows):
         raise ValueError(f"data groups' rows {rows}: each needs at least "
                          f"accum_steps={accum_steps}")
-    world = process_info()[1]
+    # a mesh of this process alone reduces nothing over processes, also
+    # inside a process group
+    world = process_info()[1] if mesh.spans_processes else 1
     has_bn = any(isinstance(m, nn.BatchNorm2d)
                  for m in groups[0].model.modules())
     sync = (data_lib.GroupSync(mesh)
@@ -468,16 +469,17 @@ def run_mesh_step(state: MeshTrainState, inputs: list, loss_fn,
             torch._foreach_div_(grads, accum_steps)
         sums = sums / accum_steps
     if state.fsdp is None:
-        data_lib.reduce_gradients([list(g.params.values()) for g in groups])
+        data_lib.reduce_gradients([list(g.params.values()) for g in groups],
+                                  over_processes=world > 1)
     else:
         data_lib.reduce_gradients(
             [[g.params[n] for n, d in state.fsdp.items() if d is None]
-             for g in groups])
+             for g in groups], over_processes=world > 1)
     for g in groups:
         g.optimizer.step()
     state.step += 1
     if world > 1:
-        dist.all_reduce(sums)
+        transport.all_reduce(sums)
     return sums
 
 

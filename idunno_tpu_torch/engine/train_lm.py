@@ -11,7 +11,9 @@ flash kernels on its own device, and the gradients are summed over the
 groups; or, with ``sequence_parallel=True``, cut on the sequence by the
 model's ring or Ulysses attention (``parallel/ring_attention.py``,
 ``parallel/ulysses.py``), the rest of the step on the global view on the
-mesh's lead device.
+mesh's lead device; over a mesh whose sequence axis crosses processes,
+each process runs the whole model over its own slice of the sequence and
+the gradients are summed over the processes.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 from idunno_tpu_torch.engine.train import (MeshTrainState, TrainState,
                                            _check_mesh_state, check_state,
                                            create_train_state, run_mesh_step)
-from idunno_tpu_torch.models.moe import moe_aux_loss
+from idunno_tpu_torch.models.moe import ExpertShard, SwitchFFN, moe_aux_loss
 from idunno_tpu_torch.models.transformer import TransformerLM
 from idunno_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, MeshShapeError
 
@@ -64,9 +66,17 @@ def make_lm_train_step(model: TransformerLM,
     same gradients as the full batch (equal chunk means) up to f32
     rounding, at 1 / ``accum_steps`` of the activation memory. For a
     routed model the balance loss is computed per chunk and averaged, as
-    the JAX step does: not the full batch's routing statistics."""
+    the JAX step does: not the full batch's routing statistics.
+
+    A routed model whose experts are sharded over an axis across processes
+    (``SwitchFFN(mesh=)`` over a `parallel/mesh.py:global_mesh`) takes
+    `_cross_process_expert_step`: ``tokens`` is then the global batch."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps={accum_steps}: must be >= 1")
+    cells = _expert_cells(model)
+    if cells is not None:
+        return _cross_process_expert_step(model, optimizer, aux_coef, cells,
+                                          accum_steps)
 
     def loss_fn(tokens):
         ce, acc = next_token_loss(model(tokens), tokens)
@@ -99,6 +109,62 @@ def make_lm_train_step(model: TransformerLM,
     return train_step
 
 
+def _expert_cells(model):
+    """The expert axis of ``model``'s routed blocks where it crosses
+    processes, else None."""
+    for m in model.modules():
+        if isinstance(m, SwitchFFN) and m.mesh is not None and m.cells.spans:
+            return m.cells
+    return None
+
+
+def _cross_process_expert_step(model, optimizer, aux_coef, cells,
+                               accum_steps):
+    """The step of a routed model whose expert axis crosses processes:
+    every process is given the global batch ``[B, T]`` and runs the model
+    on its rows (the blocks of its expert shards: its share of the batch
+    in rank order), its backward starting from its share of the global
+    loss (its rows' mean next-token CE plus ``aux_coef`` × the balance
+    loss, which reads the global batch, over the number of processes);
+    the exchanges' backward carries the other processes' gradients to its
+    expert shards, and the replicated parameters' gradients are summed
+    over the processes (``parallel/data.py:reduce_gradients``). Every
+    process updates its own shards and the same replicated weights;
+    metrics are the global ones."""
+    from idunno_tpu_torch.parallel import transport
+    from idunno_tpu_torch.parallel.data import reduce_gradients
+
+    if accum_steps != 1:
+        raise ValueError("an expert-parallel step across processes takes "
+                         "accum_steps=1")
+    n_proc = len(set(cells.ranks))
+    share = cells.mine[0] // len(cells.mine)
+    own = {id(p) for m in model.modules() if isinstance(m, ExpertShard)
+           for p in m.parameters()}
+    replicated = [p for p in model.parameters() if id(p) not in own]
+
+    def train_step(state: TrainState, tokens: torch.Tensor) -> dict:
+        check_state(state, model, optimizer)
+        if tokens.shape[0] % n_proc:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"the {n_proc} processes of the expert axis")
+        rows = tokens.tensor_split(n_proc)[share]
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        ce, acc = next_token_loss(model(rows), rows)
+        aux = moe_aux_loss(model)
+        loss = ce + aux_coef * aux
+        (loss / n_proc).backward()
+        reduce_gradients([replicated])
+        optimizer.step()
+        state.step += 1
+        parts = torch.stack([loss.detach(), ce.detach(), aux.detach(), acc])
+        loss, ce, aux, acc = (transport.all_reduce(parts) / n_proc).unbind()
+        return {"loss": loss, "ce": ce, "aux": aux, "accuracy": acc}
+
+    return train_step
+
+
 def jit_lm_train_step(model: TransformerLM, optimizer: torch.optim.Optimizer,
                       mesh: Mesh, aux_coef: float = 0.01, *,
                       sequence_parallel: bool = False, axis: str = DATA_AXIS,
@@ -120,7 +186,9 @@ def jit_lm_train_step(model: TransformerLM, optimizer: torch.optim.Optimizer,
     residual stream stay on the mesh's lead device (the global view, as
     the JAX package's jit traces it), and only the attention runs per
     group, so the step equals the one-device step on the same weights
-    (the loss masks the final position of the whole sequence)."""
+    (the loss masks the final position of the whole sequence). Over a
+    mesh whose sequence axis crosses processes each process runs the
+    whole model over its own slice (`_cross_process_sequence_step`)."""
     if sequence_parallel:
         return _sequence_parallel_step(model, optimizer, mesh, aux_coef,
                                        axis, accum_steps)
@@ -176,7 +244,11 @@ def _sequence_parallel_step(model, optimizer, mesh, aux_coef, axis,
             "make_attn_fn('ring'|'ulysses', mesh=mesh, axis=axis), on "
             "this step's mesh)", constraint="axis == the attention's "
             "seq_axis")
-    p = len(mesh.along(axis))
+    cells = mesh.along(axis)
+    p = len(cells)
+    if cells.spans:
+        return _cross_process_sequence_step(model, optimizer, cells, axis,
+                                            accum_steps)
     step = make_lm_train_step(model, optimizer, aux_coef, accum_steps)
 
     def train_step(state: TrainState, tokens: torch.Tensor) -> dict:
@@ -184,5 +256,57 @@ def _sequence_parallel_step(model, optimizer, mesh, aux_coef, axis,
             raise ValueError(f"sequence {tokens.shape[1]} not divisible by "
                              f"the {axis!r} axis size {p}")
         return step(state, tokens.to(mesh.lead))
+
+    return train_step
+
+
+def _cross_process_sequence_step(model, optimizer, cells, axis,
+                                 accum_steps):
+    """The sequence-parallel step over an axis across processes: each
+    process is given the global tokens ``[B, T]`` and runs embedding,
+    blocks, final norm, head and loss over its own rows of the sequence
+    (its groups', ``AxisCells.span``; RoPE at their global positions), the
+    targets reaching one token into the next slice. Each process's
+    backward starts from its share of the global mean (its slice's
+    summed loss over the global count; the ring's or Ulysses' backward
+    exchanges between the processes as it goes), the gradients are summed
+    over the processes (``parallel/data.py:reduce_gradients``) and every
+    process takes the same update. Metrics are the global ones."""
+    from idunno_tpu_torch.parallel import transport
+    from idunno_tpu_torch.parallel.data import reduce_gradients
+
+    if accum_steps != 1 or model.ffn_factory is not None:
+        raise ValueError("a sequence-parallel step across processes takes "
+                         "dense blocks and accum_steps=1")
+    lead = cells.devices[cells.mine[0]]
+
+    def train_step(state: TrainState, tokens: torch.Tensor) -> dict:
+        check_state(state, model, optimizer)
+        b, t = tokens.shape
+        if t % len(cells):
+            raise ValueError(f"sequence {t} not divisible by the {axis!r} "
+                             f"axis size {len(cells)}")
+        start, stop = cells.span(t)
+        tokens = tokens.to(lead)
+        x = tokens[:, start:stop]
+        targets = torch.roll(tokens, -1, dims=1)[:, start:stop]
+        mask = (torch.arange(start, stop, device=lead) < t - 1).to(
+            torch.float32)[None, :]
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(x)
+        log_probs = F.log_softmax(logits, dim=-1)
+        nll = -torch.gather(log_probs, -1, targets[..., None])[..., 0]
+        denom = float(b * (t - 1))
+        ce = (nll * mask).sum() / denom
+        ce.backward()
+        reduce_gradients([list(model.parameters())])
+        optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
+        ce, acc = transport.all_reduce(torch.stack([ce.detach(), acc]))
+        return {"loss": ce, "ce": ce, "aux": torch.zeros_like(ce),
+                "accuracy": acc}
 
     return train_step

@@ -31,6 +31,14 @@ shard dispatches its own block of routing units at the capacity of
 package. ``models/convert.py:expert_parallel_state_dict`` and
 ``dense_state_dict`` carry weights between the two layouts.
 
+Over an expert axis across processes (``parallel/mesh.py:global_mesh(1,
+axis=EXPERT_AXIS, across=EXPERT_AXIS)``) a process holds the shards of
+its own positions (``shards`` by position) and runs the layer on its own
+rows of the batch, its shards' blocks of routing units; the balance loss
+reads the global batch's fractions (sums over the processes), and the
+dense part is replicated in every process (the train step sums its
+gradients over them, ``engine/train_lm.py``).
+
 Training: top-1 routing collapses without pressure toward balance, so each
 layer keeps the Switch-Transformer auxiliary load-balancing loss
 (E · Σ_e frac_routed_e · mean_prob_e) of its last forward in ``aux``;
@@ -52,6 +60,7 @@ from torch import nn
 from idunno_tpu_torch.models.init import TRUNC_STD
 from idunno_tpu_torch.models.transformer import AttnFn, Dense, TransformerLM
 from idunno_tpu_torch.ops.attention import full_attention
+from idunno_tpu_torch.parallel.data import all_reduce_sum
 from idunno_tpu_torch.parallel.expert import (COMBINE_SPAN, DISPATCH_SPAN,
                                               EXCHANGE_SPAN, EXPERT_AXIS,
                                               expert_parallel_apply,
@@ -119,6 +128,15 @@ class ExpertShard(nn.Module):
         return {"w1": self.w1, "b1": self.b1, "w2": self.w2, "b2": self.b2}
 
 
+class ExpertShards(nn.ModuleDict):
+    """The expert shards a process holds, by their position on the expert
+    axis (``shards[s]``, state dict keys ``shards.{s}.w1`` ...): every
+    position in one process, its own positions across processes."""
+
+    def __getitem__(self, position) -> ExpertShard:
+        return super().__getitem__(str(position))
+
+
 class SwitchFFN(nn.Module):
     """Top-k routed expert FFN. Input/output [B, T, dim].
 
@@ -157,13 +175,15 @@ class SwitchFFN(nn.Module):
             self.w2 = nn.Parameter(torch.empty(e, hidden, dim))
             self.b2 = nn.Parameter(torch.zeros(e, dim))
         else:
-            devices = mesh.along(axis)
-            p = len(devices)
+            cells = mesh.along(axis)
+            p = len(cells)
             if e % p:
                 raise ValueError(f"{e} experts not divisible by {axis!r} "
                                  f"axis size {p}")
-            self.shards = nn.ModuleList(ExpertShard(e // p, dim, hidden, dev)
-                                        for dev in devices)
+            self.shards = ExpertShards({
+                str(s): ExpertShard(e // p, dim, hidden, cells.devices[s])
+                for s in cells.mine})
+            self.cells = cells
         # the balance loss of the last forward (see moe_aux_loss)
         self.aux: torch.Tensor | None = None
 
@@ -186,16 +206,16 @@ class SwitchFFN(nn.Module):
             nn.init.zeros_(self.b1)
             nn.init.zeros_(self.b2)
             return
-        first = self.shards[0]
+        first = next(iter(self.shards.values()))
         for name in ("w1", "w2"):
             w = torch.empty((self.n_experts,) + getattr(first, name).shape[1:],
                             dtype=getattr(first, name).dtype,
                             device=generator.device)
             _lecun_experts(w, generator)
-            for shard, part in zip(self.shards,
-                                   w.tensor_split(len(self.shards))):
-                getattr(shard, name).copy_(part)
-        for shard in self.shards:
+            parts = w.tensor_split(len(self.cells))
+            for s in self.cells.mine:
+                getattr(self.shards[s], name).copy_(parts[s])
+        for shard in self.shards.values():
             nn.init.zeros_(shard.b1)
             nn.init.zeros_(shard.b2)
 
@@ -225,20 +245,27 @@ class SwitchFFN(nn.Module):
         # Switch-Transformer load-balance loss: E · Σ_e f_e · P_e with f_e
         # the top-1 routing fraction, minimized (=1) at uniform routing
         experts = torch.arange(e, device=x.device)
-        frac = (topk_idx[:, :1] == experts).to(torch.float32).mean(dim=0)
-        self.aux = e * torch.sum(frac * probs.mean(dim=0))
+        routed = (topk_idx[:, :1] == experts).to(torch.float32)
+        if self.mesh is not None and self.cells.spans:
+            # the global batch's fractions: this process holds its rows
+            frac, mean_p = all_reduce_sum(torch.stack(
+                [routed.sum(dim=0).detach(), probs.sum(dim=0)])) / (
+                    n * len(self.cells) / len(self.cells.mine))
+        else:
+            frac, mean_p = routed.mean(dim=0), probs.mean(dim=0)
+        self.aux = e * torch.sum(frac * mean_p)
 
         flat = x.reshape(n, d)
         if self.k > 1:
             flat = flat[:, None].expand(n, self.k, d).reshape(n * self.k, d)
         n_units = n * self.k
         if self.mesh is not None:
-            p = len(self.shards)
+            # this process's units are its shards' blocks
             out = expert_parallel_apply(
                 lambda params, toks: expert_ffn(params, toks, x.dtype),
-                [shard.params() for shard in self.shards], flat, gate_idx,
-                gate_w, self.mesh, axis=self.axis,
-                capacity=self.capacity(n_units // p))
+                [shard.params() for shard in self.shards.values()], flat,
+                gate_idx, gate_w, self.mesh, axis=self.axis,
+                capacity=self.capacity(n_units // len(self.cells.mine)))
         else:
             with annotate(DISPATCH_SPAN):
                 dispatch, combine = switch_dispatch(
@@ -312,5 +339,6 @@ def moe_aux_loss(model: nn.Module) -> torch.Tensor:
 
 
 __all__ = ["COMBINE_SPAN", "DISPATCH_SPAN", "EXCHANGE_SPAN", "ExpertShard",
+           "ExpertShards",
            "MoETransformerLM", "SwitchFFN", "expert_ffn", "moe_aux_loss",
            "switch_ffn_factory", "top_k"]

@@ -165,6 +165,20 @@ def rope(x: torch.Tensor, *, base: float = 10000.0,
                      dim=-1).to(x.dtype)
 
 
+def slice_positions(attn_fn, t: int, device) -> torch.Tensor | None:
+    """The global positions of the ``t`` rows of a sequence this process
+    holds when ``attn_fn`` cuts the sequence over a mesh across processes
+    (ring or Ulysses attention, ``make_attn_fn``'s ``seq_mesh``): its
+    groups' rows, ``parallel/mesh.py:AxisCells.span``. None (0..t-1)
+    otherwise."""
+    mesh = getattr(attn_fn, "seq_mesh", None)
+    if mesh is None or not mesh.spans_processes:
+        return None
+    cells = mesh.along(attn_fn.seq_axis)
+    start = cells.mine[0] * (t // len(cells.mine))
+    return torch.arange(start, start + t, dtype=torch.float32, device=device)
+
+
 def _q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the head dim: [.., kv_heads, d] → (int8 values,
     f32 scale [.., kv_heads])."""
@@ -359,7 +373,8 @@ class MultiHeadAttention(nn.Module):
         b, t, _ = x.shape
         q, k, v = self._qkv(x)
         if self.use_rope:
-            q, k = rope(q), rope(k)
+            pos = slice_positions(self.attn_fn, t, x.device)
+            q, k = rope(q, positions=pos), rope(k, positions=pos)
         if self.kv_heads != self.num_heads:
             rep = self.num_heads // self.kv_heads
             k = k.repeat_interleave(rep, dim=2)

@@ -12,6 +12,7 @@ attention, ``parallel/ring_attention.py``, and Ulysses,
 ``parallel/ulysses.py``), the GPipe schedule (``parallel/pipeline.py``)
 and expert routing (``parallel/expert.py``: ``switch_dispatch``, and
 ``expert_parallel_apply``, the all-to-all exchange over an expert axis).
+Across processes every tensor crosses through ``parallel/transport.py``.
 ``ring_attention`` is not re-exported here: the name would hide its
 module, ``parallel.ring_attention``.
 """

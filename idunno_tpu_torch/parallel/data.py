@@ -9,7 +9,8 @@ BatchNorm statistics, the FSDP gathers and scatters. The port runs one
 process over its rows of a `parallel/mesh.py:Mesh` (``mesh.local_groups``)
 and does these reductions itself: in process over its data groups (a sum
 on the lead device of the groups' devices), then over the processes with
-``torch.distributed`` (``all_reduce``, ``all_gather``).
+``torch.distributed`` (``all_reduce``, ``all_gather``, through
+``parallel/transport.py``).
 
 What lives here:
 
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from idunno_tpu_torch.parallel import transport
 from idunno_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, process_info
 
 # a group that waits this long at the barrier for the others has lost one
@@ -114,19 +116,11 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        import torch.distributed as dist
-
-        out = x.clone()
-        dist.all_reduce(out)
-        return out
+        return transport.all_reduce(x.clone())
 
     @staticmethod
     def backward(ctx, grad):
-        import torch.distributed as dist
-
-        grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        return transport.all_reduce(grad.clone())
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -142,20 +136,12 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, local, dim):
-        import torch.distributed as dist
-
-        rank, world = process_info()
-        parts = [torch.empty_like(local) for _ in range(world)]
-        dist.all_gather(parts, local.contiguous())
-        ctx.dim, ctx.rank, ctx.size = dim, rank, local.shape[dim]
-        return torch.cat(parts, dim)
+        ctx.dim, ctx.rank, ctx.size = dim, process_info()[0], local.shape[dim]
+        return torch.cat(transport.all_gather(local), dim)
 
     @staticmethod
     def backward(ctx, grad):
-        import torch.distributed as dist
-
-        grad = grad.contiguous()
-        dist.all_reduce(grad)
+        grad = transport.all_reduce(grad.contiguous().clone())
         return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None
 
 
@@ -164,17 +150,18 @@ def gather_rows(local: torch.Tensor, dim: int) -> torch.Tensor:
     return _GatherRows.apply(local, dim) if _world() > 1 else local
 
 
-def reduce_gradients(params_by_group: list[list[nn.Parameter]]) -> None:
+def reduce_gradients(params_by_group: list[list[nn.Parameter]], *,
+                     over_processes: bool = True) -> None:
     """The gradient reduction of a data-parallel step. ``params_by_group``
     holds each local group's copies of the same parameters in the same
     order. Each parameter's gradients are summed over the groups (on the
     first group's copy's device, in group order; a missing gradient counts
-    as zero), then over the processes, and every copy gets the sum. The
-    step weights each group's loss by its share of the global batch, so
-    the sum is the global batch's gradient."""
-    import torch.distributed as dist
-
-    world = _world()
+    as zero), then over the processes (unless ``over_processes`` is False:
+    parameters that no other process holds, a pipeline's stages), and
+    every copy gets the sum. The step weights each group's loss by its
+    share of the global batch, so the sum is the global batch's
+    gradient."""
+    world = _world() if over_processes else 1
     totals: list[tuple[tuple, torch.Tensor]] = []
     for copies in zip(*params_by_group):
         grads = [p.grad for p in copies if p.grad is not None]
@@ -190,8 +177,8 @@ def reduce_gradients(params_by_group: list[list[nn.Parameter]]) -> None:
         for _, t in totals:
             by_key.setdefault((t.device, t.dtype), []).append(t)
         for ts in by_key.values():
-            flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.all_reduce(flat)
+            flat = transport.all_reduce(torch.cat([t.reshape(-1)
+                                                   for t in ts]))
             off = 0
             for t in ts:
                 t.copy_(flat[off:off + t.numel()].view_as(t))
@@ -204,12 +191,14 @@ def reduce_gradients(params_by_group: list[list[nn.Parameter]]) -> None:
 class GroupSync:
     """Where the local groups of a step meet: `sum` returns, to each
     group, the sum of what every local group brought, over the processes
-    too. With one local group there is no barrier (the sum over processes
-    is the only meeting)."""
+    too where the mesh spans them. With one local group there is no
+    barrier (the sum over processes is the only meeting)."""
 
     def __init__(self, mesh: Mesh) -> None:
         self.lead = mesh.devices[mesh.local_groups[0]][0]
         self.n = len(mesh.local_groups)
+        self._over = all_reduce_sum if mesh.spans_processes else (
+            lambda x: x)
         self._slots: list = [None] * self.n
         self._out = None
         self._barrier = (threading.Barrier(self.n, action=self._reduce)
@@ -220,13 +209,13 @@ class GroupSync:
         for t in self._slots[1:]:
             total = total + t.to(self.lead)
         self._slots = [None] * self.n
-        self._out = all_reduce_sum(total)
+        self._out = self._over(total)
 
     def sum(self, index: int, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over every data group (differentiable), on
         ``x``'s device; ``index`` is the caller's local group."""
         if self._barrier is None:
-            return all_reduce_sum(x)
+            return self._over(x)
         self._slots[index] = x
         self._barrier.wait(SYNC_TIMEOUT_S)
         return self._out.to(x.device)

@@ -12,10 +12,13 @@ axis of a ``parallel/mesh.py:Mesh`` (the JAX package's ``shard_map`` with
 two tiled ``all_to_all``\\ s, written out): each shard dispatches its own
 block of tokens, one exchange (`all_to_all`) gives every shard the
 buffers of the experts it owns, the local expert FFNs run, and the mirror
-exchange returns the outputs to the tokens' shards for the combine. One
-process drives every shard, so an exchange is copies between the mesh's
-devices (none on a virtual mesh, whose shards share one device); autograd
-runs through them. A mesh across processes raises (``Mesh.along``).
+exchange returns the outputs to the tokens' shards for the combine. Within
+one process an exchange is copies between the mesh's devices (none on a
+virtual mesh, whose shards share one device); across processes (an
+expert axis whose positions belong to several processes) each process
+drives its own shards on its own block of tokens and an exchange is
+``parallel/transport.py:all_to_all`` (one ``all_to_all_single``, the
+mirror one in the backward). Autograd runs through both.
 
 Every op here is shape-static and reads nothing back to the host, so a
 routed decode step can be recorded as a CUDA graph: one-hots are
@@ -28,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from idunno_tpu_torch.parallel import transport
 from idunno_tpu_torch.parallel.mesh import EXPERT_AXIS, Mesh
 from idunno_tpu_torch.utils.tracing import annotate
 
@@ -63,32 +67,35 @@ def switch_dispatch(gate_idx: torch.Tensor, gate_w: torch.Tensor,
     return dispatch, combine
 
 
-def all_to_all(parts: list, devices: list, *, split_axis: int,
+def all_to_all(parts: list, cells, *, split_axis: int,
                concat_axis: int) -> list:
-    """``jax.lax.all_to_all(..., tiled=True)`` over one process's shards:
-    shard ``j`` receives chunk ``j`` of every shard's part (cut into
-    ``len(parts)`` equal chunks along ``split_axis``) on ``devices[j]``,
-    concatenated along ``concat_axis`` in source-shard order."""
-    p = len(parts)
-    chunks = [part.tensor_split(p, dim=split_axis) for part in parts]
-    return [torch.cat([chunks[s][j].to(dev) for s in range(p)],
-                      dim=concat_axis) for j, dev in enumerate(devices)]
+    """``jax.lax.all_to_all(..., tiled=True)`` over the shards of an expert
+    axis (``parallel/mesh.py:AxisCells``): shard ``j`` receives chunk
+    ``j`` of every shard's part (cut into ``len(cells)`` equal chunks along
+    ``split_axis``) on its device, concatenated along ``concat_axis`` in
+    source-shard order; ``parts`` and the result are this process's
+    shards' (``parallel/transport.py:all_to_all``)."""
+    return transport.all_to_all(parts, cells, split_axis=split_axis,
+                                concat_axis=concat_axis)
 
 
-def _shard_params(stacked_params, devices: list) -> list[dict]:
-    """Each shard's expert params on its device: a dict of [E, ...] leaves
-    cut into ``len(devices)`` contiguous blocks of experts, or a list of
-    per-shard dicts (moved where a leaf lies elsewhere)."""
-    p = len(devices)
+def _shard_params(stacked_params, cells) -> list[dict]:
+    """This process's shards' expert params on their devices: a dict of
+    [E, ...] leaves cut into ``len(cells)`` contiguous blocks of experts,
+    or a list of per-shard dicts, the p shards' or this process's
+    (moved where a leaf lies elsewhere)."""
+    p, mine = len(cells), cells.mine
     if isinstance(stacked_params, dict):
         cut = {k: v.tensor_split(p, dim=0) for k, v in stacked_params.items()}
-        return [{k: v[s].to(dev) for k, v in cut.items()}
-                for s, dev in enumerate(devices)]
-    if len(stacked_params) != p:
+        return [{k: v[s].to(cells.devices[s]) for k, v in cut.items()}
+                for s in mine]
+    if len(stacked_params) == p and p != len(mine):
+        stacked_params = [stacked_params[s] for s in mine]
+    if len(stacked_params) != len(mine):
         raise ValueError(f"{len(stacked_params)} expert shards' params for "
                          f"an axis of {p}")
-    return [{k: v.to(dev) for k, v in sp.items()}
-            for sp, dev in zip(stacked_params, devices)]
+    return [{k: v.to(cells.devices[s]) for k, v in sp.items()}
+            for sp, s in zip(stacked_params, mine)]
 
 
 def expert_parallel_apply(expert_fn: Callable[[Any, torch.Tensor],
@@ -100,32 +107,39 @@ def expert_parallel_apply(expert_fn: Callable[[Any, torch.Tensor],
     """Run the MoE layer with experts sharded over ``axis`` of ``mesh``.
 
     ``x`` [N, d] and the gates [N] are cut over the axis's shards in
-    contiguous blocks, in order (N divisible by the axis size).
+    contiguous blocks, in order (N divisible by the axis size); across
+    processes they are this process's rows, cut over its own shards.
     ``stacked_params`` are the experts' params: a dict of [E, ...] leaves,
     shard ``s`` owning experts ``[s·E/p, (s+1)·E/p)`` (E divisible by the
-    axis size), or a list of the p shards' dicts of [E/p, ...] leaves.
+    axis size), or a list of the p shards' dicts of [E/p, ...] leaves
+    (across processes: or of this process's shards').
     ``expert_fn(params, buf)`` runs a shard's experts on their buffers
     [E/p, p·C, d] (batched over the leading expert axis: the JAX
     ``vmap(expert_fn)``) and returns them in f32. Each shard dispatches its
     own tokens at ``capacity`` slots an expert, so which tokens drop
     depends on the axis size, as in the JAX package. Returns [N, d] f32 on
-    ``x``'s device."""
-    devices = mesh.along(axis)
-    p = len(devices)
-    shards = _shard_params(stacked_params, devices)
-    n_experts = sum(next(iter(sp.values())).shape[0] for sp in shards)
+    ``x``'s device (this process's rows across processes)."""
+    cells = mesh.along(axis)
+    p, mine = len(cells), cells.mine
+    shards = _shard_params(stacked_params, cells)
+    if isinstance(stacked_params, dict):
+        n_experts = next(iter(stacked_params.values())).shape[0]
+    else:        # the p shards', or this process's shards' of p
+        n_experts = sum(next(iter(sp.values())).shape[0]
+                        for sp in stacked_params) * p // len(stacked_params)
     if n_experts % p:
         raise ValueError(f"{n_experts} experts not divisible by {axis!r} "
                          f"axis size {p}")
     n = x.shape[0]
-    if n % p:
+    if n % len(mine):
         raise ValueError(f"{n} routing units not divisible by {axis!r} "
-                         f"axis size {p}")
-    per = n // p
+                         f"axis size {len(mine)}")
+    per = n // len(mine)
     bufs, combines = [], []
     with annotate(DISPATCH_SPAN):
-        for s, dev in enumerate(devices):
-            rows = slice(s * per, (s + 1) * per)
+        for b, s in enumerate(mine):
+            dev = cells.devices[s]
+            rows = slice(b * per, (b + 1) * per)
             dispatch, combine = switch_dispatch(
                 gate_idx[rows].to(dev), gate_w[rows].to(dev), n_experts,
                 capacity)
@@ -134,11 +148,11 @@ def expert_parallel_apply(expert_fn: Callable[[Any, torch.Tensor],
             combines.append(combine)
     with annotate(EXCHANGE_SPAN):
         # group tokens by owning shard: [E/p, p·C, d] on each owner
-        bufs = all_to_all(bufs, devices, split_axis=0, concat_axis=1)
+        bufs = all_to_all(bufs, cells, split_axis=0, concat_axis=1)
     outs = [expert_fn(sp, buf) for sp, buf in zip(shards, bufs)]
     with annotate(EXCHANGE_SPAN):
         # and back to the tokens' shards: [E, C, d] on each source
-        outs = all_to_all(outs, devices, split_axis=1, concat_axis=0)
+        outs = all_to_all(outs, cells, split_axis=1, concat_axis=0)
     with annotate(COMBINE_SPAN):
         return torch.cat([
             torch.einsum("ecd,nec->nd", out, combine).to(x.device)

@@ -28,11 +28,16 @@ counterpart of the JAX tests' ``--xla_force_host_platform_device_count``.
 
 Several processes (hosts, or processes sharing a host) join through
 `initialize_distributed`, a ``torch.distributed`` process group. A mesh
-across them (`global_mesh`) names the whole ``(data, model)`` grid, but
-each process owns only its own rows, ``Mesh.local_groups``: it runs
-those data groups, and the data-axis collectives
-(``parallel/data.py``) reduce over its rows in process and then over the
-processes with ``torch.distributed``.
+across them (`global_mesh`) names the whole grid and the process that
+owns each cell (``Mesh.owners``): processes along the rows (each owns
+whole data groups, ``Mesh.local_groups``: data parallelism, and the
+sequence of ring and Ulysses attention) or along the columns (each owns
+a block of stages or expert shards in every row: pipeline and expert
+parallelism). A process runs only its own cells. The data-axis
+collectives (``parallel/data.py``) reduce over its rows in process and
+then over the processes; `Mesh.along` gives the positions of an axis
+with their devices and owners, and every tensor that crosses to another
+process goes through ``parallel/transport.py``.
 """
 from __future__ import annotations
 
@@ -70,27 +75,80 @@ class MeshShapeError(ValueError):
 
 
 @dataclass(frozen=True)
+class AxisCells:
+    """The positions along one axis of a mesh, in axis order: position
+    ``i`` runs on ``devices[i]`` in process ``ranks[i]``. ``devices[i]``
+    is None where another process owns the position (that process names
+    its device); ``rank`` is this process."""
+
+    devices: tuple
+    ranks: tuple[int, ...]
+    rank: int = 0
+
+    def __len__(self) -> int:
+        return len(self.ranks)
+
+    def local(self, i: int) -> bool:
+        return self.ranks[i] == self.rank
+
+    @property
+    def mine(self) -> tuple[int, ...]:
+        """The positions this process owns, in axis order."""
+        return tuple(i for i, r in enumerate(self.ranks) if r == self.rank)
+
+    @property
+    def spans(self) -> bool:
+        """Whether the axis crosses processes."""
+        return len(set(self.ranks)) > 1
+
+    def span(self, n: int) -> tuple[int, int]:
+        """The ``[start, stop)`` of a length-``n`` dim cut evenly over the
+        axis that this process's positions hold (they must be
+        contiguous)."""
+        mine = self.mine
+        if not mine or mine != tuple(range(mine[0], mine[-1] + 1)):
+            raise MeshShapeError(
+                f"positions {mine} of an axis of {len(self)}: a process "
+                "holds a contiguous run of positions",
+                constraint="contiguous positions a process")
+        size = n // len(self)
+        return mine[0] * size, (mine[-1] + 1) * size
+
+
+@dataclass(frozen=True)
 class Mesh:
     """A ``(data, model)`` grid of torch devices: ``devices[d][m]`` holds
     model shard ``m`` of data group ``d``. ``virtual`` marks a grid that
-    names a device more than once (module docstring). ``local`` lists the
-    data groups this process runs (None: every group, a mesh of one
-    process); the rows of other processes name their devices as those
-    processes do, and this process never touches them. ``axes`` names
-    the grid's two axes: rows, then columns (``(data, stage)``: stage
-    ``s`` of data group ``d`` on ``devices[d][s]``)."""
+    names a device more than once (module docstring). ``owners[d][m]`` is
+    the rank of the process that runs cell ``(d, m)`` (None: this process
+    runs every cell, a mesh of one process), ``rank`` this process's; the
+    cells of other processes name their devices as those processes do,
+    and this process never touches them. ``axes`` names the grid's two
+    axes: rows, then columns (``(data, stage)``: stage ``s`` of data group
+    ``d`` on ``devices[d][s]``)."""
 
     devices: tuple[tuple[torch.device, ...], ...]
     virtual: bool = False
-    local: tuple[int, ...] | None = None
+    owners: tuple[tuple[int, ...], ...] | None = None
+    rank: int = 0
     axes: tuple[str, str] = (DATA_AXIS, MODEL_AXIS)
 
     @property
+    def spans_processes(self) -> bool:
+        """Whether the grid's cells belong to more than one process."""
+        return (self.owners is not None
+                and len({r for row in self.owners for r in row}) > 1)
+
+    def owner(self, d: int, m: int) -> int:
+        return self.rank if self.owners is None else self.owners[d][m]
+
+    @property
     def local_groups(self) -> tuple[int, ...]:
-        """The data groups this process runs, in grid order."""
-        if self.local is None:
-            return tuple(range(len(self.devices)))
-        return self.local
+        """The data groups (rows) that hold a cell of this process, in
+        grid order."""
+        return tuple(d for d in range(len(self.devices))
+                     if any(self.owner(d, m) == self.rank
+                            for m in range(len(self.devices[d]))))
 
     @property
     def shape(self) -> dict[str, int]:
@@ -98,24 +156,43 @@ class Mesh:
         return {self.axes[0]: len(self.devices),
                 self.axes[1]: len(self.devices[0])}
 
-    def along(self, axis: str, row: int = 0) -> list[torch.device]:
-        """The devices along ``axis``, one a group: each data group's lead
-        device for the row axis, the cells of data group ``row`` for the
-        column axis. The sequence of ring and Ulysses attention, the
-        stages of a pipeline and the shards of an expert exchange run on
-        them in one process: a mesh across processes raises."""
-        if self.local is not None:
-            raise MeshShapeError(
-                f"the {axis!r} axis of a mesh across processes: sequence, "
-                "pipeline and expert parallelism run in one process "
-                "(ROADMAP.md §1 step 3f)", n_devices=len(self.distinct()),
-                constraint="a mesh of one process (Mesh.local is None)")
+    def along(self, axis: str, row: int = 0) -> AxisCells:
+        """The positions along ``axis``: each data group's lead cell for
+        the row axis, the cells of data group ``row`` for the column axis.
+        The sequence of ring and Ulysses attention, the stages of a
+        pipeline and the shards of an expert exchange run on them. A mesh
+        across processes needs the process group it was made in."""
+        if self.spans_processes:
+            self._check_group(axis)
         if axis == self.axes[0]:
-            return [row_devs[0] for row_devs in self.devices]
-        if axis == self.axes[1]:
-            return list(self.devices[row])
-        raise MeshShapeError(f"mesh axes {self.axes} have no {axis!r}",
-                             constraint=f"axis in {self.axes}")
+            cells = [(d, 0) for d in range(len(self.devices))]
+        elif axis == self.axes[1]:
+            cells = [(row, m) for m in range(len(self.devices[row]))]
+        else:
+            raise MeshShapeError(f"mesh axes {self.axes} have no {axis!r}",
+                                 constraint=f"axis in {self.axes}")
+        ranks = tuple(self.owner(d, m) for d, m in cells)
+        devices = tuple(self.devices[d][m] if r == self.rank else None
+                        for (d, m), r in zip(cells, ranks))
+        return AxisCells(devices, ranks, self.rank)
+
+    def _check_group(self, axis: str) -> None:
+        """Raise unless this process is rank ``self.rank`` of an
+        initialized process group holding every owner of the grid."""
+        ranks = sorted({r for row in self.owners for r in row})
+        rank, world = process_info()
+        if world > 1 and rank == self.rank and ranks[-1] < world:
+            return
+        where = ("no torch.distributed process group is initialized"
+                 if world == 1 else
+                 f"this process is rank {rank} of a group of {world}")
+        raise MeshShapeError(
+            f"the {axis!r} axis of a mesh across processes {ranks} (made "
+            f"as rank {self.rank}): {where}; sequence, pipeline and "
+            "expert parallelism across processes run inside the process "
+            "group the mesh was made in (initialize_distributed, then "
+            "global_mesh)", n_devices=len(self.distinct()),
+            constraint="an initialized process group holding every owner")
 
     @property
     def lead(self) -> torch.device:
@@ -126,9 +203,9 @@ class Mesh:
     def distinct(self) -> list[torch.device]:
         """This process's devices of the mesh, each once, in grid order."""
         out: list[torch.device] = []
-        for d in self.local_groups:
-            for dev in self.devices[d]:
-                if dev not in out:
+        for d, row in enumerate(self.devices):
+            for m, dev in enumerate(row):
+                if self.owner(d, m) == self.rank and dev not in out:
                     out.append(dev)
         return out
 
@@ -224,7 +301,8 @@ def check_head_divisibility(num_heads: int, n_model: int) -> None:
 # which ``jax.devices()`` is the global device set. The port joins
 # processes in a ``torch.distributed`` process group; each keeps its own
 # devices (``_DIST["devices"]``: per process, as the group itself is),
-# and `global_mesh` stacks every process's rows into one grid.
+# and `global_mesh` stacks every process's block of the grid into one,
+# along the rows or along the columns.
 
 _DIST: dict = {}
 
@@ -306,24 +384,39 @@ def _local_devices() -> list[torch.device]:
                 or [torch.device("cpu")])
 
 
-def global_mesh(n_model: int = 1) -> Mesh:
-    """A (data, model) mesh over every process's devices: each process's
-    devices fill its rows (``n_model`` to a row; process ``r``'s rows come
-    after process ``r - 1``'s), and the mesh's ``local_groups`` are this
-    process's rows. Call after `initialize_distributed`; outside a group it
-    is the mesh of this process's devices alone."""
+def global_mesh(n_model: int = 1, *, axis: str = MODEL_AXIS,
+                across: str = DATA_AXIS, devices=None) -> Mesh:
+    """A (data, ``axis``) mesh over every process's devices. Each process's
+    devices (``devices``, default: those it joined the group with; one
+    device named more than once makes a virtual block) form a block of
+    ``len(devices) / n_model`` rows by ``n_model`` columns, and the
+    blocks stack in rank order along ``across``: the data axis (process
+    ``r``'s rows after process ``r - 1``'s: data parallelism, the sequence
+    of ring and Ulysses attention) or ``axis`` (its columns after theirs in
+    every row: the stages of a pipeline, the shards of an expert axis).
+    The mesh's ``owners`` name each cell's process. Call after
+    `initialize_distributed`; outside a group it is the mesh of this
+    process's devices alone."""
     import torch.distributed as dist
 
-    devices = _local_devices()
+    devices = ([_canonical(d) for d in devices] if devices is not None
+               else _local_devices())
     if n_model < 1 or len(devices) % n_model:
         raise MeshShapeError(
             f"{len(devices)} local devices not divisible by model axis "
             f"{n_model}", n_devices=len(devices), n_model=n_model,
             constraint=f"n_model must divide {len(devices)} devices a "
                        "process")
+    if across not in (DATA_AXIS, axis):
+        raise MeshShapeError(
+            f"processes along {across!r}: want {DATA_AXIS!r} or {axis!r}",
+            constraint=f"across in ({DATA_AXIS!r}, {axis!r})")
+    virtual = len(set(devices)) < len(devices)
+    rows_per = len(devices) // n_model
     rank, world = process_info()
     if world == 1:
-        return make_mesh(len(devices) // n_model, n_model, devices=devices)
+        return make_mesh(rows_per, n_model, devices=devices,
+                         virtual=virtual, axis=axis)
     names: list[list[str]] = [None] * world
     dist.all_gather_object(names, [str(d) for d in devices])
     if len({len(n) for n in names}) != 1:
@@ -331,10 +424,17 @@ def global_mesh(n_model: int = 1) -> Mesh:
             f"processes hold {[len(n) for n in names]} devices; a global "
             "mesh needs the same count in each", n_devices=len(devices),
             n_model=n_model, constraint="equal devices per process")
-    rows_per = len(devices) // n_model
-    grid = tuple(tuple(torch.device(n) for n in proc[r * n_model:
-                                                      (r + 1) * n_model])
-                 for proc in names for r in range(rows_per))
-    local = tuple(range(rank * rows_per, (rank + 1) * rows_per))
-    mine = [dev for d in local for dev in grid[d]]
-    return Mesh(grid, virtual=len(set(mine)) < len(mine), local=local)
+    blocks = [[tuple(torch.device(n) for n in proc[r * n_model:
+                                                   (r + 1) * n_model])
+               for r in range(rows_per)] for proc in names]
+    if across == DATA_AXIS:
+        grid = tuple(row for block in blocks for row in block)
+        owners = tuple((r,) * n_model for r in range(world)
+                       for _ in range(rows_per))
+    else:
+        grid = tuple(tuple(dev for block in blocks for dev in block[i])
+                     for i in range(rows_per))
+        owners = tuple(tuple(r for r in range(world) for _ in range(n_model))
+                       for _ in range(rows_per))
+    return Mesh(grid, virtual=virtual, owners=owners, rank=rank,
+                axes=(DATA_AXIS, axis))

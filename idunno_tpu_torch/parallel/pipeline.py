@@ -12,6 +12,17 @@ SPMD program; a single controller runs a slot's stages one after
 another, which changes the order of the work and not its values. The
 schedule is plain tensor ops, so autograd differentiates it and the same
 function serves inference and training.
+
+Across processes (a stage axis whose columns belong to several
+processes, ``parallel/mesh.py:global_mesh(..., across=STAGE_AXIS)``), a
+stage runs in the process that owns its cell and each process runs its
+own stages of every slot. After a slot's stages, the activations bound
+for another process's stage cross in one exchange
+(``parallel/transport.py``), every process exchanging at every slot, as
+the JAX package's ``ppermute`` does. Their gradients come back through a
+``transport.Backflow``: a process's backward starts from the gradients
+of what it sent, so the backward runs from the last stage's process to
+the first's.
 """
 from __future__ import annotations
 
@@ -21,7 +32,8 @@ from typing import Any, Callable
 import torch
 from torch.utils._pytree import tree_map
 
-from idunno_tpu_torch.parallel.mesh import STAGE_AXIS, Mesh
+from idunno_tpu_torch.parallel import transport
+from idunno_tpu_torch.parallel.mesh import STAGE_AXIS, AxisCells, Mesh
 
 
 def stack_stage_params(per_stage: list[Any]) -> Any:
@@ -50,43 +62,89 @@ def gpipe_slots(m: int, p: int):
 def _placed(stage_params, p: int, devices: list) -> list:
     """Each stage's params on its stage's device: stage ``s`` of a list of
     p per-stage values (moved where a tensor lies elsewhere), or slice
-    ``s`` of every [p, ...] leaf of a stacked dict."""
+    ``s`` of every [p, ...] leaf of a stacked dict; None for a stage of
+    another process (its device None)."""
     if isinstance(stage_params, (list, tuple, torch.nn.ModuleList)):
         if len(stage_params) != p:
             raise ValueError(f"{len(stage_params)} stages' params for "
                              f"{p} stages")
-        return [tree_map(lambda a, dev=dev: a.to(dev)
+        return [None if dev is None else
+                tree_map(lambda a, dev=dev: a.to(dev)
                          if isinstance(a, torch.Tensor) else a, sp)
                 for sp, dev in zip(stage_params, devices)]
-    return [tree_map(lambda a, s=s, dev=dev: a[s].to(dev), stage_params)
+    return [None if dev is None else
+            tree_map(lambda a, s=s, dev=dev: a[s].to(dev), stage_params)
             for s, dev in enumerate(devices)]
 
 
+def _hand_on(passed: dict, slot: list, cells: AxisCells, like: tuple,
+             flow, key: tuple) -> dict:
+    """What each stage of a slot passes to the next one's stage for the
+    next slot: a device copy within the process (made where it is used),
+    one exchange for the activations that cross processes (through
+    ``flow`` when the hops are differentiable). ``like`` is (shape,
+    dtype) of an activation; ``key`` tells this row's hops apart."""
+    p = len(cells)
+    held = {s: y for s, y in passed.items() if cells.local(s + 1)}
+    sends, recvs = [], []
+    for _, s, i in slot:
+        if s == p - 1 or cells.local(s) == cells.local(s + 1):
+            continue
+        if cells.local(s):
+            sends.append((key + (s, i), passed[s], cells.ranks[s + 1]))
+        else:
+            recvs.append((key + (s, i), like + (cells.devices[s + 1],),
+                          cells.ranks[s]))
+    if flow is None:
+        if (sends or recvs) and torch.is_grad_enabled():
+            raise ValueError("activations that cross processes with "
+                             "gradients on need a transport.Backflow "
+                             "(run_stages(..., flow=))")
+        got = transport.exchange([(t, r) for _, t, r in sends],
+                                 [(x, r) for _, x, r in recvs])
+    else:
+        got = flow.hop(sends, recvs)
+    held.update({k[-2]: t for (k, _, _), t in zip(recvs, got)})
+    return held
+
+
 def run_stages(stage_fn, stage_params, microbatches: torch.Tensor,
-               devices: list) -> torch.Tensor:
+               cells, *, flow=None, key: tuple = ()) -> torch.Tensor | None:
     """One row of stages through the GPipe schedule: stage ``s`` on
-    ``devices[s]`` (``stage_params`` as in `pipeline_apply`). As in the
-    JAX package, the output buffer starts at zeros and the last stage
-    writes microbatch ``t - (p - 1)`` at slot ``t``. Returns [M, mb, ...]
-    on the microbatches' device."""
-    p, m = len(devices), microbatches.shape[0]
-    params = _placed(stage_params, p, devices)
+    position ``s`` of ``cells`` (``parallel/mesh.py:AxisCells``;
+    ``stage_params`` as in `pipeline_apply`). As in the JAX package, the output buffer starts at
+    zeros and the last stage writes microbatch ``t - (p - 1)`` at slot
+    ``t``. Returns [M, mb, ...] on the microbatches' device (the last
+    stage's where they are a ``meta`` tensor, which only gives this
+    process the shape and dtype of an activation); None in a process
+    without the last stage. Across processes the hops go through the
+    transport, their gradients through ``flow`` (a
+    ``transport.Backflow``; None: no gradients cross), each keyed by
+    ``key`` + (stage, microbatch)."""
+    p, m = len(cells), microbatches.shape[0]
+    params = _placed(stage_params, p, cells.devices)
+    like = (tuple(microbatches.shape[1:]), microbatches.dtype)
     outs: list = [None] * m
     held: dict = {}                  # stage → what it passes on next slot
-    for _, slot in itertools.groupby(gpipe_slots(m, p),
-                                     key=lambda entry: entry[0]):
-        passed = {}
+    for _, entries in itertools.groupby(gpipe_slots(m, p),
+                                        key=lambda entry: entry[0]):
+        slot, passed = list(entries), {}
         for _, s, i in slot:
+            if not cells.local(s):
+                continue
             x = microbatches[i] if s == 0 else held[s - 1]
-            y = stage_fn(params[s], x.to(devices[s]))
+            y = stage_fn(params[s], x.to(cells.devices[s]))
             if s == p - 1:
                 outs[i] = y
             else:
                 passed[s] = y
-        held = passed
-    return torch.stack([torch.zeros_like(microbatches[i]) if o is None
-                        else o.to(microbatches.device)
-                        for i, o in enumerate(outs)])
+        held = _hand_on(passed, slot, cells, like, flow, key)
+    if not cells.local(p - 1):
+        return None
+    home = (cells.devices[p - 1] if microbatches.device.type == "meta"
+            else microbatches.device)
+    return torch.stack([torch.zeros(like[0], dtype=like[1], device=home)
+                        if o is None else o.to(home) for o in outs])
 
 
 def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -109,7 +167,14 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     cut over it: each data group runs the same schedule on its slice of
     every microbatch on its row of the mesh (PP x DP), with the stage
     params copied to its row (autograd sums their gradients over the
-    groups). Without it, the mesh's first row runs the whole batch."""
+    groups). Without it, the mesh's first row runs the whole batch.
+
+    Over a mesh across processes each process runs its own stages and
+    returns the output, which the last stage's process sends to every
+    other (as the JAX package's ``psum`` of the last stage's output
+    replicates it); no gradient crosses processes here: the pipelined LM
+    step (``engine/pipeline_lm.py``) differentiates through a
+    ``transport.Backflow``."""
     if data_axis is None:
         rows = [(mesh.along(axis, 0), microbatches)]
     else:
@@ -120,6 +185,14 @@ def pipeline_apply(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                 f"data axis {data_axis!r} size {dp}")
         rows = [(mesh.along(axis, d), part) for d, part in
                 enumerate(microbatches.chunk(dp, dim=1))]
-    outs = [run_stages(stage_fn, stage_params, part, devs)
-            for devs, part in rows]
+    if not rows[0][0].spans:
+        outs = [run_stages(stage_fn, stage_params, part, cells)
+                for cells, part in rows]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    outs = []
+    for d, (cells, part) in enumerate(rows):
+        with torch.no_grad():
+            y = run_stages(stage_fn, stage_params, part, cells, key=(d,))
+        outs.append(transport.broadcast(
+            part if y is None else y, cells.ranks[-1]))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

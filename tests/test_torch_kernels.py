@@ -860,9 +860,9 @@ def test_bf16_ring_pairs_on_card_within_bound(cuda_device, causal):
     bound = (tensor_core_bound("out", out, ref, q, k, v, causal=causal)
              + float(bf16_ulp(v.float().abs().max())))
     assert float(((out.float() - ref).abs().double() / bound).max()) <= 1.0
-    devices = [cuda_device] * p
-    qs, ks, vs, dos = (ring_lib._blocks(x, devices) for x in (q, k, v, do))
-    outs, lses = ring_lib._ring_forward(qs, ks, vs, devices, causal)
+    cells = virtual_mesh(p, 1, cuda_device).along("data")
+    qs, ks, vs, dos = (ring_lib._blocks(x, cells) for x in (q, k, v, do))
+    outs, lses = ring_lib._ring_forward(qs, ks, vs, cells, causal)
     deltas = [attention_delta(o, g) for o, g in zip(outs, dos)]
     for _, my, src, diag in ring_lib.ring_pairs(p, causal):
         args = (qs[my], ks[src], vs[src], dos[my], lses[my], deltas[my])
@@ -1091,3 +1091,24 @@ def test_trace_keeps_every_kernel_of_the_region(cuda_device, tmp_path):
         rep = apportion(str(where))
         assert 0 < rep["warmup_kernels"] <= WARMUP_KERNELS
         assert sum(r["count"] for r in rep["ops"]) == 300
+
+
+@pytest.mark.gpu
+def test_cross_process_parallelism_on_the_card(cuda_device):
+    """``dryrun.py:cross_process_check()`` on the card: two processes of
+    two groups share it over gloo (NCCL refuses two ranks on one card);
+    ring and Ulysses attention, the sequence-parallel step, the pipelined
+    LM (and PP x DP) and the routed LM over an expert axis across the two
+    hold the record's gates against the in-process axis of 4 (outputs
+    equal where the arithmetic is the same, K2/K4/K5 launched once a live
+    pair, group or stage block of each process), and every CUDA tensor
+    that crossed went through the host (bytes staged)."""
+    from idunno_tpu_torch.dryrun import cross_process_check
+
+    recs = cross_process_check()
+    for r in recs:
+        assert r["ok"] and r["backend"] == "gloo", r["failed"]
+        assert r["ring_attention"]["out_equal"]
+        assert r["stage_step"]["transport"]["bytes_staged"] > 0
+        assert r["sp_timed"]["launches"]["flash_attention"] == \
+            r["sp_timed"]["kernel_calls_expected"]

@@ -124,8 +124,8 @@ def test_expert_parallelism_raises_naming_roadmap():
     """Expert parallelism's typed refusals, the JAX path's: experts that
     do not divide the axis (at construction and in
     ``expert_parallel_apply``) and routing units that do not; and a mesh
-    across processes, which ``Mesh.along`` refuses naming ROADMAP.md's
-    step 3f."""
+    across processes outside the process group it was made in, which
+    ``Mesh.along`` refuses naming the missing group."""
     from idunno_tpu_torch.parallel.mesh import (EXPERT_AXIS, Mesh,
                                                 MeshShapeError, virtual_mesh)
 
@@ -143,10 +143,11 @@ def test_expert_parallelism_raises_naming_roadmap():
     ffn = SwitchFFN(4, 8, 4, mesh=mesh)
     with pytest.raises(ValueError, match="6 routing units not divisible"):
         ffn(torch.zeros(1, 6, 4))
-    across = Mesh(mesh.devices, local=(0,), axes=mesh.axes)
-    with pytest.raises(MeshShapeError, match="ROADMAP.md.*3f"):
+    across = Mesh(mesh.devices, owners=((0, 0, 1, 1),), axes=mesh.axes)
+    with pytest.raises(MeshShapeError,
+                       match="no torch.distributed process group"):
         SwitchFFN(4, 8, 4, mesh=across)
-    with pytest.raises(MeshShapeError, match="3f"):
+    with pytest.raises(MeshShapeError, match="process group"):
         expert_parallel_apply(lambda p, t: t, params, torch.zeros(8, 4),
                               torch.zeros(8, dtype=torch.int64),
                               torch.ones(8), across, capacity=2)

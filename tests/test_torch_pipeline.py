@@ -17,7 +17,7 @@
 - ``merge_lm_params(partition_lm_params(p))`` returns p exactly, and the
   port's partition of the carried weights is JAX's partition carried;
 - the routed model refused with JAX's words; a depth the stages do not
-  divide; a mesh across processes (ROADMAP step 3f).
+  divide; a mesh across processes outside its process group.
 """
 import jax
 import jax.numpy as jnp
@@ -288,7 +288,8 @@ def test_pipeline_refusals():
     with pytest.raises(ValueError, match="need data_axis"):
         step(placed, [torch.zeros((8, 4), dtype=torch.int64)])
     cpu = torch.device("cpu")
-    spread = Mesh(((cpu, cpu), (cpu, cpu)), virtual=True, local=(0,),
-                  axes=("data", STAGE_AXIS))
-    with pytest.raises(MeshShapeError, match="step 3f"):
+    spread = Mesh(((cpu, cpu), (cpu, cpu)), virtual=True,
+                  owners=((0, 1), (0, 1)), axes=("data", STAGE_AXIS))
+    with pytest.raises(MeshShapeError,
+                       match="no torch.distributed process group"):
         shard_pipelined_state(state, spread)

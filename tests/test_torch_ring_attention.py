@@ -16,7 +16,8 @@ versions): the counterparts of ``tests/test_ring_attention.py`` and of
   parameters (1e-4 of each tensor's largest; 4.9e-5 seen: Adam divides
   by the root of tiny second moments) after three Adam steps; the typed
   refusal of an
-  axis the model does not attend over, and of a mesh across processes.
+  axis the model does not attend over, and of a mesh across processes
+  outside the process group it was made in.
 """
 import functools
 
@@ -187,9 +188,10 @@ def test_sequence_parallel_step_matches_jax(eight_devices):
 
 def test_sequence_parallel_refusals():
     """An axis the model does not attend over raises ``SequenceAxisError``
-    naming both; ring attention over a mesh across processes raises
-    ``MeshShapeError`` naming ROADMAP step 3f; a sequence the ring does
-    not divide raises before the step runs."""
+    naming both; ring attention over a mesh across processes, here
+    without the process group it needs, raises ``MeshShapeError`` naming
+    the missing group; a sequence the ring does not divide raises before
+    the step runs."""
     mesh = virtual_mesh(4, 1, "cpu")
     tm = TransformerLM(vocab=64, dim=32, depth=1, num_heads=4,
                        attn_fn=make_attn_fn("ring", mesh=mesh))
@@ -201,7 +203,8 @@ def test_sequence_parallel_refusals():
     with pytest.raises(ValueError, match="not divisible"):
         step(TrainState(0, tm, opt), torch.zeros((2, 30), dtype=torch.int64))
     cpu = torch.device("cpu")
-    spread = Mesh(((cpu,), (cpu,)), virtual=True, local=(0,))
+    spread = Mesh(((cpu,), (cpu,)), virtual=True, owners=((0,), (1,)))
     q, k, v = map(torch.from_numpy, qkv(5, t=16))
-    with pytest.raises(MeshShapeError, match="step 3f"):
+    with pytest.raises(MeshShapeError,
+                       match="no torch.distributed process group"):
         ring_attention(q, k, v, spread)

@@ -106,15 +106,17 @@ def test_routed_pool_over_distinct_devices_runs_eager(served):
 
 
 def test_mesh_along_names_every_kind_it_refuses():
-    """``Mesh.along`` refuses a mesh across processes for sequence,
-    pipeline and expert parallelism alike, and says so, citing ROADMAP's
-    step 3f."""
+    """``Mesh.along`` refuses a mesh across processes outside the process
+    group it was made in for sequence, pipeline and expert parallelism
+    alike, and says so, naming the missing group and where it comes
+    from."""
     mesh = virtual_mesh(2, 2, "cpu")
-    across = type(mesh)(devices=mesh.devices, virtual=True, local=(0,),
-                        axes=mesh.axes)
+    across = type(mesh)(devices=mesh.devices, virtual=True,
+                        owners=((0, 0), (1, 1)), axes=mesh.axes)
     with pytest.raises(MeshShapeError) as err:
         across.along(mesh.axes[1])
     msg = str(err.value)
     for kind in ("sequence", "pipeline", "expert"):
         assert kind in msg
-    assert "ROADMAP.md §1 step 3f" in msg
+    assert "no torch.distributed process group" in msg
+    assert "initialize_distributed" in msg

@@ -337,9 +337,9 @@ def test_multi_host_init_names_the_roadmap():
     """Multi-host bring-up landed with data parallelism (step 3b; the two
     processes of ``tests/test_torch_multiprocess.py`` join through it):
     outside a process group ``process_info`` is (0, 1) and ``global_mesh``
-    is this process's devices, and a rank-less call raises. What still
-    waits, the sequence-parallel LM step over a mesh across processes,
-    raises naming ROADMAP.md (step 3f)."""
+    is this process's devices, and a rank-less call raises. The
+    sequence-parallel LM step over a mesh across processes, outside the
+    process group it was made in, raises naming the missing group."""
     from idunno_tpu_torch.engine.train_lm import jit_lm_train_step
     from idunno_tpu_torch.parallel.mesh import (global_mesh,
                                                 initialize_distributed,
@@ -356,10 +356,12 @@ def test_multi_host_init_names_the_roadmap():
     from idunno_tpu_torch.parallel.mesh import Mesh
 
     cpu = torch.device("cpu")
-    spread = Mesh(((cpu,), (cpu,)), virtual=True, local=(1,))
+    spread = Mesh(((cpu,), (cpu,)), virtual=True, owners=((0,), (1,)),
+                  rank=1)
     tm = TransformerLM(vocab=16, dim=16, depth=1, num_heads=2,
                        attn_fn=make_attn_fn("ring", mesh=spread))
-    with pytest.raises(ValueError, match="ROADMAP.md.*3f"):
+    with pytest.raises(ValueError,
+                       match="no torch.distributed process group"):
         jit_lm_train_step(tm, None, spread, sequence_parallel=True)
 
 
